@@ -1,0 +1,77 @@
+"""Reference (flax) parameters -> the port's ``state_dict``.
+
+Takes the reference's parameter tree with numpy leaves (call
+``np.asarray`` on device arrays first, or pass them as they are: any leaf
+that converts with ``np.asarray`` works) and returns CPU tensors keyed as
+the port's modules name them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["transformer_params_from_flax"]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _dense(p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Dense kernel [in, out] -> Linear weight [out, in]."""
+    out = {"weight": _t(p["kernel"]).T.contiguous()}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
+def _conv(p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Conv kernel [kh, kw, cin, cout] -> Conv2d weight [cout, cin, kh, kw]."""
+    return {"weight": _t(p["kernel"]).permute(3, 2, 0, 1).contiguous(),
+            "bias": _t(p["bias"])}
+
+
+def _norm(p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """LayerNorm scale/bias -> weight/bias."""
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
+
+
+def transformer_params_from_flax(params: Mapping[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """Map a ``TransformerNet`` parameter tree (``{"params": ...}`` or its
+    inside) onto :class:`moolib_tpu_torch.models.TransformerNet`'s
+    ``state_dict`` keys. Raises ``KeyError`` on a tree of another model
+    and ``ValueError`` on an MoE tree, which the port does not have yet."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(prefix: str, tensors: Dict[str, torch.Tensor]):
+        for k, v in tensors.items():
+            sd[f"{prefix}.{k}"] = v
+
+    if "Conv_0" in p:
+        put("conv0", _conv(p["Conv_0"]))
+        put("conv1", _conv(p["Conv_1"]))
+    else:
+        put("embed_in", _dense(p["Dense_0"]))
+    sd["pos_emb.weight"] = _t(p["pos_emb"]["embedding"])
+    i = 0
+    while f"block_{i}" in p:
+        blk = p[f"block_{i}"]
+        if "moe" in blk:
+            raise ValueError("MoE blocks are not ported yet")
+        pre = f"blocks.{i}"
+        put(f"{pre}.ln1", _norm(blk["LayerNorm_0"]))
+        put(f"{pre}.attn.qkv", _dense(blk["attn"]["qkv"]))
+        put(f"{pre}.attn.out", _dense(blk["attn"]["out"]))
+        put(f"{pre}.ln2", _norm(blk["LayerNorm_1"]))
+        put(f"{pre}.mlp_in", _dense(blk["Dense_0"]))
+        put(f"{pre}.mlp_out", _dense(blk["Dense_1"]))
+        i += 1
+    put("ln_f", _norm(p["LayerNorm_0"]))
+    put("policy", _dense(p["policy"]))
+    put("baseline", _dense(p["baseline"]))
+    return sd

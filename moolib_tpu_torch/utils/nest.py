@@ -1,0 +1,113 @@
+"""Nested-structure utilities over dict/list/tuple trees of tensors.
+
+The counterpart of :mod:`moolib_tpu.utils.nest` for torch tensors and
+numpy arrays, written without a tree library. Dicts, lists and tuples
+(namedtuples included) are interior nodes, ``None`` is an empty subtree,
+everything else is a leaf. Dict leaves are visited in sorted key order,
+the order the reference's flatten uses.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Iterable
+
+import numpy as np
+import torch
+
+__all__ = [
+    "map_structure",
+    "flatten",
+    "stack_fields",
+    "unstack_fields",
+    "slice_fields",
+]
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def map_structure(fn: Callable, *trees: Any) -> Any:
+    """Apply ``fn`` leaf-wise over one or more trees with identical
+    structure."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        for t in trees[1:]:
+            if not isinstance(t, dict) or set(t) != set(first):
+                raise ValueError("dict trees have different keys")
+        return {
+            k: map_structure(fn, *(t[k] for t in trees)) for k in first
+        }
+    if isinstance(first, (list, tuple)):
+        for t in trees[1:]:
+            if type(t) is not type(first) or len(t) != len(first):
+                raise ValueError("sequence trees differ in type or length")
+        items = [map_structure(fn, *xs) for xs in zip(*trees)]
+        if _is_namedtuple(first):
+            return type(first)(*items)
+        return type(first)(items)
+    return fn(*trees)
+
+
+def flatten(tree: Any) -> list:
+    """The leaves of ``tree`` in order (dict keys sorted)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in flatten(x)]
+    return [tree]
+
+
+def stack_fields(trees: Iterable[Any], axis: int = 0) -> Any:
+    """Stack a sequence of same-structure trees into one tree of batched
+    leaves (torch leaves with :func:`torch.stack`, others with numpy)."""
+    trees = list(trees)
+    if not trees:
+        raise ValueError("stack_fields requires at least one tree")
+
+    def _stack(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs, dim=axis)
+        return np.stack(xs, axis=axis)
+
+    return map_structure(_stack, *trees)
+
+
+def unstack_fields(tree: Any, batch_size: int | None = None,
+                   axis: int = 0) -> list:
+    """Split a batched tree back into its unbatched trees; the inverse of
+    :func:`stack_fields`. Passing ``batch_size`` asserts the leaves'
+    ``axis`` length."""
+    leaves = flatten(tree)
+    if not leaves:
+        raise ValueError("unstack_fields requires a tree with leaves")
+    n = leaves[0].shape[axis]
+    for leaf in leaves:
+        if leaf.shape[axis] != n:
+            raise ValueError(
+                f"inconsistent batch axis: {leaf.shape[axis]} != {n}"
+            )
+    if batch_size is not None and batch_size != n:
+        raise ValueError(f"batch_size {batch_size} != leaf axis length {n}")
+
+    def _pick(x, i):  # a view of row i along axis
+        return x[(slice(None),) * (axis % x.ndim) + (i,)]
+
+    return [
+        map_structure(lambda x, i=i: _pick(x, i), tree) for i in range(n)
+    ]
+
+
+def slice_fields(tree: Any, start: int, stop: int, axis: int = 0) -> Any:
+    """Slice every leaf along ``axis``."""
+
+    def _sl(x):
+        index = [slice(None)] * x.ndim
+        index[axis] = slice(start, stop)
+        return x[tuple(index)]
+
+    return map_structure(_sl, tree)

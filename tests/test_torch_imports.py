@@ -1,0 +1,74 @@
+"""Import hygiene of the port: moolib_tpu_torch and chip_smoke.py import
+neither JAX nor anything of the JAX package, and the entry points refuse
+to run on the CPU unasked."""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from moolib_tpu_torch import Replica, resolve_device
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
+
+_CHILD = r"""
+import importlib, json, pkgutil, sys
+import moolib_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(
+    moolib_tpu_torch.__path__, "moolib_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax") or m.startswith(("jax.", "flax."))
+             or m == "moolib_tpu" or m.startswith("moolib_tpu."))
+print(json.dumps({"modules": mods, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    """In a fresh interpreter (this one has jax loaded by conftest)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=str(REPO_ROOT),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "moolib_tpu_torch.ops._kernels" in got["modules"]
+    assert "moolib_tpu_torch.serving.replica" in got["modules"]
+    assert got["bad"] == [], got["bad"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_package():
+    names = list(_imported_roots(REPO_ROOT / "chip_smoke.py"))
+    assert any(n.startswith("moolib_tpu_torch") for n in names), names
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "flax", "moolib_tpu")]
+    assert bad == [], bad
+
+
+def test_entry_points_refuse_the_cpu_unasked():
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_replica_has_no_rpc_binding_yet():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Replica(object(), lambda p, x: x, device="cpu")
