@@ -6,24 +6,34 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. Device: the card's name, capability and power limit; needs sm_90.
-2. Build: every hand-written kernel from the sources in the checkout.
-3. Kernel vs plain: each kernel's wrapper on the card, held against its
-   plain PyTorch version on the same inputs (the main path's shapes
-   included), with the kernel's, the plain version's and a library
+2. Build: every hand-written kernel from the sources in the checkout, one
+   nvcc per source, all started together; registers and spills.
+3. Forward kernel vs plain: the flash forward's wrapper on the card, held
+   against its plain PyTorch version on the same inputs (the main paths'
+   shapes included), with the kernel's, the plain version's and a library
    call's times and the card's least time for the same work.
-4. Serve: the full-width TransformerNet behind two Replicas (the act
+4. Backward kernels vs plain: the same for the flash dQ and dK/dV
+   kernels, on o and lse from the forward kernel and a seeded dO.
+5. Serve: the full-width TransformerNet behind two Replicas (the act
    step at T=1 and a 2048-step context window), a few requests each,
    replies held against the same forward with plain dense attention
-   on the CPU;
-   every kernel's launch count must rise during each service.
-5. The kernels line, the card line, and the result line.
+   on the CPU; the forward kernel's launch count must rise during each
+   service.
+6. Train: 3 IMPALA/V-trace steps of the full-width TransformerNet on
+   learn batches [T+1=21, B=32], held against the same steps with dense
+   attention on the CPU; every kernel's launch count must rise by 2 per
+   step; the grad-step / apply-step split must give the same result;
+   steady-state step time and one step under torch.profiler.
+7. The kernels line, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +59,11 @@ SERVE_TOL = 1e-4
 EPISODE_LENGTH = 200
 ACT_SHAPE = (BATCH * ACT_ENVS, 4, 1, 32)     # [B, H, T, D] of the act step
 CONTEXT_SHAPE = (BATCH, 4, CONTEXT_T, 32)    # [B, H, T, D] of a context batch
+# The learn batch of moolib_tpu/examples/vtrace/experiment.py:61-63:
+# learn_batch_size 32 envs, unroll_length 20 (+1 bootstrap frame).
+LEARN_B, UNROLL = 32, 20
+TRAIN_SHAPE = (LEARN_B, 4, UNROLL + 1, 32)   # [B, H, T, D] of a train step
+TRAIN_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -76,6 +91,24 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20):
+    """Mean device time of the CUDA kernels whose name holds ``kernel``
+    over ``iters`` calls of ``fn``, from a torch.profiler trace (host
+    gaps between launches excluded); None if the trace has no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    return us / iters / 1e3 if us else None
 
 
 def episode_segments(gen: torch.Generator, B: int, T: int) -> torch.Tensor:
@@ -118,6 +151,30 @@ def flash_bound_ms(q, k, seg_q, seg_k, causal: bool):
                                        else "operations")
 
 
+def flash_bwd_bounds_ms(q, k, seg_q, seg_k, causal: bool):
+    """Least times of the two backward kernels on this card: bytes (the
+    kernel's inputs read once: q, k, v, dO, lse, delta and segment ids;
+    its outputs written once) over HBM bandwidth, against 6*D FLOPs per
+    visible pair for dQ (s, dp, dQ) and 8*D for dK/dV (s, dp, dV, dK)
+    over the peak for the input type. Returns {kernel: (ms, by)}."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    item = q.element_size()
+    ins = ((2 * Tq + 2 * Tk) * D * item + 2 * Tq * 4) * B * H
+    ins += (B * Tq + B * Tk) * 4
+    pairs = visible_pairs(seg_q, seg_k, H, causal)
+    out = {}
+    for name, nbytes, flops in (
+        ("flash_bwd_dq", ins + B * H * Tq * D * item, 6 * D * pairs),
+        ("flash_bwd_dkdv", ins + 2 * B * H * Tk * D * item, 8 * D * pairs),
+    ):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[q.dtype]
+        out[name] = (1e3 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -134,16 +191,31 @@ def phase_device():
     return name, smi
 
 
+def _ptxas_lines(log: str):
+    """(kernel, D, dtype, line) for each register/spill line of ptxas -v."""
+    name = "?"
+    for line in log.splitlines():
+        m = re.search(r"(flash_\w+_kernel)ILi(\d+)E(f|13__nv_bfloat16)", line)
+        if m and ("Compiling entry" in line or "Function properties" in line):
+            dtype = "f32" if m.group(3) == "f" else "bf16"
+            name = f"{m.group(1)}<D={m.group(2)},{dtype}>"
+        elif "registers" in line or "spill" in line:
+            yield name, line.strip()
+
+
 def phase_build():
-    from moolib_tpu_torch.ops._kernels import FLASH_FWD
+    from moolib_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
-    FLASH_FWD.ensure_built()
-    log(f"[build] {FLASH_FWD.name} ready in {time.perf_counter() - t0:.1f}s "
-        f"(nvcc {FLASH_FWD.build_seconds}s)")
-    for line in FLASH_FWD.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {FLASH_FWD.name}: {line.strip()}")
+    _kernels.build_all()
+    log(f"[build] {len(_kernels.KERNELS)} kernels from "
+        f"{len(_kernels.LIBRARIES)} sources ready in "
+        f"{time.perf_counter() - t0:.1f}s (nvcc in parallel: "
+        + ", ".join(f"{lib.source.name} {lib.build_seconds}s"
+                    for lib in _kernels.LIBRARIES) + ")")
+    for lib in _kernels.LIBRARIES:
+        for name, line in _ptxas_lines(lib.build_log):
+            log(f"[build] {lib.source.name} {name}: {line}")
 
 
 def _compare(o, lse, o_ref, lse_ref, o_tol_fn):
@@ -169,6 +241,8 @@ def phase_kernel_vs_plain():
         ("context (main path)", CONTEXT_SHAPE, CONTEXT_T, torch.float32,
          True, False),
         ("act (main path)", ACT_SHAPE, 1, torch.float32, True, False),
+        ("train (main path)", TRAIN_SHAPE, UNROLL + 1, torch.float32, True,
+         False),
         ("B*H=32 T=2048 f32", (8, 4, 2048, 32), 2048, torch.float32, True,
          False),
         ("B*H=32 T=2048 bf16", (8, 4, 2048, 32), 2048, torch.bfloat16,
@@ -212,11 +286,15 @@ def phase_kernel_vs_plain():
 
     timings = {}
     for name in ("context (main path)", "act (main path)",
-                 "B*H=32 T=2048 f32", "B*H=32 T=2048 bf16"):
+                 "train (main path)", "B*H=32 T=2048 f32",
+                 "B*H=32 T=2048 bf16"):
         r = results[name]
         q, k, v, sq, sk, causal = (r["q"], r["k"], r["v"], r["seg_q"],
                                    r["seg_k"], r["causal"])
         ms = cuda_ms(lambda: _kernels.flash_fwd(q, k, v, sq, sk, causal), 20)
+        dev_ms = device_ms(lambda: _kernels.flash_fwd(q, k, v, sq, sk,
+                                                      causal),
+                           "flash_fwd_kernel")
         plain_ms = cuda_ms(
             lambda: _flash_forward_plain(q, k, v, sq, sk, causal), 5)
         Tq, Tk = q.shape[2], k.shape[2]
@@ -232,13 +310,144 @@ def phase_kernel_vs_plain():
         # causal triangle is visible.
         no_reset_ms, _ = flash_bound_ms(q, k, torch.zeros_like(sq),
                                         torch.zeros_like(sk), causal)
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bound_ms, bound_by=bound_by,
+        timings[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound_ms,
+                             bound_by=bound_by,
                              bound_ms_no_resets=no_reset_ms)
-        log(f"[kernel] flash_fwd {name} timing: kernel {ms:.4f} ms, plain "
+        log(f"[kernel] flash_fwd {name} timing: kernel {ms:.4f} ms "
+            f"(profiler device time {dev_ms} ms), plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} "
             f"ms ({bound_by}), bound with no resets {no_reset_ms:.4f} ms; "
             f"kernel/bound {ms / bound_ms:.1f}x")
+    return results, timings
+
+
+def phase_backward_vs_plain():
+    """Both backward kernels against the plain backward on the same
+    inputs: o and lse from the forward kernel, dO from a seeded
+    generator. Tolerance: f32, 1e-4 of the gradient's largest entry
+    (summation order over up to 2048 terms); bf16 gradients, one rounding
+    of the f32 result on top (2**-7 relative)."""
+    from moolib_tpu_torch.ops import _kernels
+    from moolib_tpu_torch.ops.attention import (
+        _flash_backward_plain,
+        _flash_delta,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [
+        # name, (B, H, Tq, D), Tk, dtype, causal, kv masked rows
+        ("train (main path)", TRAIN_SHAPE, UNROLL + 1, torch.float32, True,
+         False),
+        ("context", CONTEXT_SHAPE, CONTEXT_T, torch.float32, True, False),
+        ("B*H=32 T=2048 bf16", (8, 4, 2048, 32), 2048, torch.bfloat16,
+         True, False),
+        ("ragged T=100 D=64", (2, 4, 100, 64), 100, torch.float32, True,
+         False),
+        ("ragged T=100 D=128", (2, 4, 100, 128), 100, torch.float32, True,
+         False),
+        ("ragged T=100 D=128 bf16", (2, 4, 100, 128), 100, torch.bfloat16,
+         True, False),
+        ("non-causal masked rows D=64", (2, 4, 256, 64), 384,
+         torch.float32, False, True),
+    ]
+    results = {}
+    for name, (B, H, Tq, D), Tk, dtype, causal, kv_mask in cases:
+        q, do = (torch.randn((B, H, Tq, D), generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn((B, H, Tk, D), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        seg_q = episode_segments(gen, B, Tq)
+        if kv_mask:
+            seg_k = torch.zeros((B, Tk), dtype=torch.int32, device="cuda")
+            seg_q[:, Tq // 2:] = 7  # no key carries segment 7
+        else:
+            seg_k = seg_q
+        o, lse = _kernels.flash_fwd(q, k, v, seg_q, seg_k, causal)
+        delta = _flash_delta(o, do)
+        dq = _kernels.flash_bwd_dq(q, k, v, seg_q, seg_k, lse, delta, do,
+                                   causal)
+        dk, dv = _kernels.flash_bwd_dkdv(q, k, v, seg_q, seg_k, lse, delta,
+                                         do, causal)
+        torch.cuda.synchronize()
+        want = _flash_backward_plain(q, k, v, seg_q, seg_k, o, lse, do,
+                                     causal)
+        errs, ok = {}, True
+        rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+        for gname, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            ref = ref.float()
+            tol = 1e-4 * float(ref.abs().max()) + rel * ref.abs()
+            err = (got.float() - ref).abs()
+            ok &= bool((err <= tol).all())
+            errs[gname] = (float(err.max()), float(tol.max()))
+        if kv_mask:
+            masked = torch.isinf(lse).reshape(B, H, Tq)
+            if not masked.any():
+                raise RuntimeError("masked-rows case produced no masked row")
+            if not bool((dq[masked] == 0).all()):
+                ok = False
+            errs["dq on masked rows"] = (float(dq[masked].abs().max()), 0.0)
+        log(f"[backward] {name}: q {tuple(q.shape)} Tk {Tk} "
+            f"{str(dtype)[6:]} causal={causal} | "
+            + " ".join(f"max|{g}-plain| {e:.3e} (tol {t:.3e})"
+                       for g, (e, t) in errs.items())
+            + f" | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"backward kernels disagree with plain on "
+                               f"{name}")
+        results[name] = dict(q=q, k=k, v=v, do=do, seg_q=seg_q,
+                             seg_k=seg_k, causal=causal, o=o, lse=lse,
+                             delta=delta, errs=errs)
+
+    timings = {}
+    for name in ("train (main path)", "context"):
+        r = results[name]
+        q, k, v, do, sq, sk, causal = (r["q"], r["k"], r["v"], r["do"],
+                                       r["seg_q"], r["seg_k"], r["causal"])
+        o, lse, delta = r["o"], r["lse"], r["delta"]
+        def dq_fn():
+            return _kernels.flash_bwd_dq(q, k, v, sq, sk, lse, delta, do,
+                                         causal)
+
+        def dkdv_fn():
+            return _kernels.flash_bwd_dkdv(q, k, v, sq, sk, lse, delta, do,
+                                           causal)
+
+        dq_ms, dkdv_ms = cuda_ms(dq_fn, 20), cuda_ms(dkdv_fn, 20)
+        dev = {"flash_bwd_dq": device_ms(dq_fn, "flash_bwd_dq_kernel"),
+               "flash_bwd_dkdv": device_ms(dkdv_fn, "flash_bwd_dkdv_kernel")}
+        plain_ms = cuda_ms(lambda: _flash_backward_plain(
+            q, k, v, sq, sk, o, lse, do, causal), 5)
+        # Yardstick: SDPA's backward with the same boolean mask.
+        Tq, Tk = q.shape[2], k.shape[2]
+        mask = sq[:, None, :, None] == sk[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones((Tq, Tk), dtype=torch.bool,
+                                     device="cuda").tril()
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=mask)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), 20)
+        bounds = flash_bwd_bounds_ms(q, k, sq, sk, causal)
+        no_resets = flash_bwd_bounds_ms(q, k, torch.zeros_like(sq),
+                                        torch.zeros_like(sk), causal)
+        timings[name] = {}
+        for kname, ms in (("flash_bwd_dq", dq_ms),
+                          ("flash_bwd_dkdv", dkdv_ms)):
+            timings[name][kname] = dict(
+                ms=ms, device_ms=dev[kname], plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bounds[kname][0],
+                bound_by=bounds[kname][1],
+                bound_ms_no_resets=no_resets[kname][0])
+            log(f"[backward] {kname} {name} timing: kernel {ms:.4f} ms "
+                f"(profiler device time {dev[kname]} ms), "
+                f"bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}), "
+                f"bound with no resets {no_resets[kname][0]:.4f} ms; "
+                f"kernel/bound {ms / bounds[kname][0]:.1f}x")
+        log(f"[backward] {name} timing: dq+dkdv {dq_ms + dkdv_ms:.4f} ms, "
+            f"plain backward (dq, dk, dv together) {plain_ms:.4f} ms, "
+            f"sdpa backward {lib_ms:.4f} ms")
     return results, timings
 
 
@@ -275,7 +484,7 @@ def _check(name, got, want, shape):
 
 def phase_serve():
     from moolib_tpu_torch import Replica, TransformerNet, make_act_step
-    from moolib_tpu_torch.ops._kernels import FLASH_FWD
+    from moolib_tpu_torch.ops._kernels import FLASH_FWD, KERNELS
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     # experiment.py's transformer at full width: d_model 128, 2 layers,
@@ -342,9 +551,10 @@ def phase_serve():
         rep = Replica(None, fn, net, service=kind, batch_size=BATCH,
                       pad=True, linger_s=0.05, device="cuda")
         try:
-            FLASH_FWD.launches = 0
+            for kern in KERNELS:
+                kern.launches = 0
             replies, host_ms, event_ms = _serve(rep, reqs, waves)
-            launches[kind] = {FLASH_FWD.name: FLASH_FWD.launches}
+            launches[kind] = {kern.name: kern.launches for kern in KERNELS}
         finally:
             rep.close()
         # Hold every reply against the dense-attention forward on the CPU.
@@ -379,11 +589,288 @@ def phase_serve():
             f"{[round(x, 3) for x in event_ms]}")
         log(f"[serve] {kind}: batch forward ms (CUDA events) "
             f"{[round(x, 3) for x in batch_ms[kind]]}")
-        for k, n in launches[kind].items():
-            if n == 0:
-                raise RuntimeError(f"{k} was never launched by the {kind} "
-                                   "service")
+        if launches[kind][FLASH_FWD.name] == 0:
+            raise RuntimeError(f"{FLASH_FWD.name} was never launched by the "
+                               f"{kind} service")
     return launches
+
+
+def _learn_batches(gen: torch.Generator, n: int):
+    """``n`` consecutive learn batches of experiment.py's shape on the
+    card: uint8 frames [T+1, B, 84, 84, 4]; an episode reset every
+    EPISODE_LENGTH steps per env at a phase of its own (batch i starts
+    where batch i-1 ended, as unrolls overlap by the bootstrap frame);
+    rewards ~ N(0, 1), so reward_clip (1.0) cuts about a third of them;
+    behaviour logits ~ N(0, 1) and actions sampled from them."""
+    T, B, A = UNROLL, LEARN_B, 6
+    phase = torch.randint(0, EPISODE_LENGTH, (1, B), generator=gen,
+                          device="cuda")
+    batches = []
+    for i in range(n):
+        t = torch.arange(T + 1, device="cuda")[:, None] + i * T
+        logits = torch.randn((T, B, A), generator=gen, device="cuda")
+        actions = torch.multinomial(torch.softmax(logits, -1).reshape(-1, A),
+                                    1, generator=gen).reshape(T, B)
+        batches.append({
+            "obs": torch.randint(0, 256, (T + 1, B, 84, 84, 4),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.uint8),
+            "done": (t + phase) % EPISODE_LENGTH == 0,
+            "rewards": torch.randn((T + 1, B), generator=gen,
+                                   device="cuda"),
+            "actions": actions,
+            "behavior_logits": logits,
+            "core_state": (),
+        })
+    return batches
+
+
+def _to_cpu(batch):
+    return {k: v.cpu() if torch.is_tensor(v) else v for k, v in batch.items()}
+
+
+# Train steps on the card vs the same steps with dense attention on the
+# CPU: everything is f32 but the two bf16 roundings both sides make alike
+# (scaled pixels, pos_emb), so the difference is summation order (the
+# kernels, cuDNN's f32 convolutions, cuBLAS). Metrics: 1e-4 relative.
+# Gradients of step 1: 1e-3 of each tensor's largest entry; the conv
+# torso's gradients are sums over up to 672*441 positions whose terms
+# cancel, which amplifies the order's error (6.8e-5 at conv1.bias on an
+# H100 80GB HBM3). pos_emb's gradient is rounded to bf16 on its way back
+# through the compute-dtype cast, where one rounding may fall the other
+# way: 2**-7. Parameters after the last step: a step moves a parameter
+# by lr*g/sqrt(nu+eps), at most 10*lr = 6e-3 on the first step, so a
+# 1e-4 relative gradient difference moves it by < 6e-7 a step: 2e-6
+# absolute after three.
+TRAIN_METRIC_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+BF16_GRAD_TOL = {"pos_emb.weight": 2.0 ** -7}
+TRAIN_PARAM_TOL = 2e-6
+CONV_PARAMS = ("conv0.weight", "conv0.bias", "conv1.weight", "conv1.bias")
+METRICS = ("total_loss", "pg_loss", "baseline_loss", "entropy", "grad_norm")
+
+
+def _profile_step(run_step) -> dict:
+    """One train step under torch.profiler: its wall time, the number of
+    work items on the card (kernels, copies, fills), their summed device
+    time (one stream, so no overlap), the five largest by device time,
+    and the spans that record_function ranges (the optimizer's step)
+    cover on the device timeline."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = run_step()
+        float(m["total_loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name, spans = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.is_user_annotation:  # a range over other work, not work
+            spans[e.name] = spans.get(e.name, 0.0) + e.time_range.elapsed_us()
+            continue
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    items = sum(n for n, _ in by_name.values())
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    log(f"[train] profiled step: {wall_ms:.3f} ms wall (profiler on), "
+        f"{items} device work items, {busy_ms:.3f} ms device busy "
+        f"({100 * busy_ms / wall_ms:.1f}% of the wall time)")
+    for name, (n, us) in top:
+        log(f"[train]   {us / 1e3:.3f} ms in {n} x {name[:90]}")
+    for name, us in spans.items():
+        log(f"[train]   span {name}: {us / 1e3:.3f} ms on the device timeline")
+    return dict(wall_ms=wall_ms, device_items=items, device_busy_ms=busy_ms,
+                spans_ms={k: us / 1e3 for k, us in spans.items()},
+                top=[dict(name=name[:90], count=n, ms=us / 1e3)
+                     for name, (n, us) in top])
+
+
+def phase_train():
+    from moolib_tpu_torch import (
+        ClippedRMSprop,
+        ImpalaConfig,
+        TransformerNet,
+        impala_loss,
+        make_apply_step,
+        make_grad_step,
+        make_impala_train_step,
+        make_train_state,
+    )
+    from moolib_tpu_torch.learner import call_model
+    from moolib_tpu_torch.ops._kernels import KERNELS
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def model(device, backend, generator=None):
+        # experiment.py's transformer at full width (as in phase 5).
+        return TransformerNet(6, (84, 84, 4), compute_dtype=torch.bfloat16,
+                              attention_backend=backend, device=device,
+                              generator=generator)
+
+    def optimizer(net):
+        # experiment.py:240-243: clip_by_global_norm(40), then
+        # rmsprop(6e-4, decay=0.99, eps=0.01).
+        return ClippedRMSprop(net.parameters(), 6e-4, decay=0.99, eps=0.01,
+                              max_norm=40.0)
+
+    # experiment.py:246-251's values (discounting 0.99, baseline_cost
+    # 0.5, entropy_cost 0.0006, reward_clip 1.0).
+    cfg = ImpalaConfig(discounting=0.99, baseline_cost=0.5,
+                       entropy_cost=0.0006, reward_clip=1.0)
+    net = model("cuda", "auto", gen)
+    cpu = model("cpu", "dense")
+    cpu.load_state_dict(net.state_dict())
+    twin = copy.deepcopy(net)
+    batches = _learn_batches(gen, TRAIN_STEPS)
+    clipped = float(torch.stack([(b["rewards"][1:].abs() > 1).float().mean()
+                                 for b in batches]).mean())
+    resets = int(sum(int(b["done"][1:].sum()) for b in batches))
+    log(f"[train] learn batches obs {tuple(batches[0]['obs'].shape)} u8 x "
+        f"{TRAIN_STEPS}; {resets} resets; reward_clip cuts "
+        f"{100 * clipped:.0f}% of rewards")
+
+    # Gradients of step 1, card vs CPU.
+    g_card, _ = make_grad_step(config=cfg)(net, batches[0])
+    g_cpu, _ = make_grad_step(config=cfg)(cpu, _to_cpu(batches[0]))
+
+    def rel_errs(grads):
+        return {n: float((grads[n].cpu() - g_cpu[n]).abs().max())
+                / float(g_cpu[n].abs().max()) for n in g_cpu}
+
+    errs = rel_errs(g_card)
+    worst = max((n for n in errs if n not in BF16_GRAD_TOL), key=errs.get)
+    grad_err = errs[worst]
+    log(f"[train] step-1 gradients vs CPU: max relative error {grad_err:.3e}"
+        f" at {worst} (tol {TRAIN_GRAD_TOL}); "
+        + " ".join(f"{n} {errs[n]:.3e} (tol {t:.3e})"
+                   for n, t in BF16_GRAD_TOL.items())
+        + "; conv torso " + " ".join(f"{n} {errs[n]:.3e}" for n in CONV_PARAMS))
+    bad = [n for n, e in errs.items()
+           if not e <= BF16_GRAD_TOL.get(n, TRAIN_GRAD_TOL)]
+    if bad:
+        raise RuntimeError(f"step-1 gradients differ from the CPU's at "
+                           f"{bad}")
+    # Control: the same gradients with cuDNN's TF32 left on (PyTorch's
+    # default) for the backward, as the port computed them before the
+    # train steps held it off there too.
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        total, _ = impala_loss(net, call_model, batches[0], cfg)
+        names = [n for n, _ in net.named_parameters()]
+        tf32 = dict(zip(names, torch.autograd.grad(total,
+                                                   list(net.parameters()))))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    tf32_errs = rel_errs(tf32)
+    log("[train] control, TF32 in the backward: conv torso "
+        + " ".join(f"{n} {tf32_errs[n]:.3e}" for n in CONV_PARAMS)
+        + f"; max over all {max(tf32_errs.values()):.3e}")
+    del g_card, g_cpu, tf32
+
+    # The main path: 3 fused train steps, launch counts from 0.
+    step = make_impala_train_step(config=cfg)
+    state = make_train_state(net, optimizer(net))
+    ref_step = make_impala_train_step(config=cfg)
+    ref_state = make_train_state(cpu, optimizer(cpu))
+    metrics, ref_metrics, per_step = [], [], []
+    for kern in KERNELS:
+        kern.launches = 0
+    for i, batch in enumerate(batches):
+        before = [kern.launches for kern in KERNELS]
+        state, m = step(state, batch)
+        metrics.append({k: float(m[k]) for k in METRICS})
+        per_step.append([kern.launches - n for kern, n in
+                         zip(KERNELS, before)])
+        if i == 0:
+            after_one = {k: v.clone() for k, v in net.state_dict().items()}
+    launches = {kern.name: kern.launches for kern in KERNELS}
+    log(f"[train] launches per step {per_step} "
+        f"({[kern.name for kern in KERNELS]}); total {launches}")
+    if any(n != 2 for row in per_step for n in row):
+        raise RuntimeError("each kernel must launch twice per train step "
+                           f"(once per layer); got {per_step}")
+    for batch in batches:
+        ref_state, m = ref_step(ref_state, _to_cpu(batch))
+        ref_metrics.append({k: float(m[k]) for k in METRICS})
+    for i, (m, r) in enumerate(zip(metrics, ref_metrics)):
+        errs = {k: abs(m[k] - r[k]) / max(abs(r[k]), 1e-30) for k in METRICS}
+        log(f"[train] step {i + 1}: "
+            + " ".join(f"{k} {m[k]:.6g}" for k in METRICS)
+            + f" | max relative error vs CPU {max(errs.values()):.3e} "
+            f"(tol {TRAIN_METRIC_TOL})")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"non-finite metrics at step {i + 1}: {m}")
+        if max(errs.values()) > TRAIN_METRIC_TOL:
+            raise RuntimeError(f"step {i + 1} metrics differ from the CPU "
+                               f"steps: {errs}")
+    ref_params = cpu.state_dict()
+    param_err = max(float((p.cpu() - ref_params[n]).abs().max())
+                    for n, p in net.state_dict().items())
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in net.state_dict().values())
+    log(f"[train] parameters after step {TRAIN_STEPS}: max|card-CPU| "
+        f"{param_err:.3e} (tol {TRAIN_PARAM_TOL}); finite {finite}")
+    if not finite or param_err > TRAIN_PARAM_TOL:
+        raise RuntimeError("parameters after the train steps differ from "
+                           "the CPU steps")
+
+    # experiment.py's split: grads x learn_batch_size, the one-peer
+    # Accumulator mean (divide by the count), then the apply step.
+    grads, _ = make_grad_step(config=cfg, grad_scale=float(LEARN_B))(
+        twin, batches[0])
+    grads = {n: g / LEARN_B for n, g in grads.items()}
+    twin_state = make_apply_step()(make_train_state(twin, optimizer(twin)),
+                                   grads)
+    split_err = max(float((p - after_one[n]).abs().max())
+                    for n, p in twin.state_dict().items())
+    bitwise = all(torch.equal(p, after_one[n])
+                  for n, p in twin.state_dict().items())
+    # cuDNN's weight gradients may sum in another order from call to
+    # call; anything else is the same arithmetic.
+    log(f"[train] grad step x{LEARN_B} / {LEARN_B} + apply step vs fused "
+        f"step 1: max|diff| {split_err:.3e} (tol 1e-7), bitwise {bitwise}; "
+        f"step {twin_state.step}")
+    if split_err > 1e-7 or twin_state.step != 1:
+        raise RuntimeError("the grad/apply split differs from the fused "
+                           "train step")
+
+    # Steady state: more steps on the same batches, timed.
+    event_ms, host_ms = [], []
+    for i in range(8):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        state, m = step(state, batches[i % TRAIN_STEPS])
+        end.record()
+        float(m["total_loss"])  # the step's result, on the host
+        end.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        event_ms.append(start.elapsed_time(end))
+    log(f"[train] step time ms (CUDA events) "
+        f"{[round(x, 3) for x in event_ms]}")
+    log(f"[train] step time ms (host clock, to the loss on the host) "
+        f"{[round(x, 3) for x in host_ms]}")
+    steady = event_ms[2:]
+    log(f"[train] steady-state step: {float(np.median(steady)):.3f} ms "
+        f"(CUDA events, median of steps 3-8), "
+        f"{float(np.median(host_ms[2:])):.3f} ms (host clock)")
+    breakdown = _profile_step(lambda: step(state, batches[0]))
+    return dict(launches=launches, metrics=metrics, grad_err=grad_err,
+                breakdown=breakdown,
+                tf32_grad_err={n: tf32_errs[n] for n in CONV_PARAMS},
+                param_err=param_err, split_err=split_err,
+                step_ms=float(np.median(steady)),
+                step_host_ms=float(np.median(host_ms[2:])))
 
 
 def main() -> int:
@@ -393,31 +880,61 @@ def main() -> int:
         return 2
     name, smi = phase_device()
     phase_build()
-    results, timings = phase_kernel_vs_plain()
-    launches = phase_serve()
+    fwd_results, fwd_timings = phase_kernel_vs_plain()
+    bwd_results, bwd_timings = phase_backward_vs_plain()
+    serve_launches = phase_serve()
+    train = phase_train()
 
-    main_case = "context (main path)"
-    t = timings[main_case]
-    r = results[main_case]
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "moolib_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "moolib_tpu/ops/attention.py:226",
-        "launches": sum(sv["flash_fwd"] for sv in launches.values()),
-        "launches_by_service": {k: sv["flash_fwd"]
-                                for k, sv in launches.items()},
-        "max_abs_err": max(r["o_err"], r["lse_err"]),
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "bound_ms_no_resets": t["bound_ms_no_resets"],
-        "library_ms": t["library_ms"],
-        "shape": list(CONTEXT_SHAPE),
-        "parity": "pass",
-    }]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    launches_by_path = {
+        path: counts for path, counts in
+        [*serve_launches.items(), ("train", train["launches"])]
+    }
+
+    def row(kname, source, replaces, timing, err, shape, extra):
+        return {
+            "name": kname,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sum(c[kname] for c in launches_by_path.values()),
+            "launches_by_path": {p: c[kname]
+                                 for p, c in launches_by_path.items()},
+            "max_abs_err": err,
+            "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "bound_ms_no_resets": timing["bound_ms_no_resets"],
+            "library_ms": timing["library_ms"],
+            "shape": list(shape),
+            "parity": "pass",
+            **extra,
+        }
+
+    f = fwd_results["context (main path)"]
+    kernels = [row(
+        "flash_fwd", "moolib_tpu_torch/ops/csrc/flash_fwd.cu",
+        "moolib_tpu/ops/attention.py:226", fwd_timings["context (main path)"],
+        max(f["o_err"], f["lse_err"]), CONTEXT_SHAPE,
+        {"train_shape": dict(shape=list(TRAIN_SHAPE),
+                             **fwd_timings["train (main path)"])},
+    )]
+    for kname, line, grads in (("flash_bwd_dq", 362, ("dq",)),
+                               ("flash_bwd_dkdv", 407, ("dk", "dv"))):
+        b = bwd_results["train (main path)"]
+        kernels.append(row(
+            kname, "moolib_tpu_torch/ops/csrc/flash_bwd.cu",
+            f"moolib_tpu/ops/attention.py:{line}",
+            bwd_timings["train (main path)"][kname],
+            max(b["errs"][g][0] for g in grads), TRAIN_SHAPE,
+            {"context_shape": dict(shape=list(CONTEXT_SHAPE),
+                                   **bwd_timings["context"][kname])},
+        ))
+    print(json.dumps({"kernels": kernels,
+                      "train": {k: train[k] for k in
+                                ("step_ms", "step_host_ms", "breakdown",
+                                 "grad_err", "tf32_grad_err", "param_err",
+                                 "split_err")}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

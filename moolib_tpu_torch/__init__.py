@@ -2,17 +2,32 @@
 one NVIDIA H100.
 
 The port grows slice by slice beside the JAX package, which stays the
-reference each ported part is tested against. This slice serves the
-``TransformerNet`` policy: the attention ops with the hand-written CUDA
-flash-attention forward, the model and its weight converter, the acting
-step, and the serving replica with its admission queue.
+reference each ported part is tested against. Two slices so far:
+
+- serving the ``TransformerNet`` policy: the attention ops with the
+  hand-written CUDA flash-attention forward, the model and its weight
+  converter, the acting step, and the serving replica with its admission
+  queue;
+- training it: the flash-attention backward kernels behind a
+  ``torch.autograd.Function``, V-trace, the IMPALA loss and train steps,
+  and the clipped-RMSprop optimizer of the reference's experiment.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
-from .learner import make_act_step
+from .learner import (
+    ImpalaConfig,
+    TrainState,
+    impala_loss,
+    make_act_step,
+    make_apply_step,
+    make_grad_step,
+    make_impala_train_step,
+    make_train_state,
+)
 from .models import TransformerNet, transformer_params_from_flax
-from .ops import attention, stage_batch
+from .ops import attention, stage_batch, vtrace
+from .optim import ClippedRMSprop, global_norm
 from .serving import (
     AdmissionQueue,
     DeadlineExceeded,
@@ -26,17 +41,27 @@ from .utils import nest, resolve_device
 
 __all__ = [
     "AdmissionQueue",
+    "ClippedRMSprop",
     "DeadlineExceeded",
+    "ImpalaConfig",
     "Overloaded",
     "Replica",
     "RpcError",
     "ServingError",
+    "TrainState",
     "TransformerNet",
     "attention",
     "error_kind",
+    "global_norm",
+    "impala_loss",
     "make_act_step",
+    "make_apply_step",
+    "make_grad_step",
+    "make_impala_train_step",
+    "make_train_state",
     "nest",
     "resolve_device",
     "stage_batch",
     "transformer_params_from_flax",
+    "vtrace",
 ]

@@ -25,7 +25,10 @@ defaults in four places:
 
 On the card, f32 means full f32: cuDNN runs f32 convolutions in TF32
 unless told otherwise, so the conv torso turns TF32 off around its two
-convolutions. The linear layers follow PyTorch's f32 matmul precision,
+convolutions. Their backward runs later, when autograd reaches it, and
+reads the switch then: a caller that differentiates the model runs the
+forward and the backward inside :func:`f32_convolutions` (the learner's
+steps do). The linear layers follow PyTorch's f32 matmul precision,
 full f32 ("highest") unless the caller changes it.
 """
 
@@ -42,7 +45,8 @@ from torch import nn
 from ..ops import attention as attn_ops
 from ..utils.device import resolve_device
 
-__all__ = ["TransformerNet", "segment_ids_from_done", "same_pads"]
+__all__ = ["TransformerNet", "f32_convolutions", "segment_ids_from_done",
+           "same_pads"]
 
 _LN_EPS = 1e-6
 
@@ -60,13 +64,16 @@ def same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-_TF32_LOCK = threading.Lock()
+# Re-entrant: a train step holds it around the forward, which takes it
+# again around the torso.
+_TF32_LOCK = threading.RLock()
 
 
 @contextlib.contextmanager
-def _f32_convolutions():
+def f32_convolutions():
     """cuDNN's TF32 switch is process-wide: hold it off for the block and
-    put it back after, one thread at a time."""
+    put it back after, one thread at a time (the owning thread may
+    enter again)."""
     with _TF32_LOCK:
         prev = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
@@ -220,7 +227,7 @@ class TransformerNet(nn.Module):
         if self.pixels:  # small conv torso, stride-8 downsample
             x = (x.reshape(T * B, *obs.shape[2:]) / 255.0).float()
             x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
-            with _f32_convolutions():
+            with f32_convolutions():
                 x = F.relu(_conv_same(x, self.conv0))
                 x = F.relu(_conv_same(x, self.conv1))
             x = x.mean(dim=(2, 3)).reshape(T, B, self.d_model)

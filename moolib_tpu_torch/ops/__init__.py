@@ -1,6 +1,6 @@
-"""Ops of the port: attention and batch staging."""
+"""Ops of the port: attention, V-trace and batch staging."""
 
-from . import attention
+from . import attention, vtrace
 from .batcher import stage_batch
 
-__all__ = ["attention", "stage_batch"]
+__all__ = ["attention", "stage_batch", "vtrace"]

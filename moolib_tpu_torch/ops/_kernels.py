@@ -1,11 +1,12 @@
 """The port's hand-written CUDA kernels: build, load, check and launch.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C entry point. It is
-compiled with ``nvcc`` for ``sm_90a`` at first use, from the sources in the
-checkout, into ``build/moolib_tpu_torch/`` beside the package (the library
-name carries a hash of the source, so an edited source is rebuilt), and is
-loaded with :mod:`ctypes`. Nothing here runs when the module is imported:
-the CPU-only test host has no ``nvcc`` and no card.
+Each ``csrc/*.cu`` file is one :class:`CudaLibrary` with a plain C entry
+point per kernel. It is compiled with ``nvcc`` for ``sm_90a`` at first use,
+from the sources in the checkout, into ``build/moolib_tpu_torch/`` beside
+the package (the library name carries a hash of the source, so an edited
+source is rebuilt), and is loaded with :mod:`ctypes`; kernels of one source
+share its one build. Nothing here runs when the module is imported: the
+CPU-only test host has no ``nvcc`` and no card.
 
 A kernel launches on PyTorch's current stream, does not synchronise and
 allocates nothing; its wrapper checks the tensors, allocates the outputs,
@@ -22,12 +23,24 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional, Tuple
 
 import torch
 
-__all__ = ["CudaKernel", "FLASH_FWD", "flash_fwd"]
+__all__ = [
+    "CudaKernel",
+    "CudaLibrary",
+    "FLASH_BWD_DKDV",
+    "FLASH_BWD_DQ",
+    "FLASH_FWD",
+    "KERNELS",
+    "build_all",
+    "flash_bwd_dkdv",
+    "flash_bwd_dq",
+    "flash_fwd",
+]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "moolib_tpu_torch"
@@ -48,21 +61,17 @@ def _nvcc() -> str:
     )
 
 
-class CudaKernel:
-    """One kernel source, its C entry point and its launch count."""
+class CudaLibrary:
+    """One kernel source, built once into one shared library that
+    exports ``<name>_error_string`` beside its kernels' entry points."""
 
-    def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: List[type]):
+    def __init__(self, name: str, source: str):
         self.name = name
         self.source = _CSRC / source
-        self.symbol = symbol
-        self.argtypes = argtypes
-        self.launches = 0
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._lock = threading.Lock()
         self._lib = None
-        self._fn = None
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
@@ -90,22 +99,48 @@ class CudaKernel:
             )
         os.replace(tmp, out)
 
-    def _load(self):
-        lib = ctypes.CDLL(str(self.library_path()))
-        fn = getattr(lib, self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{self.symbol}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        self._lib, self._fn = lib, fn
+    def load(self) -> ctypes.CDLL:
+        """The loaded library, built first if it is not yet."""
+        with self._lock:
+            if self._lib is None:
+                self._build()
+                lib = ctypes.CDLL(str(self.library_path()))
+                err = getattr(lib, f"{self.name}_error_string")
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._lib = lib
+            return self._lib
+
+    def error_string(self, rc: int) -> str:
+        msg = getattr(self.load(), f"{self.name}_error_string")(rc)
+        return msg.decode(errors="replace")
+
+
+class CudaKernel:
+    """One C entry point of a :class:`CudaLibrary` (the symbol is the
+    kernel's name) and its launch count."""
+
+    def __init__(self, name: str, library: CudaLibrary,
+                 argtypes: List[type]):
+        self.name = name
+        self.library = library
+        self.argtypes = argtypes
+        self.launches = 0
+        self._lock = threading.Lock()
+        self._fn = None
+
+    @property
+    def source(self) -> Path:
+        return self.library.source
 
     def ensure_built(self) -> None:
         with self._lock:
             if self._fn is not None:
                 return
-            self._build()
-            self._load()
+            fn = getattr(self.library.load(), self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
 
     def launch(self, *args) -> None:
         """Call the C entry point; raise if the launch reported an
@@ -114,10 +149,9 @@ class CudaKernel:
             self.ensure_built()
         rc = self._fn(*args)
         if rc != 0:
-            msg = getattr(self._lib, f"{self.symbol}_error_string")(rc)
             raise RuntimeError(
                 f"{self.name} launch failed: CUDA error {rc} "
-                f"({msg.decode(errors='replace')})"
+                f"({self.library.error_string(rc)})"
             )
         with self._lock:
             self.launches += 1
@@ -125,34 +159,56 @@ class CudaKernel:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+_FLASH_FWD_LIB = CudaLibrary("flash_fwd", "flash_fwd.cu")
+_FLASH_BWD_LIB = CudaLibrary("flash_bwd", "flash_bwd.cu")
+LIBRARIES = (_FLASH_FWD_LIB, _FLASH_BWD_LIB)
+
 #: Flash-attention forward; replaces moolib_tpu/ops/attention.py
 #: ``_flash_kernel``.
 FLASH_FWD = CudaKernel(
-    "flash_fwd", "flash_fwd.cu", "flash_fwd",
+    "flash_fwd", _FLASH_FWD_LIB,
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 )
+#: Flash-attention dQ; replaces ``_flash_bwd_dq_kernel``.
+FLASH_BWD_DQ = CudaKernel(
+    "flash_bwd_dq", _FLASH_BWD_LIB,
+    [_P] * 9 + [_I] * 7 + [_P],
+)
+#: Flash-attention dK/dV; replaces ``_flash_bwd_dkdv_kernel``.
+FLASH_BWD_DKDV = CudaKernel(
+    "flash_bwd_dkdv", _FLASH_BWD_LIB,
+    [_P] * 10 + [_I] * 7 + [_P],
+)
+KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKDV)
 
 _FLASH_D = (32, 64, 128)
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              seg_q: torch.Tensor, seg_k: torch.Tensor,
-              causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the flash forward: q [B,H,Tq,D], k/v [B,H,Tk,D] (f32 or
-    bf16, one dtype, contiguous, D in 32/64/128), seg_q [B,Tq] and seg_k
-    [B,Tk] int32 -> (o [B,H,Tq,D] in v's dtype, lse [B*H,1,Tq] f32)."""
-    tensors = (q, k, v, seg_q, seg_k)
+def build_all() -> None:
+    """Build every kernel source at once (one ``nvcc`` per source, run
+    side by side) and bind every kernel."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        for fut in [pool.submit(lib.load) for lib in LIBRARIES]:
+            fut.result()
+    for kern in KERNELS:
+        kern.ensure_built()
+
+
+def _check_attention(name: str, q, k, v, seg_q, seg_k, *more):
+    """The checks every flash kernel makes of its inputs; returns
+    (B, H, Tq, Tk, D)."""
+    tensors = (q, k, v, seg_q, seg_k, *more)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("flash_fwd needs every input on one CUDA device")
+        raise ValueError(f"{name} needs every input on one CUDA device")
     if q.dtype not in _FLASH_DTYPES or not q.dtype == k.dtype == v.dtype:
         raise ValueError(
-            f"flash_fwd takes q/k/v of one dtype, float32 or bfloat16; got "
+            f"{name} takes q/k/v of one dtype, float32 or bfloat16; got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
-            f"flash_fwd wants q [B,H,Tq,D] and k/v [B,H,Tk,D]; got "
+            f"{name} wants q [B,H,Tq,D] and k/v [B,H,Tk,D]; got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     B, H, Tq, D = q.shape
@@ -162,7 +218,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree"
         )
     if D not in _FLASH_D:
-        raise ValueError(f"flash_fwd supports head dims {_FLASH_D}, got {D}")
+        raise ValueError(f"{name} supports head dims {_FLASH_D}, got {D}")
     if seg_q.dtype != torch.int32 or seg_k.dtype != torch.int32:
         raise ValueError("segment ids must be int32")
     if tuple(seg_q.shape) != (B, Tq) or tuple(seg_k.shape) != (B, Tk):
@@ -171,7 +227,17 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"got {tuple(seg_q.shape)}, {tuple(seg_k.shape)}"
         )
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_fwd needs contiguous inputs")
+        raise ValueError(f"{name} needs contiguous inputs")
+    return B, H, Tq, Tk, D
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              seg_q: torch.Tensor, seg_k: torch.Tensor,
+              causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the flash forward: q [B,H,Tq,D], k/v [B,H,Tk,D] (f32 or
+    bf16, one dtype, contiguous, D in 32/64/128), seg_q [B,Tq] and seg_k
+    [B,Tk] int32 -> (o [B,H,Tq,D] in v's dtype, lse [B*H,1,Tq] f32)."""
+    B, H, Tq, Tk, D = _check_attention("flash_fwd", q, k, v, seg_q, seg_k)
     o = torch.empty_like(q)
     lse = torch.empty((B * H, 1, Tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -182,3 +248,64 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             Tk, D, int(bool(causal)), _FLASH_DTYPES[q.dtype], stream,
         )
     return o, lse
+
+
+def _check_backward(name: str, q, k, v, seg_q, seg_k, lse, delta, do):
+    """The forward's checks, plus dO like q and lse/delta [B*H,1,Tq]
+    f32; returns (B, H, Tq, Tk, D)."""
+    B, H, Tq, Tk, D = _check_attention(name, q, k, v, seg_q, seg_k, lse,
+                                       delta, do)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(
+            f"{name} wants dO like q {tuple(q.shape)} {q.dtype}; got "
+            f"{tuple(do.shape)} {do.dtype}"
+        )
+    for label, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (B * H, 1, Tq):
+            raise ValueError(
+                f"{name} wants {label} [B*H,1,Tq]={(B * H, 1, Tq)} float32; "
+                f"got {tuple(t.shape)} {t.dtype}"
+            )
+    return B, H, Tq, Tk, D
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 seg_q: torch.Tensor, seg_k: torch.Tensor, lse: torch.Tensor,
+                 delta: torch.Tensor, do: torch.Tensor,
+                 causal: bool) -> torch.Tensor:
+    """Launch the flash dQ kernel: the forward's inputs, its ``lse``,
+    ``delta`` = rowsum(dO * o) [B*H,1,Tq] f32 and dO like q (all
+    contiguous) -> dq in q's dtype."""
+    B, H, Tq, Tk, D = _check_backward("flash_bwd_dq", q, k, v, seg_q, seg_k,
+                                      lse, delta, do)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        FLASH_BWD_DQ.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
+            seg_k.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), B * H, H, Tq, Tk, D,
+            int(bool(causal)), _FLASH_DTYPES[q.dtype], stream,
+        )
+    return dq
+
+
+def flash_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   seg_q: torch.Tensor, seg_k: torch.Tensor,
+                   lse: torch.Tensor, delta: torch.Tensor, do: torch.Tensor,
+                   causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the flash dK/dV kernel: the arguments of
+    :func:`flash_bwd_dq` -> (dk, dv) in k's and v's dtype."""
+    B, H, Tq, Tk, D = _check_backward("flash_bwd_dkdv", q, k, v, seg_q,
+                                      seg_k, lse, delta, do)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        FLASH_BWD_DKDV.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
+            seg_k.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            do.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, H, Tq, Tk,
+            D, int(bool(causal)), _FLASH_DTYPES[q.dtype], stream,
+        )
+    return dk, dv

@@ -9,12 +9,12 @@ uses them to stop attention across episode resets inside an unroll):
   oracle and the path for short sequences.
 - :func:`blockwise_attention` runs the online softmax over key blocks in
   plain PyTorch, so memory is O(T * block).
-- :func:`flash_attention` is the forward of the flash kernel: the
-  hand-written CUDA kernel ``csrc/flash_fwd.cu`` on a CUDA tensor, and
-  :func:`_flash_forward_plain`, the same function in plain PyTorch, on a
-  CPU tensor. It never falls back from one to the other. The backward
-  kernels come with the training slice; until then a flash call on
-  inputs that require grad raises.
+- :func:`flash_attention` is the flash kernel with its backward, a
+  :class:`torch.autograd.Function` (the reference's ``custom_vjp``): the
+  hand-written CUDA kernels ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
+  on a CUDA tensor, and :func:`_flash_forward_plain` /
+  :func:`_flash_backward_plain`, the same functions in plain PyTorch, on
+  a CPU tensor. It never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -142,7 +142,7 @@ def blockwise_attention(q, k, v, causal: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# Flash forward: kernel on the card, plain PyTorch on the CPU
+# Flash: kernels on the card, plain PyTorch on the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -156,22 +156,34 @@ def _flash_forward_plain(q, k, v, seg_q, seg_k, causal: bool
     the -1e30 floor, a row whose max is <= -1e30/2 is fully masked and
     gives zeros and lse = +inf."""
     B, H, Tq, D = q.shape
-    Tk = k.shape[-2]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float() / math.sqrt(D), k.float())
-    visible = (seg_q[:, None, :, None] == seg_k[:, None, None, :])
-    if causal:
-        qpos = torch.arange(Tq, device=q.device)[:, None]
-        kpos = torch.arange(Tk, device=q.device)[None, :]
-        visible = visible & (qpos >= kpos)
-    s = torch.where(visible, s, _NEG_INF)
+    acc = _acc_dtype(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc) / math.sqrt(D), k.to(acc))
+    s = torch.where(_visible(seg_q, seg_k, Tq, k.shape[-2], causal), s,
+                    _NEG_INF)
     m = s.amax(dim=-1)
     shift = torch.where(m > _NEG_INF / 2, m, 0.0)
     p = torch.exp(s - shift[..., None])
     l = p.sum(dim=-1)
     safe_l = torch.where(l > 0, l, 1.0)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / safe_l[..., None]
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.to(acc)) / safe_l[..., None]
     lse = torch.where(l > 0, shift + torch.log(safe_l), math.inf)
     return o.to(v.dtype), lse.reshape(B * H, 1, Tq)
+
+
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions compute in f32, or in f64 for f64 inputs (the
+    kernels take f32 and bf16 only; f64 is for gradcheck)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _visible(seg_q, seg_k, Tq: int, Tk: int, causal: bool) -> torch.Tensor:
+    """[B, 1, Tq, Tk] True where query i may attend to key j."""
+    visible = seg_q[:, None, :, None] == seg_k[:, None, None, :]
+    if causal:
+        qpos = torch.arange(Tq, device=seg_q.device)[:, None]
+        kpos = torch.arange(Tk, device=seg_q.device)[None, :]
+        visible = visible & (qpos >= kpos)
+    return visible
 
 
 def _flash_forward(q, k, v, seg_q, seg_k, causal: bool,
@@ -197,22 +209,96 @@ def _flash_forward(q, k, v, seg_q, seg_k, causal: bool,
     raise ValueError(f"flash attention has no kernel for {q.device}")
 
 
+def _flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * o) [B*H, 1, Tq], the softmax-jacobian term,
+    taken from the forward's returned (rounded) ``o`` as the reference
+    takes it."""
+    B, H, Tq, _ = o.shape
+    acc = _acc_dtype(o)
+    return (do.to(acc) * o.to(acc)).sum(dim=-1).reshape(B * H, 1, Tq)
+
+
+def _flash_backward_plain(q, k, v, seg_q, seg_k, o, lse, do, causal: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The flash backward in plain PyTorch: the forward's inputs, its
+    ``o`` and ``lse`` [B*H,1,Tq], and dO like q -> (dq, dk, dv) in q's,
+    k's and v's dtypes.
+
+    The reference's rules: P is rebuilt from ``lse`` (P = 0 where lse is
+    not finite, so fully masked rows give dq = 0 and add nothing to dk/dv;
+    dense attention would average them uniformly instead), masked scores
+    sit at the -1e30 floor, and delta comes from ``o``."""
+    B, H, Tq, D = q.shape
+    acc = _acc_dtype(q)
+    scale = 1.0 / math.sqrt(D)
+    qs, kf, vf, dof = q.to(acc) * scale, k.to(acc), v.to(acc), do.to(acc)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
+    s = torch.where(_visible(seg_q, seg_k, Tq, k.shape[-2], causal), s,
+                    _NEG_INF)
+    lse = lse.reshape(B, H, Tq).to(acc)
+    live = torch.isfinite(lse)
+    safe_lse = torch.where(live, lse, 0.0)
+    p = torch.where(live[..., None], torch.exp(s - safe_lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - _flash_delta(o, do).reshape(B, H, Tq, 1))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_backward(q, k, v, seg_q, seg_k, o, lse, do, causal: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dQ and dK/dV kernels for a CUDA tensor (contiguous inputs),
+    the plain version for a CPU tensor."""
+    if q.is_cuda:
+        delta = _flash_delta(o, do)
+        dq = _kernels.flash_bwd_dq(q, k, v, seg_q, seg_k, lse, delta, do,
+                                   causal)
+        dk, dv = _kernels.flash_bwd_dkdv(q, k, v, seg_q, seg_k, lse, delta,
+                                         do, causal)
+        return dq, dk, dv
+    if q.device.type == "cpu":
+        return _flash_backward_plain(q, k, v, seg_q, seg_k, o, lse, do,
+                                     causal)
+    raise ValueError(f"flash attention has no kernel for {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp`` around the flash forward: saves the
+    inputs, ``o`` and ``lse``, and rebuilds P from ``lse`` in the
+    backward. The segment ids and the static arguments get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_k, causal, block_q, block_k):
+        # The model hands over permuted views; the kernels take
+        # contiguous rows, and the backward reuses these copies.
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = _flash_forward(q, k, v, seg_q, seg_k, causal, block_q,
+                                block_k)
+        ctx.save_for_backward(q, k, v, seg_q, seg_k, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg_q, seg_k, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, seg_q, seg_k, o, lse,
+                                     do.contiguous(), ctx.causal)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = False,
                     segment_ids: Optional[torch.Tensor] = None,
                     kv_segment_ids: Optional[torch.Tensor] = None,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None):
-    """Flash-attention forward for any sequence lengths: the kernel
-    picks its own tiles and masks ragged edges. Given ``block_q`` or
-    ``block_k``, the call keeps the reference's contract (the sequence
-    lengths must be multiples of them) and raises otherwise. Inputs that
-    require grad raise until the backward kernels are ported."""
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward yet (ROADMAP queue B: the "
-            "backward kernels and their torch.autograd.Function); call it "
-            "under torch.no_grad() or use backend='dense'/'blockwise'"
-        )
+    """Flash attention for any sequence lengths, differentiable in q, k
+    and v: the kernels pick their own tiles and mask ragged edges. Given
+    ``block_q`` or ``block_k``, the call keeps the reference's contract
+    (the sequence lengths must be multiples of them) and raises
+    otherwise."""
     B, _, Tq, _ = q.shape
     Tk = k.shape[-2]
 
@@ -224,10 +310,10 @@ def flash_attention(q, k, v, causal: bool = False,
         seg_k = kv_segment_ids
     else:
         seg_k = segment_ids if segment_ids is not None else zeros(Tk)
-    o, _lse = _flash_forward(q, k, v, seg_q.to(torch.int32),
-                             seg_k.to(torch.int32), causal, block_q,
-                             block_k)
-    return o
+    return _FlashAttention.apply(
+        q, k, v, seg_q.to(torch.int32).contiguous(),
+        seg_k.to(torch.int32).contiguous(), causal, block_q, block_k,
+    )
 
 
 def _flash_capable(t: torch.Tensor) -> bool:

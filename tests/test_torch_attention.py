@@ -190,18 +190,31 @@ def test_flash_block_contract_and_grad_refusal():
         tattn.flash_attention(q, k, v, causal=True),
         tattn.dense_attention(q, k, v, causal=True), atol=2e-5, rtol=0,
     )
-    with pytest.raises(NotImplementedError, match="backward"):
-        tattn.flash_attention(q.requires_grad_(), k, v)
+    # Inputs that require grad go through the autograd Function: the
+    # gradients flow and match dense attention's on a causal call.
+    q.requires_grad_()
+    (g_flash,) = torch.autograd.grad(
+        tattn.flash_attention(q, k, v, causal=True).sum(), q)
+    (g_dense,) = torch.autograd.grad(
+        tattn.dense_attention(q, k, v, causal=True).sum(), q)
+    assert float(g_flash.abs().max()) > 0
+    torch.testing.assert_close(g_flash, g_dense, atol=1e-4, rtol=0)
 
 
 def test_kernel_wrapper_checks_inputs_before_launch():
-    """The CUDA wrapper takes only CUDA tensors and never runs the plain
-    version itself; a CPU tensor is refused before any build."""
+    """The CUDA wrappers take only CUDA tensors and never run the plain
+    version themselves; a CPU tensor is refused before any build."""
     rng = np.random.default_rng(9)
     q, k, v = (torch.from_numpy(x) for x in _qkv(rng))
     seg = torch.zeros((2, 32), dtype=torch.int32)
-    launches = _kernels.FLASH_FWD.launches
+    stat = torch.zeros((6, 1, 32))
+    launches = [kern.launches for kern in _kernels.KERNELS]
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.flash_fwd(q, k, v, seg, seg, True)
-    assert _kernels.FLASH_FWD.launches == launches
-    assert _kernels.FLASH_FWD.source.exists()
+    for wrapper in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkdv):
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(q, k, v, seg, seg, stat, stat, q, True)
+    assert [kern.launches for kern in _kernels.KERNELS] == launches
+    assert all(kern.source.exists() for kern in _kernels.KERNELS)
+    # The two backward kernels share one source, hence one build.
+    assert _kernels.FLASH_BWD_DQ.library is _kernels.FLASH_BWD_DKDV.library

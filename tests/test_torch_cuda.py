@@ -9,6 +9,7 @@ They import only torch and the port, so they run on a host without JAX:
 import pytest
 import torch
 
+from moolib_tpu_torch import TransformerNet, make_grad_step
 from moolib_tpu_torch.ops import _kernels
 from moolib_tpu_torch.ops import attention as tattn
 
@@ -69,8 +70,120 @@ def test_auto_dispatch_launches_the_kernel(card, T):
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     q = torch.zeros((1, 1, 8, 48), device=card)
     seg = torch.zeros((1, 8), dtype=torch.int32, device=card)
+    stat = torch.zeros((1, 1, 8), device=card)
     with pytest.raises(ValueError, match="head dims"):
         _kernels.flash_fwd(q, q, q, seg, seg, True)
+    with pytest.raises(ValueError, match="head dims"):
+        _kernels.flash_bwd_dq(q, q, q, seg, seg, stat, stat, q, True)
     q = torch.zeros((1, 1, 8, 32), device=card, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         _kernels.flash_fwd(q, q, q, seg, seg, True)
+    q = torch.zeros((1, 1, 8, 32), device=card)
+    with pytest.raises(ValueError, match="lse"):
+        _kernels.flash_bwd_dkdv(q, q, q, seg, seg, stat[..., :4], stat, q,
+                                True)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernels_match_plain(card, D, dtype, causal):
+    """T=100 leaves ragged tiles on both sides; in the non-causal case kv
+    segments leave some rows fully masked, whose dq must be exactly 0.
+    o and lse come from the forward kernel. Tolerance: f32, summation
+    order (1e-4 of the gradient's scale); bf16 gradients, one rounding
+    of the f32 result (2**-7 relative)."""
+    gen = torch.Generator(device=card).manual_seed(100 + D)
+    B, H, T = 2, 3, 100
+    q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device=card)
+                   .to(dtype) for _ in range(4))
+    seg_q = (torch.rand((B, T), generator=gen, device=card) < 0.05).int()
+    seg_q = torch.cumsum(seg_q, dim=1, dtype=torch.int32)
+    if causal:
+        seg_k = seg_q
+    else:
+        seg_k = torch.zeros_like(seg_q)
+        seg_q[:, 70:] = 9  # no key carries segment 9
+    o, lse = _kernels.flash_fwd(q, k, v, seg_q, seg_k, causal)
+    delta = tattn._flash_delta(o, do)
+    dq = _kernels.flash_bwd_dq(q, k, v, seg_q, seg_k, lse, delta, do, causal)
+    dk, dv = _kernels.flash_bwd_dkdv(q, k, v, seg_q, seg_k, lse, delta, do,
+                                     causal)
+    torch.cuda.synchronize()
+    want = tattn._flash_backward_plain(q, k, v, seg_q, seg_k, o, lse, do,
+                                       causal)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype
+        scale = float(ref.float().abs().max())
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   atol=1e-4 * scale, rtol=rtol)
+    if not causal:
+        masked = torch.isinf(lse).reshape(B, H, T)
+        assert masked.any()
+        assert torch.all(dq[masked] == 0)
+    # No atomics: a second run gives the same bits.
+    dq2 = _kernels.flash_bwd_dq(q, k, v, seg_q, seg_k, lse, delta, do,
+                                causal)
+    dk2, dv2 = _kernels.flash_bwd_dkdv(q, k, v, seg_q, seg_k, lse, delta, do,
+                                       causal)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2)
+    assert torch.equal(dv, dv2)
+
+
+def test_auto_backward_launches_every_kernel_once(card):
+    """autograd through attention(backend="auto") on the model's causal
+    segmented path against dense attention's autograd."""
+    gen = torch.Generator(device=card).manual_seed(1)
+    B, H, T, D = 4, 4, 21, 32
+    q, k, v = (torch.randn((B, H, T, D), generator=gen, device=card)
+               .requires_grad_() for _ in range(3))
+    seg = torch.zeros((B, T), dtype=torch.int32, device=card)
+    seg[:, 9:] = 1
+    w = torch.randn((B, H, T, D), generator=gen, device=card)
+    before = [kern.launches for kern in _kernels.KERNELS]
+    out = tattn.attention(q, k, v, backend="auto", causal=True,
+                          segment_ids=seg)
+    got = torch.autograd.grad((out * w).sum(), (q, k, v))
+    assert [kern.launches - n for kern, n in
+            zip(_kernels.KERNELS, before)] == [1, 1, 1]
+    ref = tattn.dense_attention(q, k, v, causal=True, segment_ids=seg)
+    want = torch.autograd.grad((ref * w).sum(), (q, k, v))
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=0)
+
+
+def test_conv_torso_backward_is_f32_not_tf32(card):
+    """The grad step holds cuDNN's TF32 off through the backward too: the
+    conv weights' gradients on the card agree with the CPU's to 1e-5 of
+    their largest entry, which TF32 (10 mantissa bits) would not."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    T, B, A = 6, 4, 6
+    net = TransformerNet(A, (84, 84, 4), d_model=64, num_layers=1,
+                         num_heads=2, device=card, generator=gen)
+    cpu = TransformerNet(A, (84, 84, 4), d_model=64, num_layers=1,
+                         num_heads=2, attention_backend="dense", device="cpu")
+    cpu.load_state_dict(net.state_dict())
+    cg = torch.Generator().manual_seed(3)
+    batch = {
+        "obs": torch.randint(0, 256, (T + 1, B, 84, 84, 4), generator=cg,
+                             dtype=torch.uint8),
+        "done": torch.zeros((T + 1, B), dtype=torch.bool),
+        "rewards": torch.randn((T + 1, B), generator=cg),
+        "actions": torch.randint(0, A, (T, B), generator=cg),
+        "behavior_logits": torch.randn((T, B, A), generator=cg),
+        "core_state": (),
+    }
+    on_card = {k: v.to(card) if torch.is_tensor(v) else v
+               for k, v in batch.items()}
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+        got, _ = make_grad_step()(net, on_card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    want, _ = make_grad_step()(cpu, batch)
+    for name in ("conv0.weight", "conv1.weight"):
+        scale = float(want[name].abs().max())
+        torch.testing.assert_close(got[name].cpu(), want[name],
+                                   atol=1e-5 * scale, rtol=0)

@@ -23,7 +23,8 @@ mods = [m.name for m in pkgutil.walk_packages(
 for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax") or m.startswith(("jax.", "flax."))
+             if m in ("jax", "flax", "optax")
+             or m.startswith(("jax.", "flax.", "optax."))
              or m == "moolib_tpu" or m.startswith("moolib_tpu."))
 print(json.dumps({"modules": mods, "bad": bad}))
 """
@@ -39,6 +40,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "moolib_tpu_torch.ops._kernels" in got["modules"]
     assert "moolib_tpu_torch.serving.replica" in got["modules"]
+    assert "moolib_tpu_torch.ops.vtrace" in got["modules"]
+    assert "moolib_tpu_torch.optim" in got["modules"]
+    assert "moolib_tpu_torch.learner" in got["modules"]
     assert got["bad"] == [], got["bad"]
 
 
@@ -56,7 +60,7 @@ def test_chip_smoke_imports_no_jax_and_no_reference_package():
     names = list(_imported_roots(REPO_ROOT / "chip_smoke.py"))
     assert any(n.startswith("moolib_tpu_torch") for n in names), names
     bad = [n for n in names
-           if n.split(".")[0] in ("jax", "flax", "moolib_tpu")]
+           if n.split(".")[0] in ("jax", "flax", "optax", "moolib_tpu")]
     assert bad == [], bad
 
 

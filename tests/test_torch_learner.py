@@ -1,0 +1,251 @@
+"""Port parity: moolib_tpu_torch's learner and optimizer against
+moolib_tpu.learner and optax.
+
+A small TransformerNet (d_model 32, 2 layers, 2 heads) with the
+reference's weights converted by transformer_params_from_flax; the same
+numpy learn batch ([T+1=5, B=2], pixel or vector observations, rewards
+that reward_clip cuts) goes through both. The reference runs its Pallas
+flash kernels in interpret mode, the port its plain flash forward and
+backward. transformer_params_from_flax is linear in its leaves, so it
+carries the reference's gradients and optax's nu across too.
+
+Tolerances, f32 throughout unless stated:
+- loss metrics 1e-5 relative: the same sums in other orders;
+- gradients 1e-4 of each tensor's largest entry (measured on the CPU:
+  up to 1.1e-5, at conv1.bias);
+- with compute_dtype bf16 both round the scaled pixels and pos_emb to
+  bf16, and pos_emb's gradient too on its way back through the cast, so
+  one of its roundings may fall the other way: pos_emb's gradient at
+  2**-7 of its max, every other tolerance as in f32;
+- the optimizer against optax 1e-6 relative: elementwise, one rounding
+  per operation in both;
+- parameters after 3 train steps 1e-6 absolute: each step moves them by
+  lr * g / sqrt(nu + eps), which scales gradient differences by < 0.1.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from moolib_tpu import learner as jlearner
+from moolib_tpu.models import TransformerNet as JaxTransformerNet
+from moolib_tpu_torch import learner as tlearner
+from moolib_tpu_torch.models import (
+    TransformerNet,
+    transformer_params_from_flax,
+)
+from moolib_tpu_torch.optim import ClippedRMSprop, global_norm
+
+SMALL = dict(d_model=32, num_layers=2, num_heads=2)
+A = 6
+METRICS = ("total_loss", "pg_loss", "baseline_loss", "entropy",
+           "mean_baseline")
+
+
+def _batch(seed, pixels, T=4, B=2):
+    rng = np.random.default_rng(seed)
+    if pixels:
+        obs = rng.integers(0, 256, (T + 1, B, 84, 84, 4), dtype=np.uint8)
+    else:
+        obs = rng.standard_normal((T + 1, B, 5)).astype(np.float32)
+    return {
+        "obs": obs,
+        "done": rng.random((T + 1, B)) < 0.25,
+        "rewards": (2.0 * rng.standard_normal((T + 1, B))).astype(np.float32),
+        "actions": rng.integers(0, A, (T, B)).astype(np.int32),
+        "behavior_logits": rng.standard_normal((T, B, A)).astype(np.float32),
+    }
+
+
+def _jbatch(b):
+    return {**{k: jnp.asarray(v) for k, v in b.items()}, "core_state": ()}
+
+
+def _tbatch(b):
+    return {**{k: torch.from_numpy(np.array(v)) for k, v in b.items()},
+            "core_state": ()}
+
+
+def _pair(batch, compute_dtype=torch.float32):
+    jdtype = jnp.bfloat16 if compute_dtype == torch.bfloat16 else jnp.float32
+    jnet = JaxTransformerNet(num_actions=A, attention_backend="flash",
+                             compute_dtype=jdtype, **SMALL)
+    params = jnet.init(jax.random.PRNGKey(1), jnp.asarray(batch["obs"]),
+                       jnp.asarray(batch["done"]), ())
+    net = TransformerNet(A, batch["obs"].shape[2:], attention_backend="flash",
+                         compute_dtype=compute_dtype, device="cpu", **SMALL)
+    net.load_state_dict(_convert(params))
+    return jnet, params, net
+
+
+def _convert(tree):
+    return transformer_params_from_flax(jax.tree_util.tree_map(np.asarray,
+                                                               tree))
+
+
+def _close_rel(got, want, rel, err_msg=""):
+    want = np.asarray(want, np.float64)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(np.asarray(got, np.float64), want,
+                               rtol=0, atol=rel * scale, err_msg=err_msg)
+
+
+@pytest.mark.parametrize("pixels", [True, False])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_impala_loss_and_gradients_match_reference(pixels, compute_dtype):
+    batch = _batch(0, pixels)
+    jnet, params, net = _pair(batch, compute_dtype)
+    cfg = jlearner.ImpalaConfig()
+    (_, jm), jgrads = jax.value_and_grad(
+        lambda p: jlearner.impala_loss(p, jnet.apply, _jbatch(batch), cfg),
+        has_aux=True)(params)
+    grads, tm = tlearner.make_grad_step()(net, _tbatch(batch))
+
+    bf16 = compute_dtype == torch.bfloat16
+    for name in METRICS:
+        _close_rel(tm[name], jm[name], 1e-5, name)
+    want = _convert(jgrads)
+    assert set(grads) == set(want)
+    for name, g in grads.items():
+        assert float(g.abs().max()) > 0, name
+        rel = 2.0 ** -7 if bf16 and name == "pos_emb.weight" else 1e-4
+        _close_rel(g, want[name], rel, name)
+    _close_rel(tm["grad_norm"], optax.global_norm(jgrads), 1e-5)
+
+
+@pytest.mark.parametrize("max_norm", [None, 40.0])
+def test_optimizer_matches_optax(max_norm):
+    """3 steps from nu = 0 on gradients of norm ~130 (clipped at 40) or
+    the same gradients unclipped; parameters and nu against optax."""
+    rng = np.random.default_rng(0)
+    shapes = {"a": (4, 3), "b": (7,), "c": (2, 2, 2)}
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = [{k: (20.0 * rng.standard_normal(s)).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(3)]
+    rms = optax.rmsprop(6e-4, decay=0.99, eps=0.01)
+    tx = rms if max_norm is None else optax.chain(
+        optax.clip_by_global_norm(max_norm), rms)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in params.items()}
+    opt = ClippedRMSprop(tp.values(), 6e-4, decay=0.99, eps=0.01,
+                         max_norm=max_norm)
+    for g in grads:
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
+                                   state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        opt.step()
+    nu = (state if max_norm is None else state[1])[0].nu
+    for k, p in tp.items():
+        _close_rel(p.detach(), jp[k], 1e-6, k)
+        _close_rel(opt.state[p]["nu"], nu[k], 1e-6, f"nu {k}")
+    norm = float(global_norm(torch.from_numpy(v) for v in grads[0].values()))
+    assert norm > 40.0  # the clipping case clips
+    np.testing.assert_allclose(norm, float(optax.global_norm(grads[0])),
+                               rtol=1e-6)
+
+
+def test_optimizer_rejects_bad_settings():
+    p = [torch.nn.Parameter(torch.zeros(2))]
+    with pytest.raises(ValueError, match="rmsprop"):
+        ClippedRMSprop(p, lr=0.0)
+    with pytest.raises(ValueError, match="max_norm"):
+        ClippedRMSprop(p, lr=1e-3, max_norm=0.0)
+
+
+def _experiment_optimizers(net):
+    """experiment.py's chain on both sides."""
+    tx = optax.chain(optax.clip_by_global_norm(40.0),
+                     optax.rmsprop(6e-4, decay=0.99, eps=0.01))
+    opt = ClippedRMSprop(net.parameters(), 6e-4, decay=0.99, eps=0.01,
+                         max_norm=40.0)
+    return tx, opt
+
+
+def test_three_train_steps_match_reference():
+    batches = [_batch(s, pixels=False) for s in range(3)]
+    jnet, params, net = _pair(batches[0])
+    tx, opt = _experiment_optimizers(net)
+    cfg = jlearner.ImpalaConfig()
+    jstep = jlearner.make_impala_train_step(jnet.apply, tx, cfg,
+                                            donate=False)
+    jstate = jlearner.make_train_state(params, tx)
+    tstep = tlearner.make_impala_train_step(config=tlearner.ImpalaConfig())
+    tstate = tlearner.make_train_state(net, opt)
+    for b in batches:
+        jstate, jm = jstep(jstate, _jbatch(b))
+        tstate, tm = tstep(tstate, _tbatch(b))
+        for name in METRICS + ("grad_norm",):
+            _close_rel(tm[name], jm[name], 1e-5, name)
+    assert tstate.step == int(jstate.step) == 3
+    want = _convert(jstate.params)
+    for name, p in net.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), want[name], rtol=0, atol=1e-6,
+                                   err_msg=name)
+    nu = _convert(jstate.opt_state[1][0].nu)
+    for name, p in net.named_parameters():
+        _close_rel(opt.state[p]["nu"], nu[name], 1e-4, f"nu {name}")
+
+
+def test_grad_step_then_apply_step_equals_fused_step():
+    """experiment.py's split: grads x grad_scale, the one-peer
+    Accumulator mean (divide by the batch size), then the apply step.
+    Scaling by a power of two is exact, so the result is bitwise."""
+    batch = _tbatch(_batch(7, pixels=False))
+    states = []
+    for _ in range(2):
+        net = TransformerNet(A, (5,), attention_backend="flash", device="cpu",
+                             generator=torch.Generator().manual_seed(0),
+                             **SMALL)
+        opt = ClippedRMSprop(net.parameters(), 6e-4, decay=0.99, eps=0.01,
+                             max_norm=40.0)
+        states.append(tlearner.make_train_state(net, opt))
+    fused, fm = tlearner.make_impala_train_step()(states[0], batch)
+    grads, gm = tlearner.make_grad_step(grad_scale=2.0)(states[1].model, batch)
+    grads = {n: g / 2.0 for n, g in grads.items()}
+    split = tlearner.make_apply_step()(states[1], grads)
+    assert fused.step == split.step == 1
+    for name in fm:
+        assert torch.equal(fm[name], gm[name]), name
+    for (n, a), b in zip(fused.model.state_dict().items(),
+                         split.model.state_dict().values()):
+        assert torch.equal(a, b), n
+
+
+def test_train_step_runs_the_conv_backward_without_tf32():
+    """cuDNN reads its TF32 switch when the convolutions' backward runs:
+    the train step holds it off around the forward and the backward, and
+    puts the caller's setting back."""
+    batch = _tbatch(_batch(3, pixels=True, T=1))
+    net = TransformerNet(A, (84, 84, 4), device="cpu",
+                         generator=torch.Generator().manual_seed(0), **SMALL)
+    seen = []
+    for conv in (net.conv0, net.conv1):
+        conv.weight.register_hook(
+            lambda g: seen.append(torch.backends.cudnn.allow_tf32))
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        opt = ClippedRMSprop(net.parameters(), 6e-4, max_norm=40.0)
+        tlearner.make_impala_train_step()(
+            tlearner.make_train_state(net, opt), batch)
+        assert seen == [False, False]
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_unported_options_name_their_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlearner.make_impala_train_step(mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlearner.make_grad_step(batch_axes={"obs": 1})
+    with pytest.raises(NotImplementedError, match="StepScope"):
+        tlearner.make_apply_step(stepscope=object())
