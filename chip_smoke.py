@@ -7,11 +7,14 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. Device: the card's name, capability and power limit; needs sm_90.
 2. Build: every hand-written kernel from the sources in the checkout, one
-   nvcc per source, all started together; registers and spills.
+   nvcc per source, all started together; registers and spills, and the
+   tensor-core instructions in the forward's SASS.
 3. Forward kernel vs plain: the flash forward's wrapper on the card, held
    against its plain PyTorch version on the same inputs (the main paths'
-   shapes included), with the kernel's, the plain version's and a library
-   call's times and the card's least time for the same work.
+   shapes included, the context window with and without episode resets),
+   with the kernel's, the plain version's and a library call's times
+   (CUDA events and profiler device time), the card's least time for the
+   same work, and the wrapper's host time per call by part.
 4. Backward kernels vs plain: the same for the flash dQ and dK/dV
    kernels, on o and lse from the forward kernel and a seeded dO.
 5. Serve: the full-width TransformerNet behind two Replicas (the act
@@ -33,7 +36,9 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -43,7 +48,8 @@ import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# f32 on the CUDA cores, bf16 and TF32 on the tensor cores.
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
 
 ACT_ENVS = 32          # environments per act request
 CONTEXT_T = 2048       # steps per context request (the model's max_len)
@@ -93,11 +99,11 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20):
+def device_ms(fn, kernel, iters: int = 20):
     """Mean device time of the CUDA kernels whose name holds ``kernel``
-    over ``iters`` calls of ``fn``, from a torch.profiler trace (host
-    gaps between launches excluded); None if the trace has no device
-    time."""
+    (every kernel when ``kernel`` is None) over ``iters`` calls of ``fn``,
+    from a torch.profiler trace (host gaps between launches excluded);
+    None if the trace has no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -107,7 +113,7 @@ def device_ms(fn, kernel: str, iters: int = 20):
             fn()
         torch.cuda.synchronize()
     us = sum(e.device_time_total for e in prof.key_averages()
-             if kernel in e.key)
+             if kernel is None or kernel in e.key)
     return us / iters / 1e3 if us else None
 
 
@@ -137,8 +143,11 @@ def visible_pairs(seg_q, seg_k, H: int, causal: bool) -> int:
 def flash_bound_ms(q, k, seg_q, seg_k, causal: bool):
     """Least time for the flash forward on this card: bytes (q, k, v, o
     and segment ids read or written once, lse written once) over HBM
-    bandwidth, against 4*D FLOPs per visible pair over the peak for the
-    input type. Returns (ms, "bytes" | "operations")."""
+    bandwidth, against 4*D FLOPs per visible pair at the fastest rate
+    that keeps the input type's accuracy: bf16 on the tensor cores; f32
+    either on the CUDA cores or as 3xTF32 (three TF32 products for each)
+    on the tensor cores, whichever is faster. Returns
+    (ms, "bytes" | "operations")."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     item = q.element_size()
@@ -147,6 +156,8 @@ def flash_bound_ms(q, k, seg_q, seg_k, causal: bool):
     flops = 4 * D * visible_pairs(seg_q, seg_k, H, causal)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[q.dtype]
+    if q.dtype == torch.float32:
+        t_ops = min(t_ops, 3 * flops / PEAK_FLOPS["tf32"])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -195,12 +206,38 @@ def _ptxas_lines(log: str):
     """(kernel, D, dtype, line) for each register/spill line of ptxas -v."""
     name = "?"
     for line in log.splitlines():
-        m = re.search(r"(flash_\w+_kernel)ILi(\d+)E(f|13__nv_bfloat16)", line)
+        m = re.search(r"(flash_[a-z_]+_kernel)ILi(\d+)E(f|13__nv_bfloat16)",
+                      line)
         if m and ("Compiling entry" in line or "Function properties" in line):
             dtype = "f32" if m.group(3) == "f" else "bf16"
             name = f"{m.group(1)}<D={m.group(2)},{dtype}>"
         elif "registers" in line or "spill" in line:
             yield name, line.strip()
+
+
+def _sass_counts(library) -> dict:
+    """{kernel<D,dtype>: {instruction: count}} of the tensor-core and
+    bulk-copy instructions in each kernel of a built library, from
+    cuobjdump -sass (the toolkit's)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_[a-z_]+_kernel)ILi(\d+)E(f|13__nv_bfloat16)",
+                          line)
+            name = None
+            if m:
+                dtype = "f32" if m.group(3) == "f" else "bf16"
+                name = f"{m.group(1)}<D={m.group(2)},{dtype}>"
+                counts[name] = {}
+        elif name is not None:
+            for ins in ("HGMMA", "HMMA", "UBLKCP"):
+                if re.search(rf"\b{ins}\b", line):
+                    counts[name][ins] = counts[name].get(ins, 0) + 1
+    return counts
 
 
 def phase_build():
@@ -214,8 +251,26 @@ def phase_build():
         + ", ".join(f"{lib.source.name} {lib.build_seconds}s"
                     for lib in _kernels.LIBRARIES) + ")")
     for lib in _kernels.LIBRARIES:
-        for name, line in _ptxas_lines(lib.build_log):
+        lines = list(_ptxas_lines(lib.build_log))
+        for name, line in lines:
             log(f"[build] {lib.source.name} {name}: {line}")
+        entries = set(re.findall(
+            r"Compiling entry function '\S*?(flash_\w+_kernelILi\d+E\w+?)E",
+            lib.build_log))
+        with_regs = {name for name, line in lines if "registers" in line}
+        if not entries or len(with_regs) < len(entries):
+            raise RuntimeError(f"{lib.source.name}: ptxas register lines "
+                               f"for {len(with_regs)} of {len(entries)} "
+                               f"kernels")
+    counts = _sass_counts(_kernels.FLASH_FWD.library.library_path())
+    for name, c in sorted(counts.items()):
+        log(f"[build] flash_fwd.cu {name} SASS: {c.get('HGMMA', 0)} HGMMA, "
+            f"{c.get('HMMA', 0)} HMMA, {c.get('UBLKCP', 0)} UBLKCP")
+    wgmma = [n for n in counts if n.startswith("flash_fwd_wgmma_kernel")]
+    if len(wgmma) != 6 or any(not counts[n].get("HGMMA") for n in wgmma):
+        raise RuntimeError(f"the forward's wgmma instantiations lack "
+                           f"tensor-core instructions: {counts}")
+    return counts
 
 
 def _compare(o, lse, o_ref, lse_ref, o_tol_fn):
@@ -228,6 +283,49 @@ def _compare(o, lse, o_ref, lse_ref, o_tol_fn):
     return float(o_err_t.max()), lse_err, ok
 
 
+def wrapper_host_us(q, k, v, sq, sk, causal, iters: int = 200) -> dict:
+    """Host time per call of the forward's wrapper (no synchronize in the
+    loop, the launches queue) and of its parts: the input checks, the two
+    output allocations, the stream lookup and the ctypes call with the
+    launch itself."""
+    from moolib_tpu_torch.ops import _kernels
+
+    B, H, Tq, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B * H, 1, Tq), dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), sq.data_ptr(),
+            sk.data_ptr(), o.data_ptr(), lse.data_ptr(), B * H, H, Tq,
+            k.shape[2], D, int(causal), 0 if q.dtype == torch.float32 else 1,
+            stream)
+    def switch():
+        with torch.cuda.device(q.device):
+            pass
+
+    parts = {
+        "wrapper": lambda: _kernels.flash_fwd(q, k, v, sq, sk, causal),
+        "checks": lambda: _kernels._check_attention("flash_fwd", q, k, v, sq,
+                                                    sk),
+        "allocations": lambda: (torch.empty_like(q), torch.empty(
+            (B * H, 1, Tq), dtype=torch.float32, device="cuda")),
+        "stream": lambda: torch.cuda.current_stream(q.device).cuda_stream,
+        "ctypes call + launch": lambda: _kernels.FLASH_FWD._fn(*args),
+        # What the wrapper no longer pays when the card is already the
+        # current device: entering and leaving torch.cuda.device.
+        "device switch (skipped)": switch,
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        out[name] = 1e6 * (time.perf_counter() - t0) / iters
+        torch.cuda.synchronize()
+    return out
+
+
 def phase_kernel_vs_plain():
     from moolib_tpu_torch.ops import _kernels
     from moolib_tpu_torch.ops.attention import _flash_forward_plain
@@ -237,29 +335,38 @@ def phase_kernel_vs_plain():
     # bf16 output: one rounding of the f32 result, 2**-7 relative.
     bf16_tol = lambda ref: 2.0 ** -7 * ref + 1e-5  # noqa: E731
     cases = [
-        # name, (B, H, Tq, D), Tk, dtype, causal, kv masked rows
+        # name, (B, H, Tq, D), Tk, dtype, causal, segment ids: "episodes"
+        # (resets every EPISODE_LENGTH steps), "none" (no reset in the
+        # window) or "kv masked" (some query rows see no key)
         ("context (main path)", CONTEXT_SHAPE, CONTEXT_T, torch.float32,
-         True, False),
-        ("act (main path)", ACT_SHAPE, 1, torch.float32, True, False),
+         True, "episodes"),
+        ("context (no resets)", CONTEXT_SHAPE, CONTEXT_T, torch.float32,
+         True, "none"),
+        ("act (main path)", ACT_SHAPE, 1, torch.float32, True, "episodes"),
         ("train (main path)", TRAIN_SHAPE, UNROLL + 1, torch.float32, True,
-         False),
+         "episodes"),
         ("B*H=32 T=2048 f32", (8, 4, 2048, 32), 2048, torch.float32, True,
-         False),
+         "episodes"),
         ("B*H=32 T=2048 bf16", (8, 4, 2048, 32), 2048, torch.bfloat16,
-         True, False),
-        ("T=20 unroll", (32, 4, 20, 32), 20, torch.float32, True, False),
+         True, "episodes"),
+        ("T=20 unroll", (32, 4, 20, 32), 20, torch.float32, True,
+         "episodes"),
         ("non-causal masked rows D=64", (2, 4, 256, 64), 384,
-         torch.float32, False, True),
+         torch.float32, False, "kv masked"),
         ("causal D=128 bf16", (2, 2, 512, 128), 512, torch.bfloat16, True,
-         False),
+         "episodes"),
+        ("causal D=128 f32 ragged", (2, 2, 300, 128), 300, torch.float32,
+         True, "episodes"),
     ]
     results = {}
-    for name, (B, H, Tq, D), Tk, dtype, causal, kv_mask in cases:
+    for name, (B, H, Tq, D), Tk, dtype, causal, segs in cases:
         q = torch.randn((B, H, Tq, D), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, H, Tk, D), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, H, Tk, D), generator=gen, device="cuda").to(dtype)
         seg_q = episode_segments(gen, B, Tq)
-        if kv_mask:
+        if segs == "none":
+            seg_q = torch.zeros_like(seg_q)
+        if segs == "kv masked":
             # Keys carry segments no query of the second half has.
             seg_k = torch.zeros((B, Tk), dtype=torch.int32, device="cuda")
             seg_q[:, Tq // 2:] = 7
@@ -270,31 +377,35 @@ def phase_kernel_vs_plain():
         o_ref, lse_ref = _flash_forward_plain(q, k, v, seg_q, seg_k, causal)
         tol = bf16_tol if dtype == torch.bfloat16 else f32_tol
         o_err, lse_err, ok = _compare(o, lse, o_ref, lse_ref, tol)
-        if kv_mask and not torch.isinf(lse).any():
+        if segs == "kv masked" and not torch.isinf(lse).any():
             raise RuntimeError("masked-rows case produced no masked row")
         if lse_err > 1e-4:
             ok = False
         tol_txt = ("2^-7*|o|+1e-5" if dtype == torch.bfloat16 else "1e-4")
+        design = _kernels.flash_fwd_design(Tq, Tk)
         log(f"[kernel] flash_fwd {name}: q {tuple(q.shape)} Tk {Tk} "
-            f"{str(dtype)[6:]} causal={causal} | max|o-plain| {o_err:.3e} "
-            f"(tol {tol_txt}) max|lse-plain| {lse_err:.3e} (tol 1e-4) | "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{str(dtype)[6:]} causal={causal} design {design} | "
+            f"max|o-plain| {o_err:.3e} (tol {tol_txt}) max|lse-plain| "
+            f"{lse_err:.3e} (tol 1e-4) | {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"flash_fwd disagrees with plain on {name}")
         results[name] = dict(q=q, k=k, v=v, seg_q=seg_q, seg_k=seg_k,
-                             causal=causal, o_err=o_err, lse_err=lse_err)
+                             causal=causal, o_err=o_err, lse_err=lse_err,
+                             design=design)
 
     timings = {}
-    for name in ("context (main path)", "act (main path)",
-                 "train (main path)", "B*H=32 T=2048 f32",
+    for name in ("context (main path)", "context (no resets)",
+                 "act (main path)", "train (main path)", "B*H=32 T=2048 f32",
                  "B*H=32 T=2048 bf16"):
         r = results[name]
         q, k, v, sq, sk, causal = (r["q"], r["k"], r["v"], r["seg_q"],
                                    r["seg_k"], r["causal"])
-        ms = cuda_ms(lambda: _kernels.flash_fwd(q, k, v, sq, sk, causal), 20)
-        dev_ms = device_ms(lambda: _kernels.flash_fwd(q, k, v, sq, sk,
-                                                      causal),
-                           "flash_fwd_kernel")
+
+        def kernel():
+            return _kernels.flash_fwd(q, k, v, sq, sk, causal)
+
+        ms = cuda_ms(kernel, 20)
+        dev_ms = device_ms(kernel, "flash_fwd_")
         plain_ms = cuda_ms(
             lambda: _flash_forward_plain(q, k, v, sq, sk, causal), 5)
         Tq, Tk = q.shape[2], k.shape[2]
@@ -302,23 +413,38 @@ def phase_kernel_vs_plain():
         if causal:
             mask = mask & torch.ones((Tq, Tk), dtype=torch.bool,
                                      device="cuda").tril()
-        lib_ms = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask), 20)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask)
+
+        lib_ms = cuda_ms(library, 20)
+        lib_dev_ms = device_ms(library, None)
+        if dev_ms is None or lib_dev_ms is None:
+            raise RuntimeError(f"no profiler device time for {name}: kernel "
+                               f"{dev_ms}, sdpa {lib_dev_ms}")
         bound_ms, bound_by = flash_bound_ms(q, k, sq, sk, causal)
         # The same work with no episode reset in the window: the whole
         # causal triangle is visible.
         no_reset_ms, _ = flash_bound_ms(q, k, torch.zeros_like(sq),
                                         torch.zeros_like(sk), causal)
         timings[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bound_ms,
-                             bound_by=bound_by,
-                             bound_ms_no_resets=no_reset_ms)
-        log(f"[kernel] flash_fwd {name} timing: kernel {ms:.4f} ms "
-            f"(profiler device time {dev_ms} ms), plain "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} "
-            f"ms ({bound_by}), bound with no resets {no_reset_ms:.4f} ms; "
-            f"kernel/bound {ms / bound_ms:.1f}x")
+                             library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             bound_ms_no_resets=no_reset_ms,
+                             design=r["design"])
+        log(f"[kernel] flash_fwd {name} timing ({r['design']}): kernel "
+            f"{ms:.4f} ms (profiler device time {dev_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device {lib_dev_ms:.4f}"
+            f" ms), bound {bound_ms:.4f} ms ({bound_by}), bound with no "
+            f"resets {no_reset_ms:.4f} ms; device/bound "
+            f"{dev_ms / bound_ms:.1f}x")
+    r = results["train (main path)"]
+    host = wrapper_host_us(r["q"], r["k"], r["v"], r["seg_q"], r["seg_k"],
+                           r["causal"])
+    timings["train (main path)"]["host_us"] = host
+    log("[kernel] flash_fwd wrapper host time per call at the train shape "
+        "(us): " + ", ".join(f"{n} {us:.2f}" for n, us in host.items()))
     return results, timings
 
 
@@ -416,6 +542,8 @@ def phase_backward_vs_plain():
         dq_ms, dkdv_ms = cuda_ms(dq_fn, 20), cuda_ms(dkdv_fn, 20)
         dev = {"flash_bwd_dq": device_ms(dq_fn, "flash_bwd_dq_kernel"),
                "flash_bwd_dkdv": device_ms(dkdv_fn, "flash_bwd_dkdv_kernel")}
+        if None in dev.values():
+            raise RuntimeError(f"no profiler device time for {name}: {dev}")
         plain_ms = cuda_ms(lambda: _flash_backward_plain(
             q, k, v, sq, sk, o, lse, do, causal), 5)
         # Yardstick: SDPA's backward with the same boolean mask.
@@ -901,6 +1029,7 @@ def main() -> int:
                                  for p, c in launches_by_path.items()},
             "max_abs_err": err,
             "ms": timing["ms"],
+            "device_ms": timing["device_ms"],
             "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"],
             "bound_by": timing["bound_by"],
@@ -912,12 +1041,20 @@ def main() -> int:
         }
 
     f = fwd_results["context (main path)"]
+    ctx = fwd_timings["context (main path)"]
     kernels = [row(
         "flash_fwd", "moolib_tpu_torch/ops/csrc/flash_fwd.cu",
-        "moolib_tpu/ops/attention.py:226", fwd_timings["context (main path)"],
+        "moolib_tpu/ops/attention.py:226", ctx,
         max(f["o_err"], f["lse_err"]), CONTEXT_SHAPE,
-        {"train_shape": dict(shape=list(TRAIN_SHAPE),
-                             **fwd_timings["train (main path)"])},
+        {"design": ctx["design"],
+         "library_device_ms": ctx["library_device_ms"],
+         "no_resets": fwd_timings["context (no resets)"],
+         "act_shape": dict(shape=list(ACT_SHAPE),
+                           **fwd_timings["act (main path)"]),
+         "train_shape": dict(shape=list(TRAIN_SHAPE),
+                             **fwd_timings["train (main path)"]),
+         "bf16_shape": dict(shape=[8, 4, 2048, 32],
+                            **fwd_timings["B*H=32 T=2048 bf16"])},
     )]
     for kname, line, grads in (("flash_bwd_dq", 362, ("dq",)),
                                ("flash_bwd_dkdv", 407, ("dk", "dv"))):

@@ -3,10 +3,11 @@
 Each ``csrc/*.cu`` file is one :class:`CudaLibrary` with a plain C entry
 point per kernel. It is compiled with ``nvcc`` for ``sm_90a`` at first use,
 from the sources in the checkout, into ``build/moolib_tpu_torch/`` beside
-the package (the library name carries a hash of the source, so an edited
-source is rebuilt), and is loaded with :mod:`ctypes`; kernels of one source
-share its one build. Nothing here runs when the module is imported: the
-CPU-only test host has no ``nvcc`` and no card.
+the package (the library name carries a hash of the source and of every
+``csrc/`` header it includes, so an edit to either is rebuilt), and is
+loaded with :mod:`ctypes`; kernels of one source share its one build.
+Nothing here runs when the module is imported: the CPU-only test host has
+no ``nvcc`` and no card.
 
 A kernel launches on PyTorch's current stream, does not synchronise and
 allocates nothing; its wrapper checks the tensors, allocates the outputs,
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,9 +42,11 @@ __all__ = [
     "flash_bwd_dkdv",
     "flash_bwd_dq",
     "flash_fwd",
+    "flash_fwd_design",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "moolib_tpu_torch"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -73,15 +77,37 @@ class CudaLibrary:
         self._lock = threading.Lock()
         self._lib = None
 
+    def sources(self) -> List[Path]:
+        """The ``.cu`` file and every header under ``csrc/`` that it
+        includes with ``#include "..."``, directly or through another."""
+        found, todo = [], [self.source]
+        while todo:
+            path = todo.pop()
+            if path in found:
+                continue
+            found.append(path)
+            for name in _INCLUDE.findall(path.read_text()):
+                header = path.parent / name
+                if header.exists():
+                    todo.append(header)
+        return found
+
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for path in self.sources():
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
     def _build(self) -> None:
-        """Run ``nvcc`` unless the library is already built."""
+        """Run ``nvcc`` unless the library is already built; either way
+        ``build_log`` holds the compiler's output (kept beside the
+        library as ``.log``)."""
         out = self.library_path()
         if out.exists():
+            log = out.with_suffix(".log")
+            self.build_log = log.read_text() if log.exists() else ""
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -97,6 +123,7 @@ class CudaLibrary:
                 f"nvcc failed to build {self.source.name} "
                 f"(exit {proc.returncode}):\n{proc.stdout}"
             )
+        out.with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, out)
 
     def load(self) -> ctypes.CDLL:
@@ -235,19 +262,40 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               seg_q: torch.Tensor, seg_k: torch.Tensor,
               causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the flash forward: q [B,H,Tq,D], k/v [B,H,Tk,D] (f32 or
-    bf16, one dtype, contiguous, D in 32/64/128), seg_q [B,Tq] and seg_k
-    [B,Tk] int32 -> (o [B,H,Tq,D] in v's dtype, lse [B*H,1,Tq] f32)."""
+    bf16, one dtype, contiguous and 16-byte aligned, D in 32/64/128),
+    seg_q [B,Tq] and seg_k [B,Tk] int32 -> (o [B,H,Tq,D] in v's dtype,
+    lse [B*H,1,Tq] f32)."""
     B, H, Tq, Tk, D = _check_attention("flash_fwd", q, k, v, seg_q, seg_k)
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        # The kernel copies K and V rows in bulk, 16 bytes at a time.
+        raise ValueError("flash_fwd needs q, k and v 16-byte aligned")
     o = torch.empty_like(q)
     lse = torch.empty((B * H, 1, Tq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        FLASH_FWD.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
-            seg_k.data_ptr(), o.data_ptr(), lse.data_ptr(), B * H, H, Tq,
-            Tk, D, int(bool(causal)), _FLASH_DTYPES[q.dtype], stream,
-        )
+    _on_device(q.device, FLASH_FWD, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               seg_q.data_ptr(), seg_k.data_ptr(), o.data_ptr(),
+               lse.data_ptr(), B * H, H, Tq, Tk, D, int(bool(causal)),
+               _FLASH_DTYPES[q.dtype])
     return o, lse
+
+
+def _on_device(device: torch.device, kernel: CudaKernel, *args) -> None:
+    """Launch ``kernel(*args, stream)`` on ``device``'s current stream,
+    switching the current device only when it is another one."""
+    if device.index == torch.cuda.current_device():
+        kernel.launch(*args, torch.cuda.current_stream(device).cuda_stream)
+        return
+    with torch.cuda.device(device):
+        kernel.launch(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+def flash_fwd_design(tq: int, tk: int) -> str:
+    """Which design the forward kernel runs at these sequence lengths:
+    "wgmma" (tensor cores, TMA-fed key tiles, segment tile skipping) or
+    "simt" (one tile of queries and keys, CUDA cores)."""
+    fn = _FLASH_FWD_LIB.load().flash_fwd_uses_wgmma
+    fn.argtypes = [_I, _I]
+    fn.restype = ctypes.c_int
+    return "wgmma" if fn(tq, tk) else "simt"
 
 
 def _check_backward(name: str, q, k, v, seg_q, seg_k, lse, delta, do):
@@ -279,14 +327,10 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Tq, Tk, D = _check_backward("flash_bwd_dq", q, k, v, seg_q, seg_k,
                                       lse, delta, do)
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        FLASH_BWD_DQ.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
-            seg_k.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), B * H, H, Tq, Tk, D,
-            int(bool(causal)), _FLASH_DTYPES[q.dtype], stream,
-        )
+    _on_device(q.device, FLASH_BWD_DQ, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), seg_q.data_ptr(), seg_k.data_ptr(),
+               lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dq.data_ptr(),
+               B * H, H, Tq, Tk, D, int(bool(causal)), _FLASH_DTYPES[q.dtype])
     return dq
 
 
@@ -300,12 +344,9 @@ def flash_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       seg_k, lse, delta, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        FLASH_BWD_DKDV.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
-            seg_k.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            do.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, H, Tq, Tk,
-            D, int(bool(causal)), _FLASH_DTYPES[q.dtype], stream,
-        )
+    _on_device(q.device, FLASH_BWD_DKDV, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), seg_q.data_ptr(), seg_k.data_ptr(),
+               lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dk.data_ptr(),
+               dv.data_ptr(), B * H, H, Tq, Tk, D, int(bool(causal)),
+               _FLASH_DTYPES[q.dtype])
     return dk, dv

@@ -4,45 +4,82 @@
 // moolib_tpu/ops/attention.py (launched by `_flash_forward`). It computes
 // what that kernel computes, not its block loop:
 //
-//   s[i,j]  = (q[i] / sqrt(D)) . k[j]               in f32
+//   s[i,j]  = (q[i] . k[j]) / sqrt(D)                in f32
 //   s[i,j]  = -1e30 where j is masked for i          (the mask floor)
 //   masked: causal (j > i) or seg_q[i] != seg_k[j]
+//   s[i,j]  = -inf for j >= Tk                        (keys that do not exist)
 //   o[i]    = sum_j exp(s[i,j] - m[i]) v[j] / l[i],  online over key tiles
 //   lse[i]  = m[i] + log(l[i])
 //
 // A row whose running max is still <= -1e30/2 is fully masked: its
 // probabilities are 0, its output is zeros and its lse is +inf. Inputs are
-// f32 or bf16 and are widened to f32 on their way into shared memory; the
-// softmax state and the products run in f32, as in the TPU kernel. `o` is
-// written in the input type, `lse` in f32.
+// f32 or bf16; the softmax state runs in f32. `o` is written in the input
+// type, `lse` in f32.
 //
-// What bounds it on the H100: the causal product costs 4*D FLOPs for each
-// visible (query, key) pair, against 4*D*2 bytes of q/k/v/o per row, so at
-// the model's sequence lengths (T = 2048) the work is arithmetic, not
-// memory traffic. This first version does that arithmetic in f32 on the
-// CUDA cores (67 TFLOP/s peak), far from the tensor cores. What the design
-// does about it: every key/value tile is read from device memory once per
-// 64-query tile and reused by all 64 rows from shared memory; the running
-// max, sum and accumulator stay in registers for the whole key loop; key
-// tiles that lie entirely above the causal diagonal are never loaded.
-// Moving the two products onto wgmma with bf16 operands is later work.
+// Two designs behind one entry point:
 //
-// Layout: one CTA per (batch*head, tile of 64 query rows), 128 threads.
-// Each query row belongs to a pair of adjacent lanes; each lane of the
-// pair owns half of the D dimensions (in interleaved 4-float chunks so the
-// pair's float4 reads of a shared key row fall in different banks), holds
-// that half of the scaled query row and of the accumulator in registers,
-// and the pair completes each dot product with one warp shuffle.
+// flash_fwd_wgmma_kernel, for any sequence longer than one 64-row tile.
+// One CTA (one warpgroup, 128 threads) owns 64 query rows of one (b, h).
+//  - Segment-aware tile skipping. The CTA takes [min, max] of seg_q over
+//    its valid rows and, for every causal key tile, [min, max] of that
+//    tile's seg_k; a tile whose interval is disjoint from the query tile's
+//    holds no visible pair, so it is neither loaded nor multiplied. The
+//    skip is exact for any ids: such a tile's scores all sit at the floor,
+//    which leaves m, l and acc unchanged (scale_old is 1 for a row with a
+//    visible key and 0 either way for a row without one). With the model's
+//    monotone ids (a cumsum of resets) it skips exactly the tiles that lie
+//    wholly in earlier episodes.
+//  - Both products on the tensor cores through wgmma. bf16 inputs: Q.K^T
+//    with bf16 operands (exact products, f32 accumulation); P.V with P as
+//    a bf16 hi + lo pair (two products), so P keeps ~16 bits. f32 inputs:
+//    3xTF32 on both products, x = hi + lo with hi = x cut to tf32 and
+//    lo = x - hi (exact), product = hi.hi + hi.lo + lo.hi, which keeps
+//    f32-level accuracy where plain TF32 would give ~1e-3.
+//  - tf32 wgmma takes K-major operands only, so V is transposed to
+//    [D, keys] on its way into the operand tiles; K as stored ([keys, D])
+//    is already K-major. Q is the A operand of Q.K^T from registers,
+//    loaded once (in shared memory for f32 at D = 128, where its hi and lo
+//    would take 128 registers). P stays in registers as the A operand of
+//    P.V: for bf16 the S accumulator's layout already is A's; for tf32 it
+//    holds columns 2t, 2t+1 where A wants t, t+4, so V^T's keys are stored
+//    in the order that makes the two agree (no shuffle, no trip through
+//    shared memory). V^T has two buffers, so the P.V product of one tile
+//    runs while the next tile is split.
+//  - Asynchronous loads: the visible tiles' K and V rows (contiguous in
+//    device memory) come by bulk copies on the TMA engine into a ring of
+//    two staging slots with an mbarrier each; the next two visible tiles
+//    are in flight while the current one is split, transposed and
+//    multiplied. Keys past Tk are zero-filled in the operand tiles and
+//    their scores set to -inf after the product.
+// flash_fwd_simt_kernel, for Tq and Tk of at most one tile (the act step
+// at T=1, the train step at T=21), where a launch is latency-bound: one
+// query row per lane pair in f32 on the CUDA cores, as first written.
+//
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): at the context
+// shape [4,4,2048,32] f32 the kernel must move q, k, v and o once, 16.8 MB,
+// 5.0 us at 3.35 TB/s. The arithmetic is 4*D FLOPs per visible pair; with
+// the repo's resets every 200 steps 4.1e8 FLOPs, 2.5 us as 3xTF32 at 495
+// TFLOP/s (6.1 us on the CUDA cores at 67), so the bound is bytes; with no
+// reset in the window 4.3e9 FLOPs, 26 us as 3xTF32: operations. The
+// kernel runs at several times either bound (PERF.md): per 64-key tile a
+// CTA waits on the tensor cores (three products each way for f32) and
+// spends as long again on the CUDA cores splitting K and V and taking the
+// softmax, and at the model's short head dim (32) those phases are not yet
+// overlapped across tiles; a CTA that sees few tiles is held by its fixed
+// cost (segment scan, first load).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;            // query rows per CTA
-constexpr int kBlockK = 32;            // keys per shared-memory tile
-constexpr int kThreads = 2 * kBlockQ;  // two lanes per query row
 constexpr float kNegInf = -1e30f;      // the mask floor of the TPU kernel
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -54,24 +91,37 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// ---------------------------------------------------------------------------
+// SIMT variant: at most one tile of queries and keys.
+// ---------------------------------------------------------------------------
+
+constexpr int kSimtMaxT = 64;              // Tq and Tk it is chosen for
+constexpr int kSimtBlockQ = 64;            // query rows per CTA
+constexpr int kSimtBlockK = 32;            // keys per shared-memory tile
+constexpr int kSimtThreads = 2 * kSimtBlockQ;  // two lanes per query row
+
+// Each query row belongs to a pair of adjacent lanes; each lane of the pair
+// owns half of the D dimensions (interleaved 4-float chunks, so the pair's
+// float4 reads of a shared key row fall in different banks) and the pair
+// completes each dot product with one warp shuffle.
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ seg_q,
-                 const int* __restrict__ seg_k, T* __restrict__ o,
-                 float* __restrict__ lse, int heads, int tq, int tk,
-                 int causal) {
+__global__ void __launch_bounds__(kSimtThreads)
+flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ seg_q,
+                      const int* __restrict__ seg_k, T* __restrict__ o,
+                      float* __restrict__ lse, int heads, int tq, int tk,
+                      int causal) {
   static_assert(D % 8 == 0, "D must be a multiple of 8");
   constexpr int kHalf = D / 2;     // dimensions owned by one lane
   constexpr int kChunks = D / 8;   // float4 chunks owned by one lane
 
-  __shared__ __align__(16) float k_s[kBlockK][D];
-  __shared__ __align__(16) float v_s[kBlockK][D];
-  __shared__ int segk_s[kBlockK];
+  __shared__ __align__(16) float k_s[kSimtBlockK][D];
+  __shared__ __align__(16) float v_s[kSimtBlockK][D];
+  __shared__ int segk_s[kSimtBlockK];
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
-  const int q0 = blockIdx.y * kBlockQ;
+  const int q0 = blockIdx.y * kSimtBlockQ;
   const int tid = threadIdx.x;
   const int row = q0 + tid / 2;
   const int half = tid & 1;
@@ -96,12 +146,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float l = 0.f;
 
   // Causal: keys past the tile's last row are masked for every row here.
-  const int k_end = causal ? min(tk, min(q0 + kBlockQ, tq)) : tk;
+  const int k_end = causal ? min(tk, min(q0 + kSimtBlockQ, tq)) : tk;
   const size_t kv_base = static_cast<size_t>(bh) * tk * D;
 
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
+  for (int k0 = 0; k0 < k_end; k0 += kSimtBlockK) {
     __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
+    for (int idx = tid; idx < kSimtBlockK * D; idx += kSimtThreads) {
       const int r = idx / D;
       const int c = idx % D;
       const int kr = k0 + r;
@@ -114,16 +164,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       k_s[r][c] = kv;
       v_s[r][c] = vv;
     }
-    if (tid < kBlockK) {
+    if (tid < kSimtBlockK) {
       const int kr = k0 + tid;
       segk_s[tid] = kr < tk ? seg_k[static_cast<size_t>(b) * tk + kr] : 0;
     }
     __syncthreads();
 
-    float s[kBlockK];
+    float s[kSimtBlockK];
     float tile_max = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
+    for (int j = 0; j < kSimtBlockK; ++j) {
       float part = 0.f;
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
@@ -136,8 +186,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kpos = k0 + j;
       const bool visible =
           segk_s[j] == sq && (causal == 0 || row >= kpos);
-      // Keys past tk do not exist (they only pad the last tile); masked
-      // keys sit at the floor, as in the TPU kernel.
       sj = kpos >= tk ? -INFINITY : (visible ? sj : kNegInf);
       s[j] = sj;
       tile_max = fmaxf(tile_max, sj);
@@ -151,7 +199,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < kHalf; ++d) acc[d] *= scale_old;
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
+    for (int j = 0; j < kSimtBlockK; ++j) {
       const float p = expf(s[j] - shift);
       l += p;
 #pragma unroll
@@ -182,16 +230,632 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Shared-memory plumbing: operand tiles, mbarriers, bulk copies.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// An operand tile of R rows whose K dimension is cut into 128-byte column
+// chunks; chunk c holds R rows of 128 bytes (row r at byte 128*r), with the
+// 16-byte units of each row permuted by the 128-byte swizzle (unit u of row
+// r sits at unit u ^ (r % 8)), the layout wgmma reads with a B128
+// descriptor. Byte offset of element (r, c) for elements of E bytes:
+template <int E, int R>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  constexpr int kW = 128 / E;  // elements per 128-byte row
+  const int byte = (c % kW) * E;
+  return (c / kW) * (R * 128) + r * 128 +
+         ((((byte >> 4) ^ (r & 7)) << 4) | (byte & 15));
+}
+
+// wgmma matrix descriptor of a K-major, 128-byte-swizzled tile at shared
+// address `addr` (chunk bases 1024-byte aligned): start address >> 4, SBO
+// 1024 bytes between 8-row groups, layout B128 (LBO unused).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// Descriptor of k-step `ks` (32 bytes of depth) of a tile with R rows.
+template <int R>
+__device__ __forceinline__ uint64_t step_desc(uint32_t tile, int ks) {
+  return make_desc(tile + (ks * 32 / 128) * (R * 128) + (ks * 32) % 128);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// A copy that never lands traps (a launch error) instead of hanging the
+// card: each try_wait already suspends for a while, so 2^24 of them is
+// seconds.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from device memory into shared memory on the TMA engine; completion is
+// counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Generic-proxy writes to shared memory become visible to wgmma and TMA.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// f32 -> (hi, lo): hi is x with its low 13 mantissa bits cleared, a tf32
+// value the tensor core reads exactly; lo = x - hi is exact in f32.
+__device__ __forceinline__ float tf32_hi(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma variant
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;       // one warpgroup
+constexpr int kBlockQ = 64;         // query rows per CTA (the wgmma M)
+constexpr int kListCap = 128;       // key tiles scanned per pass of the list
+constexpr int kStages = 2;          // staging slots in the load ring
+constexpr int kScanLoads = 16;      // seg_k loads in flight per thread
+
+template <int D, typename T>
+struct Cfg {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int E = sizeof(T);         // operand element bytes
+  static constexpr int BK = (kF32 && D == 128) ? 32 : 64;  // keys per tile
+  static constexpr int W = 128 / E;           // elements per swizzle row
+  static constexpr int DC = D < W ? W : D;    // stored depth, Q and K
+  static constexpr int KC = BK < W ? W : BK;  // stored depth of V^T tiles
+  static constexpr int kParts = kF32 ? 2 : 1;  // hi (and lo) of Q, K, V
+  // Q lives in registers as the A operand of Q.K^T (read once) where it
+  // fits: 8 words a thread per 8 of D for f32 (hi and lo), 4 per 16 of D
+  // for bf16; f32 at D = 128 keeps it in shared memory.
+  static constexpr bool kQRegs = !kF32 || D <= 64;
+  static_assert(kQRegs || BK == 32, "Q.K^T from shared memory is tf32, N 32");
+  static constexpr int kQBytes = kBlockQ * DC * E;
+  static constexpr int kKBytes = BK * DC * E;
+  static constexpr int kVBytes = D * KC * E;
+  static constexpr int kRowBytes = D * E;     // one K or V row in memory
+  static constexpr int kStageBytes = 2 * BK * kRowBytes;  // K rows, V rows
+  static constexpr int kOffQ = 0;
+  static constexpr int kOffK = kOffQ + (kQRegs ? 0 : kParts * kQBytes);
+  // V^T has two buffers: tile j+1 is split into one while the P.V product
+  // of tile j still reads the other.
+  static constexpr int kOffV = kOffK + kParts * kKBytes;
+  static constexpr int kVBufBytes = kParts * kVBytes;
+  static constexpr int kOffStage = kOffV + 2 * kVBufBytes;
+  static constexpr int kOffBar = kOffStage + kStages * kStageBytes;
+  static constexpr int kOffSegK = kOffBar + 8 * kStages;
+  static constexpr int kOffList = kOffSegK + 4 * BK;
+  static constexpr int kOffMin = kOffList + 4 * kListCap;
+  static constexpr int kOffMax = kOffMin + 4 * kListCap;
+  static constexpr int kOffMisc = kOffMax + 4 * kListCap;
+  static constexpr int kBytes = kOffMisc + 16;
+  // The dynamic shared memory request: the layout plus room to align its
+  // base to 1024 bytes (the swizzle repeats every 1024).
+  static constexpr int kSmem = kBytes + 1024;
+  static constexpr int kStepsS = D * E / 32;   // k-steps of Q.K^T
+  static constexpr int kStepsO = BK * E / 32;  // k-steps of P.V
+  static_assert(kSmem <= 227 * 1024, "tile set exceeds shared memory");
+};
+
+// D (+)= A . B^T over STEPS tf32 k-steps, A (64 rows) and B (N rows)
+// both from shared memory: Q.K^T for f32 at D = 128, Q kept there.
+template <int N, int RB, int STEPS>
+__device__ __forceinline__ void ss_steps(float (&d)[N / 2], uint32_t a,
+                                         uint32_t b, int scale_first) {
+#pragma unroll
+  for (int ks = 0; ks < STEPS; ++ks) {
+    wgmma::tf32<N>(d, step_desc<kBlockQ>(a, ks), step_desc<RB>(b, ks),
+                   ks == 0 ? scale_first : 1);
+  }
+}
+
+// Four consecutive elements of a row, as f32 (16- or 8-byte aligned).
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+  x[0] = __low2float(a); x[1] = __high2float(a);
+  x[2] = __low2float(b); x[3] = __high2float(b);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Two consecutive outputs (8- or 4-byte aligned) in one store.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Four consecutive operand elements at `dst` (within one 16-byte unit):
+// f32 as tf32 hi there and lo `lo_off` bytes further; bf16 as they are.
+template <typename T>
+__device__ __forceinline__ void store4(unsigned char* dst, int lo_off,
+                                      const float (&x)[4]) {
+  if constexpr (std::is_same<T, float>::value) {
+    float4 hi, lo;
+    hi.x = tf32_hi(x[0]); hi.y = tf32_hi(x[1]);
+    hi.z = tf32_hi(x[2]); hi.w = tf32_hi(x[3]);
+    lo.x = x[0] - hi.x; lo.y = x[1] - hi.y;
+    lo.z = x[2] - hi.z; lo.w = x[3] - hi.w;
+    *reinterpret_cast<float4*>(dst) = hi;
+    *reinterpret_cast<float4*>(dst + lo_off) = lo;
+  } else {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
+  }
+}
+
+// List flag of a tile in which every pair is visible (no mask needed).
+constexpr int kFullTile = 1 << 30;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// D (+)= A . B^T over STEPS k-steps, A from registers in the A-fragment
+// layout of mma.sync (four 32-bit words a k-step: f32 one tf32 value a
+// word, bf16 a pair), B K-major from shared memory. kSwap: the f32 words
+// come in the S accumulator's order, whose k-step ks maps to A's words
+// {4ks, 4ks+2, 4ks+1, 4ks+3}; that is P in P.V, whose V^T keys are stored
+// permuted to match (see the V^T split). bf16 P is in A's order as it is.
+template <int N, int RB, int STEPS, bool F32, bool kSwap, int NW>
+__device__ __forceinline__ void rs_steps(float (&d)[N / 2],
+                                         const uint32_t (&a)[NW],
+                                         uint32_t b, int scale_first) {
+#pragma unroll
+  for (int ks = 0; ks < STEPS; ++ks) {
+    const int sc = ks == 0 ? scale_first : 1;
+    if constexpr (F32) {
+      const uint32_t w[4] = {a[4 * ks], a[4 * ks + (kSwap ? 2 : 1)],
+                             a[4 * ks + (kSwap ? 1 : 2)], a[4 * ks + 3]};
+      wgmma::tf32_rs<N>(d, w, step_desc<RB>(b, ks), sc);
+    } else {
+      const uint32_t w[4] = {a[4 * ks], a[4 * ks + 1], a[4 * ks + 2],
+                             a[4 * ks + 3]};
+      wgmma::bf16_rs<N>(d, w, step_desc<RB>(b, ks), sc);
+    }
+  }
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       const int* __restrict__ seg_q,
+                       const int* __restrict__ seg_k, T* __restrict__ o,
+                       float* __restrict__ lse, int heads, int tq, int tk,
+                       int causal) {
+  using C = Cfg<D, T>;
+  constexpr int BK = C::BK;
+  constexpr int E = C::E;
+  constexpr int NP = C::kF32 ? BK / 2 : BK / 4;  // P words per thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* q_t = smem + C::kOffQ;
+  unsigned char* k_t = smem + C::kOffK;
+  unsigned char* stage = smem + C::kOffStage;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
+  int* segk_s = reinterpret_cast<int*>(smem + C::kOffSegK);
+  int* list = reinterpret_cast<int*>(smem + C::kOffList);
+  int* tile_min = reinterpret_cast<int*>(smem + C::kOffMin);
+  int* tile_max = reinterpret_cast<int*>(smem + C::kOffMax);
+  int* misc = reinterpret_cast<int*>(smem + C::kOffMisc);  // qlo, qhi, n
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  // The heaviest query tiles (most causal key tiles) are scheduled first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const size_t q_rows = static_cast<size_t>(bh) * tq;
+  const size_t kv_rows = static_cast<size_t>(bh) * tk;
+  const int* segq_b = seg_q + static_cast<size_t>(b) * tq;
+  const int* segk_b = seg_k + static_cast<size_t>(b) * tk;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&bar[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // The query tile's segment interval, over its valid rows.
+  if (warp == 0) {
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int r = q0 + lane; r < min(q0 + kBlockQ, tq); r += 32) {
+      const int sv = segq_b[r];
+      lo = min(lo, sv);
+      hi = max(hi, sv);
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0) {
+      misc[0] = lo;
+      misc[1] = hi;
+    }
+  }
+  // Q into its operand tile(s), rows past tq as zeros.
+  for (int idx = tid; !C::kQRegs && idx < kBlockQ * D / 4; idx += kThreads) {
+    const int r = 4 * idx / D;
+    const int c = 4 * idx % D;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (q0 + r < tq) load4(q + (q_rows + q0 + r) * D + c, x);
+    store4<T>(q_t + swz<E, kBlockQ>(r, c), C::kQBytes, x);
+  }
+  fence_async_smem();
+  __syncthreads();
+  const int qlo = misc[0], qhi = misc[1];
+
+  // This thread's two rows of the 64 x N accumulators.
+  const int r0 = 16 * warp + lane / 4;
+  const int row[2] = {q0 + r0, q0 + r0 + 8};
+  int sq[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) sq[a] = row[a] < tq ? segq_b[row[a]] : 0;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 2];
+  float s[BK / 2];
+  uint32_t ph[NP], pl[NP];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  // Q's A fragments (when in registers): per k-step, rows g and g+8 of the
+  // warp's 16, columns t and t+4 (f32) or pairs 2t and 2t+8 (bf16).
+  constexpr int kQWords = C::kQRegs ? 4 * C::kStepsS : 1;
+  uint32_t qh[kQWords], ql[kQWords];
+  if constexpr (C::kQRegs) {
+    const int t = lane % 4;
+#pragma unroll
+    for (int ks = 0; ks < C::kStepsS; ++ks) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row[e & 1];
+        if constexpr (C::kF32) {
+          const int c = 8 * ks + t + 4 * (e >> 1);
+          const float x = r < tq ? q[(q_rows + r) * D + c] : 0.f;
+          const float h = tf32_hi(x);
+          qh[4 * ks + e] = __float_as_uint(h);
+          ql[4 * ks + e] = __float_as_uint(x - h);
+        } else {
+          const int c = 16 * ks + 2 * t + 8 * (e >> 1);
+          qh[4 * ks + e] = r < tq ? *reinterpret_cast<const uint32_t*>(
+                                        q + (q_rows + r) * D + c)
+                                  : 0u;
+        }
+      }
+    }
+  }
+
+  // Causal: keys past the tile's last row are masked for every row here.
+  const int k_end = causal ? min(tk, min(q0 + kBlockQ, tq)) : tk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+
+  // Load tile t's K and V rows into staging slot `slot` (thread 0 only).
+  auto issue = [&](int t, int slot) {
+    const int k0 = t * BK;
+    const uint32_t bytes = min(BK, tk - k0) * C::kRowBytes;
+    unsigned char* dst = stage + slot * C::kStageBytes;
+    mbar_expect_tx(&bar[slot], 2 * bytes);
+    bulk_load(dst, k + (kv_rows + k0) * D, bytes, &bar[slot]);
+    bulk_load(dst + BK * C::kRowBytes, v + (kv_rows + k0) * D, bytes,
+              &bar[slot]);
+  };
+  // This thread's key of list entry j's tile (its segment id, for masks).
+  auto seg_of = [&](int j) {
+    const int kk = (list[j] & (kFullTile - 1)) * BK + tid;
+    return tid < BK && kk < tk ? segk_b[kk] : 0;
+  };
+
+  int it = 0;  // visible tiles consumed so far: slot it % 2, use it / 2
+  for (int t0 = 0; t0 < n_tiles; t0 += kListCap) {
+    const int nt = min(kListCap, n_tiles - t0);
+    // [min, max] of seg_k over each key tile: a warp reads 32 consecutive
+    // keys (all in one tile) kScanLoads times a warp-width apart, all
+    // loads in flight at once, reduces each 32 in one instruction, and
+    // lane 0 folds them into the tile's interval.
+    for (int j = tid; j < nt; j += kThreads) {
+      tile_min[j] = INT_MAX;
+      tile_max[j] = INT_MIN;
+    }
+    __syncthreads();
+    const int kb = t0 * BK;
+    const int ke = min(tk, (t0 + nt) * BK);
+    for (int base0 = kb + 32 * warp; base0 < ke;
+         base0 += kThreads * kScanLoads) {
+      int sv[kScanLoads];
+#pragma unroll
+      for (int u = 0; u < kScanLoads; ++u) {
+        const int kk = base0 + u * kThreads + lane;
+        sv[u] = kk < ke ? segk_b[kk] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kScanLoads; ++u) {
+        const int base = base0 + u * kThreads;
+        if (base >= ke) break;  // the same for the whole warp
+        const bool ok = base + lane < ke;
+        const int lo = __reduce_min_sync(0xffffffffu, ok ? sv[u] : INT_MAX);
+        const int hi = __reduce_max_sync(0xffffffffu, ok ? sv[u] : INT_MIN);
+        if (lane == 0) {
+          atomicMin(&tile_min[(base - kb) / BK], lo);
+          atomicMax(&tile_max[(base - kb) / BK], hi);
+        }
+      }
+    }
+    __syncthreads();
+    // The ordered list of tiles whose interval meets the query tile's,
+    // flagged kFullTile where every pair is visible (no mask needed).
+    if (warp == 0) {
+      int n = 0;
+      for (int j0 = 0; j0 < nt; j0 += 32) {
+        const int j = j0 + lane;
+        int f = 0;
+        if (j < nt) {
+          const int lo = tile_min[j], hi = tile_max[j];
+          const int k0 = (t0 + j) * BK;
+          const bool meets = !(hi < qlo || lo > qhi);
+          const bool full = lo == hi && qlo == qhi && lo == qlo &&
+                            k0 + BK <= tk &&
+                            (causal == 0 || k0 + BK - 1 <= q0);
+          f = meets ? (full ? 2 : 1) : 0;
+        }
+        const unsigned ballot = __ballot_sync(0xffffffffu, f != 0);
+        if (f) {
+          list[n + __popc(ballot & ((1u << lane) - 1u))] =
+              (t0 + j) | (f == 2 ? kFullTile : 0);
+        }
+        n += __popc(ballot);
+      }
+      if (lane == 0) misc[2] = n;
+    }
+    __syncthreads();
+    const int n_list = misc[2];
+    if (tid == 0) {
+      for (int j = 0; j < min(kStages, n_list); ++j) {
+        issue(list[j] & (kFullTile - 1), (it + j) % kStages);
+      }
+    }
+    int seg_next = n_list > 0 ? seg_of(0) : 0;
+
+    for (int j = 0; j < n_list; ++j, ++it) {
+      const int slot = it % kStages;
+      const int entry = list[j];
+      const bool full = entry & kFullTile;
+      const int k0 = (entry & (kFullTile - 1)) * BK;
+      const int n_valid = min(BK, tk - k0);
+      unsigned char* v_t = smem + C::kOffV + (it & 1) * C::kVBufBytes;
+      mbar_wait(&bar[slot], (it / kStages) & 1);
+      // Split (f32) the staged rows into the operand tiles, K as it is
+      // and V transposed; keys past tk become zeros. The P.V product of
+      // the previous tile may still run: it reads the other V^T buffer.
+      const T* st_k =
+          reinterpret_cast<const T*>(stage + slot * C::kStageBytes);
+      const T* st_v = st_k + BK * D;
+      for (int idx = tid; idx < BK * D / 4; idx += kThreads) {
+        const int r = 4 * idx / D;
+        const int c = 4 * idx % D;
+        float x[4] = {0.f, 0.f, 0.f, 0.f};
+        if (r < n_valid) load4(st_k + r * D + c, x);
+        store4<T>(k_t + swz<E, BK>(r, c), C::kKBytes, x);
+      }
+      // V^T: one 16-byte unit of one dimension per item, the lanes of a
+      // warp on consecutive dimensions. f32: unit (8g + 4h .. +3) holds
+      // keys 8g + h + 2e, e < 4 (the order P's registers take, see
+      // rs_steps); bf16: keys in order, 8 a unit.
+      for (int idx = tid; idx < BK * D * E / 16; idx += kThreads) {
+        const int d = idx % D;
+        const int unit = idx / D;
+        if constexpr (C::kF32) {
+          const int k_first = 8 * (unit / 2) + (unit & 1);
+          float x[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kr = k_first + 2 * e;
+            x[e] = kr < n_valid ? st_v[kr * D + d] : 0.f;
+          }
+          store4<T>(v_t + swz<E, D>(d, 4 * unit), C::kVBytes, x);
+        } else {
+          const int k_first = 8 * unit;
+          uint32_t w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kr = k_first + 2 * e;
+            const float a = kr < n_valid ? to_f32(st_v[kr * D + d]) : 0.f;
+            const float c =
+                kr + 1 < n_valid ? to_f32(st_v[(kr + 1) * D + d]) : 0.f;
+            w[e] = pack_bf16(a, c);
+          }
+          *reinterpret_cast<uint4*>(v_t + swz<E, D>(d, k_first)) =
+              make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+      if (tid < BK) segk_s[tid] = seg_next;
+      fence_async_smem();
+      __syncthreads();  // operand tiles complete; the staging slot is free
+      if (tid == 0 && j + kStages < n_list) {
+        fence_async_smem();
+        issue(list[j + kStages] & (kFullTile - 1), slot);
+      }
+      if (j + 1 < n_list) seg_next = seg_of(j + 1);
+
+      // S = Q . K^T on the tensor cores; the wait also retires the
+      // previous tile's P.V.
+      const uint32_t ka = smem_addr(k_t);
+      wgmma::fence();
+      if constexpr (C::kQRegs && C::kF32) {
+        rs_steps<BK, BK, C::kStepsS, true, false>(s, qh, ka, 0);
+        rs_steps<BK, BK, C::kStepsS, true, false>(s, qh, ka + C::kKBytes,
+                                                  1);
+        rs_steps<BK, BK, C::kStepsS, true, false>(s, ql, ka, 1);
+      } else if constexpr (C::kQRegs) {
+        rs_steps<BK, BK, C::kStepsS, false, false>(s, qh, ka, 0);
+      } else {
+        const uint32_t qa = smem_addr(q_t);
+        ss_steps<BK, BK, C::kStepsS>(s, qa, ka, 0);
+        ss_steps<BK, BK, C::kStepsS>(s, qa, ka + C::kKBytes, 1);
+        ss_steps<BK, BK, C::kStepsS>(s, qa + C::kQBytes, ka, 1);
+      }
+      wgmma::commit();
+      wgmma::wait_all();
+
+      // Masks (unless every pair of the tile is visible), then the online
+      // softmax over this tile.
+      float tmax[2] = {-INFINITY, -INFINITY};
+      if (full) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          s[i] *= scale;
+          tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int a = (i >> 1) & 1;
+          const int c = 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+          const int kpos = k0 + c;
+          const bool visible =
+              segk_s[c] == sq[a] && (causal == 0 || row[a] >= kpos);
+          s[i] = kpos >= tk ? -INFINITY : (visible ? s[i] * scale : kNegInf);
+          tmax[a] = fmaxf(tmax[a], s[i]);
+        }
+      }
+      float shift[2], scale_old[2];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        tmax[a] = fmaxf(tmax[a], __shfl_xor_sync(0xffffffffu, tmax[a], 1));
+        tmax[a] = fmaxf(tmax[a], __shfl_xor_sync(0xffffffffu, tmax[a], 2));
+        const float m_new = fmaxf(m[a], tmax[a]);
+        shift[a] = m_new > kNegInf / 2 ? m_new : 0.f;
+        scale_old[a] =
+            m[a] > kNegInf / 2 ? exp2f((m[a] - shift[a]) * kLog2e) : 0.f;
+        m[a] = m_new;
+        l[a] *= scale_old[a];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= scale_old[(i >> 1) & 1];
+#pragma unroll
+      for (int i = 0; i < BK / 2; i += 2) {
+        const int a = (i >> 1) & 1;
+        const float p0 = exp2f((s[i] - shift[a]) * kLog2e);
+        const float p1 = exp2f((s[i + 1] - shift[a]) * kLog2e);
+        l[a] += p0 + p1;
+        if constexpr (C::kF32) {
+          const float h0 = tf32_hi(p0), h1 = tf32_hi(p1);
+          ph[i] = __float_as_uint(h0);
+          ph[i + 1] = __float_as_uint(h1);
+          pl[i] = __float_as_uint(p0 - h0);
+          pl[i + 1] = __float_as_uint(p1 - h1);
+        } else {
+          const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+          ph[i / 2] = *reinterpret_cast<const uint32_t*>(&h);
+          pl[i / 2] = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+        }
+      }
+
+      // acc += P . V on the tensor cores, left running into the next
+      // tile's split.
+      const uint32_t va = smem_addr(v_t);
+      wgmma::fence();
+      rs_steps<D, D, C::kStepsO, C::kF32, true>(acc, ph, va, 1);
+      rs_steps<D, D, C::kStepsO, C::kF32, true>(acc, pl, va, 1);
+      if constexpr (C::kF32) {
+        rs_steps<D, D, C::kStepsO, true, true>(acc, ph, va + C::kVBytes, 1);
+      }
+      wgmma::commit();
+      __syncthreads();  // every warp is past its reads of K and segk_s
+    }
+  }
+  wgmma::wait_all();
+
+  // Each row's sum lives in the four lanes of a quad.
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    l[a] += __shfl_xor_sync(0xffffffffu, l[a], 1);
+    l[a] += __shfl_xor_sync(0xffffffffu, l[a], 2);
+  }
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    if (row[a] >= tq) continue;
+    const float safe_l = l[a] > 0.f ? l[a] : 1.f;
+    T* dst = o + (q_rows + row[a]) * D;
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 4) {
+      const int c = 8 * (i / 4) + 2 * (lane % 4);
+      store2(&dst[c], acc[i + 2 * a] / safe_l, acc[i + 2 * a + 1] / safe_l);
+    }
+    if (lane % 4 == 0) {
+      const float sh = m[a] > kNegInf / 2 ? m[a] : 0.f;
+      lse[q_rows + row[a]] = l[a] > 0.f ? sh + logf(safe_l) : INFINITY;
+    }
+  }
+}
+
 template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* seg_q, const int* seg_k, void* o, float* lse,
                    int bh, int heads, int tq, int tk, int causal,
                    cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+  if (tq <= kSimtMaxT && tk <= kSimtMaxT) {
+    const dim3 grid(bh, (tq + kSimtBlockQ - 1) / kSimtBlockQ);
+    flash_fwd_simt_kernel<D, T><<<grid, kSimtThreads, 0, stream>>>(
+        qt, kt, vt, seg_q, seg_k, ot, lse, heads, tq, tk, causal);
+    return cudaGetLastError();
+  }
+  // Above 48 KB a block's shared memory must be asked for (once).
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<D, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D, T>::kSmem);
+  if (configured != cudaSuccess) return configured;
   const dim3 grid(bh, (tq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<D, T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg_q, seg_k, static_cast<T*>(o), lse,
-      heads, tq, tk, causal);
+  flash_fwd_wgmma_kernel<D, T><<<grid, kThreads, Cfg<D, T>::kSmem, stream>>>(
+      qt, kt, vt, seg_q, seg_k, ot, lse, heads, tq, tk, causal);
   return cudaGetLastError();
 }
 
@@ -219,9 +883,10 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q [bh, tq, d], k/v [bh, tk, d] contiguous, f32 (dtype 0) or bf16
-// (dtype 1); seg_q [bh/heads, tq], seg_k [bh/heads, tk] int32; o like q;
-// lse [bh, tq] f32. Launches on `stream` and returns cudaGetLastError().
+// q [bh, tq, d], k/v [bh, tk, d] contiguous and 16-byte aligned, f32
+// (dtype 0) or bf16 (dtype 1); seg_q [bh/heads, tq], seg_k [bh/heads, tk]
+// int32; o like q; lse [bh, tq] f32. Launches on `stream` and returns
+// cudaGetLastError().
 int flash_fwd(const void* q, const void* k, const void* v, const int* seg_q,
               const int* seg_k, void* o, float* lse, int bh, int heads,
               int tq, int tk, int d, int causal, int dtype, void* stream) {
@@ -235,6 +900,11 @@ int flash_fwd(const void* q, const void* k, const void* v, const int* seg_q,
                                      heads, tq, tk, causal, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// 1 if flash_fwd runs the wgmma design at these lengths, 0 for the SIMT one.
+int flash_fwd_uses_wgmma(int tq, int tk) {
+  return tq <= kSimtMaxT && tk <= kSimtMaxT ? 0 : 1;
 }
 
 const char* flash_fwd_error_string(int err) {

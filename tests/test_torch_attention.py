@@ -218,3 +218,112 @@ def test_kernel_wrapper_checks_inputs_before_launch():
     assert all(kern.source.exists() for kern in _kernels.KERNELS)
     # The two backward kernels share one source, hence one build.
     assert _kernels.FLASH_BWD_DQ.library is _kernels.FLASH_BWD_DKDV.library
+
+
+def _fold_tiles(q, k, v, seg_q, seg_k, causal, skip):
+    """The wgmma forward's tile loop on the CPU: for each tile of 64 query
+    rows, fold key tiles of 64 through ``_online_block``; with ``skip``,
+    pass over a key tile whose [min, max] of seg_k misses the query
+    tile's, as the kernel does. Returns (o, lse, tiles skipped)."""
+    T, Tk = q.shape[-2], k.shape[-2]
+    qf, kf, vf = tattn._scale(q.float()), k.float(), v.float()
+    o = torch.empty_like(qf)
+    lse = torch.empty(q.shape[:-1])
+    skipped = 0
+    for q0 in range(0, T, 64):
+        q1 = min(q0 + 64, T)
+        qseg = seg_q[:, q0:q1]
+        m = torch.full((*q.shape[:2], q1 - q0), -float("inf"))
+        l = torch.zeros_like(m)
+        acc = torch.zeros((*q.shape[:2], q1 - q0, q.shape[-1]))
+        k_end = min(Tk, q1) if causal else Tk
+        for k0 in range(0, k_end, 64):
+            k1 = min(k0 + 64, Tk)
+            kseg = seg_k[:, k0:k1]
+            if skip and bool((kseg.max() < qseg.min())
+                             | (kseg.min() > qseg.max())):
+                skipped += 1
+                continue
+            vis = qseg[:, None, :, None] == kseg[:, None, None, :]
+            if causal:
+                vis = vis & (torch.arange(q0, q1)[:, None]
+                             >= torch.arange(k0, k1)[None, :])
+            bias = torch.where(vis, 0.0, tattn._NEG_INF)
+            m, l, acc = tattn._online_block(qf[..., q0:q1, :],
+                                            kf[..., k0:k1, :],
+                                            vf[..., k0:k1, :], bias, m, l,
+                                            acc)
+        o[..., q0:q1, :] = tattn._finalize(l, acc, torch.float32)
+        shift = torch.where(m > tattn._NEG_INF / 2, m, 0.0)
+        lse[..., q0:q1] = torch.where(l > 0, shift + torch.log(
+            torch.where(l > 0, l, 1.0)), float("inf"))
+    return o, lse, skipped
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("layout", ["monotone", "non-monotone", "disjoint"])
+def test_segment_tile_skip_is_exact(layout, causal):
+    """Skipping key tiles whose segment interval is disjoint from the
+    query tile's gives the same bits as folding them: such a tile's
+    scores all sit at the floor, which leaves m, l and acc as they were
+    (scale_old is 1 for a row with a visible key, 0 either way for a row
+    without one). Fully masked rows (disjoint kv ids) and non-monotone
+    ids, where no tile may be skipped, included."""
+    rng = np.random.default_rng(11)
+    T = 300  # ragged: query and key tiles of 64 leave a 44-row tail
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng, B=2, H=2, T=T, D=32))
+    t = np.arange(T)
+    if layout == "monotone":  # the model's cumsum of resets
+        seg_q = np.cumsum(rng.random((2, T)) < 0.02, axis=1)
+        seg_k = seg_q
+    elif layout == "non-monotone":
+        seg_q = np.broadcast_to((t // 37) % 2, (2, T))
+        seg_k = seg_q
+    else:
+        seg_q = np.broadcast_to(t // 100, (2, T))
+        seg_k = seg_q + 10 * (t >= 200)  # rows 200+ see no key
+    seg_q, seg_k = (torch.from_numpy(np.ascontiguousarray(x).astype(np.int32))
+                    for x in (seg_q, seg_k))
+    o1, l1, n1 = _fold_tiles(q, k, v, seg_q, seg_k, causal, skip=False)
+    o2, l2, n2 = _fold_tiles(q, k, v, seg_q, seg_k, causal, skip=True)
+    assert n1 == 0
+    assert (n2 == 0) == (layout == "non-monotone")
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    if layout == "disjoint":
+        assert torch.isinf(l2[..., 200:]).all()
+        assert torch.all(o2[..., 200:, :] == 0)
+    # And the folded result is the plain forward's.
+    o_ref, lse_ref = tattn._flash_forward_plain(q, k, v, seg_q, seg_k, causal)
+    torch.testing.assert_close(o2, o_ref, atol=ATOL, rtol=0)
+    _assert_lse_close(l2.reshape(-1, 1, T).numpy(), lse_ref.numpy(), ATOL)
+
+
+def test_library_hash_covers_included_headers(tmp_path):
+    """A kernel library is named by its source and every csrc header it
+    includes, so an edited header is rebuilt, not loaded stale."""
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\n')
+    lib = _kernels.CudaLibrary("k", str(tmp_path / "k.cu"))
+    assert sorted(p.name for p in lib.sources()) == ["a.cuh", "b.cuh",
+                                                     "k.cu"]
+    before = lib.library_path()
+    (tmp_path / "b.cuh").write_text("int b2;\n")
+    assert lib.library_path() != before
+    fwd = _kernels.FLASH_FWD.library.sources()
+    assert {p.name for p in fwd} == {"flash_fwd.cu", "wgmma.cuh"}
+
+
+def test_cached_build_keeps_its_log(tmp_path, monkeypatch):
+    """A library built by an earlier process is loaded without nvcc; its
+    compiler output (registers, spills) comes from the log kept beside
+    it, so a second run reports the same build."""
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text("int k;\n")
+    lib = _kernels.CudaLibrary("k", str(tmp_path / "k.cu"))
+    out = lib.library_path()
+    out.parent.mkdir()
+    out.write_bytes(b"")
+    out.with_suffix(".log").write_text("ptxas info: Used 40 registers\n")
+    lib._build()
+    assert lib.build_log == "ptxas info: Used 40 registers\n"

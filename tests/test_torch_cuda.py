@@ -25,30 +25,103 @@ def card():
     return torch.device("cuda")
 
 
+def _segments(layout, gen, B, Tq, Tk, causal, device):
+    """(seg_q, seg_k) int32 for a segment layout of the kernel tests."""
+    def episodes(T, every):
+        phase = torch.randint(0, every, (B, 1), generator=gen, device=device)
+        done = (torch.arange(T, device=device) + phase) % every == 0
+        return torch.cumsum(done.int(), dim=1, dtype=torch.int32)
+
+    t = torch.arange(Tq, device=device)
+    if layout == "random":
+        seg_q = (torch.rand((B, Tq), generator=gen, device=device) < 0.05)
+        seg_q = torch.cumsum(seg_q.int(), dim=1, dtype=torch.int32)
+        return seg_q, seg_q if causal else torch.zeros_like(seg_q)
+    if layout == "resets":
+        seg_q = episodes(Tq, 200)
+    elif layout == "alternating":
+        # Not monotone: every 64-key tile holds both ids, none is skipped.
+        seg_q = ((t // 37) % 2).int().expand(B, Tq).contiguous()
+    elif layout == "boundaries":
+        # At a multiple of 64 and one step either side of one.
+        seg_q = ((t >= 128).int() + (t >= 191).int() + (t >= 257).int())
+        seg_q = seg_q.expand(B, Tq).contiguous()
+    elif layout == "disjoint":
+        seg_q = episodes(Tq, 40)
+        return seg_q, episodes(Tk, 40) + 1000  # every row fully masked
+    elif layout == "tq_ne_tk":
+        return episodes(Tq, 70), episodes(Tk, 70)
+    else:
+        raise ValueError(layout)
+    return seg_q, seg_q
+
+
+LAYOUTS = [  # (layout, Tq, Tk)
+    ("random", 100, 100),
+    ("resets", 300, 300),
+    ("resets", 2047, 2047),
+    ("alternating", 300, 300),
+    ("boundaries", 320, 320),
+    ("disjoint", 100, 100),
+    ("tq_ne_tk", 200, 333),
+]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda x: f"{x[0]}-{x[1]}")
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernel_matches_plain(card, D, dtype, causal):
-    """T=100 leaves ragged query and key tiles; segments leave some rows
-    fully masked in the non-causal case (kv segments differ)."""
-    gen = torch.Generator(device=card).manual_seed(D)
-    B, H, T = 2, 3, 100
-    q, k, v = (torch.randn((B, H, T, D), generator=gen, device=card)
-               .to(dtype) for _ in range(3))
-    seg_q = (torch.rand((B, T), generator=gen, device=card) < 0.05).int()
-    seg_q = torch.cumsum(seg_q, dim=1, dtype=torch.int32)
-    seg_k = seg_q if causal else torch.zeros_like(seg_q)
+def test_flash_kernel_matches_plain(card, D, dtype, causal, layout):
+    """Segment layouts that the tile skip must get right (monotone resets,
+    non-monotone ids, boundaries at and beside a tile edge, kv ids that
+    no query shares, Tq != Tk), at ragged lengths (100, 300, 2047 leave
+    ragged query and key tiles); in the "random" layout non-causal kv
+    segments leave some rows fully masked."""
+    name, Tq, Tk = layout
+    gen = torch.Generator(device=card).manual_seed(D + Tq)
+    B, H = 2, 3
+    q = torch.randn((B, H, Tq, D), generator=gen, device=card).to(dtype)
+    k, v = (torch.randn((B, H, Tk, D), generator=gen, device=card).to(dtype)
+            for _ in range(2))
+    seg_q, seg_k = _segments(name, gen, B, Tq, Tk, causal, card)
     o, lse = _kernels.flash_fwd(q, k, v, seg_q, seg_k, causal)
     o_ref, lse_ref = tattn._flash_forward_plain(q, k, v, seg_q, seg_k,
                                                 causal)
     torch.cuda.synchronize()
     assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    if name == "disjoint":
+        assert torch.isinf(lse).all() and torch.all(o == 0)
     fin = torch.isfinite(lse_ref)
     torch.testing.assert_close(lse[fin], lse_ref[fin], atol=1e-4, rtol=0)
     # f32: summation order only; bf16: one rounding of the f32 result.
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
     torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-4,
                                rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [21, 2048])
+def test_flash_kernel_is_repeatable(card, dtype, T):
+    """No atomics and a fixed order of tiles: two launches give the same
+    bits (T=21 runs the SIMT design, T=2048 the wgmma one)."""
+    gen = torch.Generator(device=card).manual_seed(T)
+    q, k, v = (torch.randn((2, 4, T, 32), generator=gen, device=card)
+               .to(dtype) for _ in range(3))
+    seg, _ = _segments("resets", gen, 2, T, T, True, card)
+    o1, lse1 = _kernels.flash_fwd(q, k, v, seg, seg, True)
+    o2, lse2 = _kernels.flash_fwd(q, k, v, seg, seg, True)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
+def test_flash_wrapper_refuses_misaligned_rows(card):
+    """K and V rows come by 16-byte bulk copies: an input that starts off
+    a 16-byte boundary is refused before any launch."""
+    q = torch.zeros(1 * 1 * 128 * 32 + 1, device=card)[1:].view(1, 1, 128, 32)
+    seg = torch.zeros((1, 128), dtype=torch.int32, device=card)
+    before = _kernels.FLASH_FWD.launches
+    with pytest.raises(ValueError, match="aligned"):
+        _kernels.flash_fwd(q, q, q, seg, seg, True)
+    assert _kernels.FLASH_FWD.launches == before
 
 
 @pytest.mark.parametrize("T", [64, 300])
