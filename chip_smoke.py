@@ -7,16 +7,20 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. Device: the card's name, capability and power limit; needs sm_90.
 2. Build: every hand-written kernel from the sources in the checkout, one
-   nvcc per source, all started together; registers and spills, and the
-   tensor-core instructions in the forward's SASS.
+   nvcc per source, all started together; registers and spills of every
+   instantiation, and the tensor-core and bulk-copy instructions in the
+   SASS (every wgmma instantiation must contain HGMMA).
 3. Forward kernel vs plain: the flash forward's wrapper on the card, held
    against its plain PyTorch version on the same inputs (the main paths'
    shapes included, the context window with and without episode resets),
    with the kernel's, the plain version's and a library call's times
    (CUDA events and profiler device time), the card's least time for the
    same work, and the wrapper's host time per call by part.
-4. Backward kernels vs plain: the same for the flash dQ and dK/dV
-   kernels, on o and lse from the forward kernel and a seeded dO.
+4. Backward vs plain: the flash backward on o and lse from the forward
+   kernel and a seeded dO, each case through the design its shape picks
+   (the fused one-tile kernel at Tq, Tk <= 64, the dQ and dK/dV kernels
+   past it), over the forward's segment layouts; times as in phase 3,
+   with SDPA's backward as the library call.
 5. Serve: the full-width TransformerNet behind two Replicas (the act
    step at T=1 and a 2048-step context window), a few requests each,
    replies held against the same forward with plain dense attention
@@ -24,10 +28,15 @@ Phases, in order; any failure exits non-zero before the result line:
    service.
 6. Train: 3 IMPALA/V-trace steps of the full-width TransformerNet on
    learn batches [T+1=21, B=32], held against the same steps with dense
-   attention on the CPU; every kernel's launch count must rise by 2 per
-   step; the grad-step / apply-step split must give the same result;
-   steady-state step time and one step under torch.profiler.
-7. The kernels line, the card line, and the result line.
+   attention on the CPU; each step must launch the forward and the fused
+   backward kernel twice (once per layer), the dQ and dK/dV kernels and
+   the two-kernel design's delta ops never; the grad-step / apply-step
+   split must give the same result; steady-state step time and one step
+   under torch.profiler.
+7. Context backward: autograd through attention(backend="auto") at the
+   context shape with the repo's resets, held against dense attention's
+   autograd on the card; the dQ and dK/dV kernels launch once each.
+8. The kernels line, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -108,21 +117,27 @@ def device_ms(fn, kernel, iters: int = 20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if kernel is None or kernel in e.key)
-    return us / iters / 1e3 if us else None
+    # A trace now and then comes back without the kernels' records; such a
+    # trace is taken again (three tries).
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if kernel is None or kernel in e.key)
+        if us:
+            return us / iters / 1e3
+    return None
 
 
-def episode_segments(gen: torch.Generator, B: int, T: int) -> torch.Tensor:
-    """[B, T] int32 segment ids of lanes that reset every EPISODE_LENGTH
-    steps, each at a random phase."""
-    phase = torch.randint(0, EPISODE_LENGTH, (B, 1), generator=gen,
-                          device="cuda")
-    done = (torch.arange(T, device="cuda") + phase) % EPISODE_LENGTH == 0
+def episode_segments(gen: torch.Generator, B: int, T: int,
+                     every: int = EPISODE_LENGTH) -> torch.Tensor:
+    """[B, T] int32 segment ids of lanes that reset every ``every`` steps
+    (EPISODE_LENGTH, the repo's traffic, unless given), each at a random
+    phase."""
+    phase = torch.randint(0, every, (B, 1), generator=gen, device="cuda")
+    done = (torch.arange(T, device="cuda") + phase) % every == 0
     return torch.cumsum(done.int(), dim=1, dtype=torch.int32)
 
 
@@ -163,27 +178,69 @@ def flash_bound_ms(q, k, seg_q, seg_k, causal: bool):
 
 
 def flash_bwd_bounds_ms(q, k, seg_q, seg_k, causal: bool):
-    """Least times of the two backward kernels on this card: bytes (the
-    kernel's inputs read once: q, k, v, dO, lse, delta and segment ids;
-    its outputs written once) over HBM bandwidth, against 6*D FLOPs per
-    visible pair for dQ (s, dp, dQ) and 8*D for dK/dV (s, dp, dV, dK)
-    over the peak for the input type. Returns {kernel: (ms, by)}."""
+    """Least times of the backward kernels on this card: bytes (each input
+    read once: q, k, v, dO, lse and segment ids, with delta for the dQ and
+    dK/dV kernels or o for the fused one; the outputs written once) over
+    HBM bandwidth, against FLOPs per visible pair (dQ 6*D: s, dp, dQ; dK/dV
+    8*D: s, dp, dV, dK; the fused kernel 10*D: s and dp once, then dQ, dK
+    and dV, plus 2*D a row for delta) at the fastest rate that keeps the
+    input type's accuracy, as for the forward: bf16 on the tensor cores;
+    f32 the faster of the CUDA cores and 3xTF32. Returns {kernel: (ms,
+    by)}."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     item = q.element_size()
-    ins = ((2 * Tq + 2 * Tk) * D * item + 2 * Tq * 4) * B * H
-    ins += (B * Tq + B * Tk) * 4
+    rows_q, rows_k = B * H * Tq * D * item, B * H * Tk * D * item
+    ins = 2 * rows_q + 2 * rows_k + B * H * Tq * 4 + (B * Tq + B * Tk) * 4
     pairs = visible_pairs(seg_q, seg_k, H, causal)
     out = {}
     for name, nbytes, flops in (
-        ("flash_bwd_dq", ins + B * H * Tq * D * item, 6 * D * pairs),
-        ("flash_bwd_dkdv", ins + 2 * B * H * Tk * D * item, 8 * D * pairs),
+        ("flash_bwd_dq", ins + B * H * Tq * 4 + rows_q, 6 * D * pairs),
+        ("flash_bwd_dkdv", ins + B * H * Tq * 4 + 2 * rows_k, 8 * D * pairs),
+        ("flash_bwd_tile", ins + rows_q + rows_q + 2 * rows_k,
+         10 * D * pairs + 2 * D * B * H * Tq),
     ):
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[q.dtype]
+        if q.dtype == torch.float32:
+            t_ops = min(t_ops, 3 * flops / PEAK_FLOPS["tf32"])
         out[name] = (1e3 * max(t_bytes, t_ops),
                      "bytes" if t_bytes >= t_ops else "operations")
     return out
+
+
+def layout_segments(layout: str, gen: torch.Generator, B: int, Tq: int,
+                    Tk: int):
+    """(seg_q, seg_k) int32 of a segment layout: "episodes" (a reset every
+    EPISODE_LENGTH steps), "none" (no reset in the window), "kv masked"
+    (the second half of the queries has a segment no key has),
+    "alternating" (ids that go back and forth: no tile can be skipped),
+    "boundaries" (at a multiple of 64 and one step either side of one),
+    "disjoint" (kv ids no query shares: every row fully masked) and
+    "tq_ne_tk" (resets every 70 steps, Tq != Tk)."""
+    t = torch.arange(Tq, device="cuda")
+    if layout == "episodes":
+        seg_q = episode_segments(gen, B, Tq)
+    elif layout == "none":
+        seg_q = torch.zeros((B, Tq), dtype=torch.int32, device="cuda")
+    elif layout == "kv masked":
+        seg_q = episode_segments(gen, B, Tq)
+        seg_q[:, Tq // 2:] = 7
+        return seg_q, torch.zeros((B, Tk), dtype=torch.int32, device="cuda")
+    elif layout == "alternating":
+        seg_q = ((t // 37) % 2).int().expand(B, Tq).contiguous()
+    elif layout == "boundaries":
+        seg_q = ((t >= 128).int() + (t >= 191).int() + (t >= 257).int())
+        seg_q = seg_q.expand(B, Tq).contiguous()
+    elif layout == "disjoint":
+        return (episode_segments(gen, B, Tq, 40),
+                episode_segments(gen, B, Tk, 40) + 1000)
+    elif layout == "tq_ne_tk":
+        return (episode_segments(gen, B, Tq, 70),
+                episode_segments(gen, B, Tk, 70))
+    else:
+        raise ValueError(layout)
+    return seg_q, seg_q
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +260,8 @@ def phase_device():
 
 
 def _ptxas_lines(log: str):
-    """(kernel, D, dtype, line) for each register/spill line of ptxas -v."""
+    """(kernel, line) for each register, spill, warning or performance
+    line of ptxas -v (C7515-C7520 say that the wgmmas were serialized)."""
     name = "?"
     for line in log.splitlines():
         m = re.search(r"(flash_[a-z_]+_kernel)ILi(\d+)E(f|13__nv_bfloat16)",
@@ -211,7 +269,8 @@ def _ptxas_lines(log: str):
         if m and ("Compiling entry" in line or "Function properties" in line):
             dtype = "f32" if m.group(3) == "f" else "bf16"
             name = f"{m.group(1)}<D={m.group(2)},{dtype}>"
-        elif "registers" in line or "spill" in line:
+        elif any(w in line for w in ("registers", "spill", "warning",
+                                     "Performance Loss")):
             yield name, line.strip()
 
 
@@ -262,14 +321,22 @@ def phase_build():
             raise RuntimeError(f"{lib.source.name}: ptxas register lines "
                                f"for {len(with_regs)} of {len(entries)} "
                                f"kernels")
-    counts = _sass_counts(_kernels.FLASH_FWD.library.library_path())
-    for name, c in sorted(counts.items()):
-        log(f"[build] flash_fwd.cu {name} SASS: {c.get('HGMMA', 0)} HGMMA, "
-            f"{c.get('HMMA', 0)} HMMA, {c.get('UBLKCP', 0)} UBLKCP")
-    wgmma = [n for n in counts if n.startswith("flash_fwd_wgmma_kernel")]
-    if len(wgmma) != 6 or any(not counts[n].get("HGMMA") for n in wgmma):
-        raise RuntimeError(f"the forward's wgmma instantiations lack "
-                           f"tensor-core instructions: {counts}")
+    counts = {}
+    for lib in _kernels.LIBRARIES:
+        lib_counts = _sass_counts(lib.library_path())
+        for name, c in sorted(lib_counts.items()):
+            log(f"[build] {lib.source.name} {name} SASS: {c.get('HGMMA', 0)} "
+                f"HGMMA, {c.get('HMMA', 0)} HMMA, {c.get('UBLKCP', 0)} UBLKCP")
+        counts.update(lib_counts)
+    # Every wgmma design's instantiation (3 head dims x 2 dtypes) must
+    # contain tensor-core instructions.
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_kernel",
+                   "flash_bwd_dkdv_kernel"):
+        found = [n for n in counts if n.startswith(kernel + "<")]
+        if len(found) != 6 or any(not counts[n].get("HGMMA") for n in found):
+            raise RuntimeError(f"{kernel}'s instantiations lack tensor-core "
+                               f"instructions: "
+                               f"{ {n: counts[n] for n in found} }")
     return counts
 
 
@@ -449,104 +516,117 @@ def phase_kernel_vs_plain():
 
 
 def phase_backward_vs_plain():
-    """Both backward kernels against the plain backward on the same
-    inputs: o and lse from the forward kernel, dO from a seeded
-    generator. Tolerance: f32, 1e-4 of the gradient's largest entry
-    (summation order over up to 2048 terms); bf16 gradients, one rounding
-    of the f32 result on top (2**-7 relative)."""
+    """The backward against the plain backward on the same inputs, each
+    case through the design its shape picks (one fused launch at Tq, Tk
+    <= 64, the dQ and dK/dV kernels past it): o and lse from the forward
+    kernel, dO from a seeded generator, the forward's segment layouts.
+    Tolerance: f32, 1e-4 of the gradient's largest entry (summation order
+    over up to 2048 terms); bf16 gradients, one rounding of the f32 result
+    on top (2**-7 relative); dq exactly 0 on fully masked rows."""
     from moolib_tpu_torch.ops import _kernels
     from moolib_tpu_torch.ops.attention import (
+        _flash_backward,
         _flash_backward_plain,
         _flash_delta,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [
-        # name, (B, H, Tq, D), Tk, dtype, causal, kv masked rows
-        ("train (main path)", TRAIN_SHAPE, UNROLL + 1, torch.float32, True,
-         False),
-        ("context", CONTEXT_SHAPE, CONTEXT_T, torch.float32, True, False),
-        ("B*H=32 T=2048 bf16", (8, 4, 2048, 32), 2048, torch.bfloat16,
-         True, False),
-        ("ragged T=100 D=64", (2, 4, 100, 64), 100, torch.float32, True,
-         False),
-        ("ragged T=100 D=128", (2, 4, 100, 128), 100, torch.float32, True,
-         False),
-        ("ragged T=100 D=128 bf16", (2, 4, 100, 128), 100, torch.bfloat16,
-         True, False),
-        ("non-causal masked rows D=64", (2, 4, 256, 64), 384,
-         torch.float32, False, True),
+        # name, (B, H, Tq, D), Tk, dtype, causal, segment layout
+        ("train (main path)", TRAIN_SHAPE, UNROLL + 1, f32, True, "episodes"),
+        ("train bf16", TRAIN_SHAPE, UNROLL + 1, bf16, True, "episodes"),
+        ("one tile T=64 D=128 masked rows", (2, 4, 64, 128), 64, f32, False,
+         "kv masked"),
+        ("context (main path)", CONTEXT_SHAPE, CONTEXT_T, f32, True,
+         "episodes"),
+        ("context (no resets)", CONTEXT_SHAPE, CONTEXT_T, f32, True, "none"),
+        ("B*H=32 T=2048 bf16", (8, 4, 2048, 32), 2048, bf16, True,
+         "episodes"),
+        ("ragged T=100 D=64", (2, 4, 100, 64), 100, f32, True, "episodes"),
+        ("ragged T=100 D=128", (2, 4, 100, 128), 100, f32, True, "episodes"),
+        ("ragged T=100 D=128 bf16", (2, 4, 100, 128), 100, bf16, True,
+         "episodes"),
+        ("non-causal masked rows D=64", (2, 4, 256, 64), 384, f32, False,
+         "kv masked"),
+        ("alternating T=300", (2, 4, 300, 32), 300, f32, True, "alternating"),
+        ("boundaries T=320", (2, 4, 320, 32), 320, f32, True, "boundaries"),
+        ("disjoint T=100", (2, 4, 100, 32), 100, f32, False, "disjoint"),
+        ("tq_ne_tk 200/333", (2, 4, 200, 32), 333, f32, False, "tq_ne_tk"),
     ]
+    design_kernels = {
+        "tile": (_kernels.FLASH_BWD_TILE,),
+        "wgmma": (_kernels.FLASH_BWD_DQ, _kernels.FLASH_BWD_DKDV),
+    }
     results = {}
-    for name, (B, H, Tq, D), Tk, dtype, causal, kv_mask in cases:
+    for name, (B, H, Tq, D), Tk, dtype, causal, layout in cases:
         q, do = (torch.randn((B, H, Tq, D), generator=gen, device="cuda")
                  .to(dtype) for _ in range(2))
         k, v = (torch.randn((B, H, Tk, D), generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
-        seg_q = episode_segments(gen, B, Tq)
-        if kv_mask:
-            seg_k = torch.zeros((B, Tk), dtype=torch.int32, device="cuda")
-            seg_q[:, Tq // 2:] = 7  # no key carries segment 7
-        else:
-            seg_k = seg_q
+        seg_q, seg_k = layout_segments(layout, gen, B, Tq, Tk)
         o, lse = _kernels.flash_fwd(q, k, v, seg_q, seg_k, causal)
-        delta = _flash_delta(o, do)
-        dq = _kernels.flash_bwd_dq(q, k, v, seg_q, seg_k, lse, delta, do,
-                                   causal)
-        dk, dv = _kernels.flash_bwd_dkdv(q, k, v, seg_q, seg_k, lse, delta,
-                                         do, causal)
+        design = _kernels.flash_bwd_design(Tq, Tk)
+        before = [kern.launches for kern in design_kernels[design]]
+        got = _flash_backward(q, k, v, seg_q, seg_k, o, lse, do, causal)
         torch.cuda.synchronize()
+        if [kern.launches - n for kern, n in
+                zip(design_kernels[design], before)] != [1] * len(before):
+            raise RuntimeError(f"{name}: the {design} design's kernels did "
+                               f"not launch once each")
         want = _flash_backward_plain(q, k, v, seg_q, seg_k, o, lse, do,
                                      causal)
         errs, ok = {}, True
-        rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
-        for gname, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        rel = 2.0 ** -7 if dtype == bf16 else 0.0
+        for gname, g, ref in zip(("dq", "dk", "dv"), got, want):
             ref = ref.float()
             tol = 1e-4 * float(ref.abs().max()) + rel * ref.abs()
-            err = (got.float() - ref).abs()
+            err = (g.float() - ref).abs()
             ok &= bool((err <= tol).all())
             errs[gname] = (float(err.max()), float(tol.max()))
-        if kv_mask:
-            masked = torch.isinf(lse).reshape(B, H, Tq)
-            if not masked.any():
-                raise RuntimeError("masked-rows case produced no masked row")
-            if not bool((dq[masked] == 0).all()):
-                ok = False
-            errs["dq on masked rows"] = (float(dq[masked].abs().max()), 0.0)
+        masked = torch.isinf(lse).reshape(B, H, Tq)
+        if layout in ("kv masked", "disjoint") and not masked.any():
+            raise RuntimeError(f"{name} produced no fully masked row")
+        if masked.any():
+            ok &= bool((got[0][masked] == 0).all())
+            errs["dq on masked rows"] = (float(got[0][masked].abs().max()),
+                                         0.0)
         log(f"[backward] {name}: q {tuple(q.shape)} Tk {Tk} "
-            f"{str(dtype)[6:]} causal={causal} | "
+            f"{str(dtype)[6:]} causal={causal} {layout} design {design} | "
             + " ".join(f"max|{g}-plain| {e:.3e} (tol {t:.3e})"
                        for g, (e, t) in errs.items())
             + f" | {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise RuntimeError(f"backward kernels disagree with plain on "
-                               f"{name}")
-        results[name] = dict(q=q, k=k, v=v, do=do, seg_q=seg_q,
-                             seg_k=seg_k, causal=causal, o=o, lse=lse,
-                             delta=delta, errs=errs)
+            raise RuntimeError(f"the backward disagrees with plain on {name}")
+        results[name] = dict(q=q, k=k, v=v, do=do, seg_q=seg_q, seg_k=seg_k,
+                             causal=causal, o=o, lse=lse, errs=errs,
+                             design=design)
 
     timings = {}
-    for name in ("train (main path)", "context"):
+    for name in ("train (main path)", "context (main path)",
+                 "context (no resets)", "B*H=32 T=2048 bf16"):
         r = results[name]
         q, k, v, do, sq, sk, causal = (r["q"], r["k"], r["v"], r["do"],
                                        r["seg_q"], r["seg_k"], r["causal"])
-        o, lse, delta = r["o"], r["lse"], r["delta"]
-        def dq_fn():
-            return _kernels.flash_bwd_dq(q, k, v, sq, sk, lse, delta, do,
-                                         causal)
-
-        def dkdv_fn():
-            return _kernels.flash_bwd_dkdv(q, k, v, sq, sk, lse, delta, do,
-                                           causal)
-
-        dq_ms, dkdv_ms = cuda_ms(dq_fn, 20), cuda_ms(dkdv_fn, 20)
-        dev = {"flash_bwd_dq": device_ms(dq_fn, "flash_bwd_dq_kernel"),
-               "flash_bwd_dkdv": device_ms(dkdv_fn, "flash_bwd_dkdv_kernel")}
-        if None in dev.values():
-            raise RuntimeError(f"no profiler device time for {name}: {dev}")
+        o, lse = r["o"], r["lse"]
+        if r["design"] == "tile":
+            fns = {"flash_bwd_tile": lambda: _kernels.flash_bwd_tile(
+                q, k, v, sq, sk, o, lse, do, causal)}
+        else:
+            delta = _flash_delta(o, do)
+            fns = {
+                "flash_bwd_dq": lambda: _kernels.flash_bwd_dq(
+                    q, k, v, sq, sk, lse, delta, do, causal),
+                "flash_bwd_dkdv": lambda: _kernels.flash_bwd_dkdv(
+                    q, k, v, sq, sk, lse, delta, do, causal),
+            }
+        ms = {kname: cuda_ms(fn, 20) for kname, fn in fns.items()}
+        dev = {kname: device_ms(fn, kname + "_kernel")
+               for kname, fn in fns.items()}
         plain_ms = cuda_ms(lambda: _flash_backward_plain(
             q, k, v, sq, sk, o, lse, do, causal), 5)
-        # Yardstick: SDPA's backward with the same boolean mask.
+        # Yardstick: SDPA's backward with the same boolean mask, on CUDA
+        # events and as profiler device time (all of its kernels).
         Tq, Tk = q.shape[2], k.shape[2]
         mask = sq[:, None, :, None] == sk[:, None, None, :]
         if causal:
@@ -555,28 +635,81 @@ def phase_backward_vs_plain():
         qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
         out = torch.nn.functional.scaled_dot_product_attention(
             qg, kg, vg, attn_mask=mask)
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), do, retain_graph=True), 20)
+
+        def library():
+            return torch.autograd.grad(out, (qg, kg, vg), do,
+                                       retain_graph=True)
+
+        lib_ms = cuda_ms(library, 20)
+        lib_dev_ms = device_ms(library, None)
+        if None in dev.values() or lib_dev_ms is None:
+            raise RuntimeError(f"no profiler device time for {name}: {dev}, "
+                               f"sdpa {lib_dev_ms}")
         bounds = flash_bwd_bounds_ms(q, k, sq, sk, causal)
         no_resets = flash_bwd_bounds_ms(q, k, torch.zeros_like(sq),
                                         torch.zeros_like(sk), causal)
         timings[name] = {}
-        for kname, ms in (("flash_bwd_dq", dq_ms),
-                          ("flash_bwd_dkdv", dkdv_ms)):
+        for kname in fns:
             timings[name][kname] = dict(
-                ms=ms, device_ms=dev[kname], plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bounds[kname][0],
-                bound_by=bounds[kname][1],
-                bound_ms_no_resets=no_resets[kname][0])
-            log(f"[backward] {kname} {name} timing: kernel {ms:.4f} ms "
-                f"(profiler device time {dev[kname]} ms), "
-                f"bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}), "
-                f"bound with no resets {no_resets[kname][0]:.4f} ms; "
-                f"kernel/bound {ms / bounds[kname][0]:.1f}x")
-        log(f"[backward] {name} timing: dq+dkdv {dq_ms + dkdv_ms:.4f} ms, "
-            f"plain backward (dq, dk, dv together) {plain_ms:.4f} ms, "
-            f"sdpa backward {lib_ms:.4f} ms")
+                ms=ms[kname], device_ms=dev[kname], plain_ms=plain_ms,
+                library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                bound_ms=bounds[kname][0], bound_by=bounds[kname][1],
+                bound_ms_no_resets=no_resets[kname][0], design=r["design"])
+            log(f"[backward] {kname} {name} timing: kernel {ms[kname]:.4f} "
+                f"ms (profiler device time {dev[kname]:.4f} ms), bound "
+                f"{bounds[kname][0]:.4f} ms ({bounds[kname][1]}), bound with "
+                f"no resets {no_resets[kname][0]:.4f} ms; device/bound "
+                f"{dev[kname] / bounds[kname][0]:.1f}x")
+        log(f"[backward] {name} timing ({r['design']}): kernels "
+            f"{sum(dev.values()):.4f} ms device ({sum(ms.values()):.4f} ms "
+            f"events), plain backward (dq, dk, dv together) {plain_ms:.4f} "
+            f"ms, sdpa backward {lib_dev_ms:.4f} ms device ({lib_ms:.4f} ms "
+            f"events)")
     return results, timings
+
+
+def phase_context_backward():
+    """The long-T backward on its path: autograd through
+    attention(backend="auto") at the context shape with the repo's resets,
+    launch counts from 0, gradients held against dense attention's
+    autograd on the card (no row is fully masked, so the two agree)."""
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.ops.attention import attention, dense_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(CONTEXT_SHAPE, generator=gen, device="cuda")
+               .requires_grad_() for _ in range(3))
+    w = torch.randn(CONTEXT_SHAPE, generator=gen, device="cuda")
+    seg = episode_segments(gen, CONTEXT_SHAPE[0], CONTEXT_T)
+    for kern in KERNELS:
+        kern.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = attention(q, k, v, backend="auto", causal=True, segment_ids=seg)
+    got = torch.autograd.grad((out * w).sum(), (q, k, v))
+    end.record()
+    end.synchronize()
+    launches = {kern.name: kern.launches for kern in KERNELS}
+    ref = dense_attention(q, k, v, causal=True, segment_ids=seg)
+    want = torch.autograd.grad((ref * w).sum(), (q, k, v))
+    errs = {n: float((g - r).abs().max()) / float(r.abs().max())
+            for n, g, r in zip(("dq", "dk", "dv"), got, want)}
+    log(f"[context backward] attention(auto) + autograd at "
+        f"{CONTEXT_SHAPE} f32, resets every {EPISODE_LENGTH}: "
+        f"{start.elapsed_time(end):.3f} ms (CUDA events, forward and "
+        f"backward) | max error vs dense autograd, relative to each "
+        f"gradient's max: "
+        + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol 1e-4) | launches {launches}")
+    if max(errs.values()) > 1e-4:
+        raise RuntimeError(f"context backward differs from dense: {errs}")
+    want_launches = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1,
+                     "flash_bwd_tile": 0}
+    if launches != want_launches:
+        raise RuntimeError(f"context backward launches {launches}, want "
+                           f"{want_launches}")
+    return launches
 
 
 def _serve(rep, reqs, waves):
@@ -832,6 +965,7 @@ def phase_train():
         make_train_state,
     )
     from moolib_tpu_torch.learner import call_model
+    from moolib_tpu_torch.ops import attention as attention_ops
     from moolib_tpu_torch.ops._kernels import KERNELS
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -909,22 +1043,40 @@ def phase_train():
     ref_step = make_impala_train_step(config=cfg)
     ref_state = make_train_state(cpu, optimizer(cpu))
     metrics, ref_metrics, per_step = [], [], []
-    for kern in KERNELS:
-        kern.launches = 0
-    for i, batch in enumerate(batches):
-        before = [kern.launches for kern in KERNELS]
-        state, m = step(state, batch)
-        metrics.append({k: float(m[k]) for k in METRICS})
-        per_step.append([kern.launches - n for kern, n in
-                         zip(KERNELS, before)])
-        if i == 0:
-            after_one = {k: v.clone() for k, v in net.state_dict().items()}
-    launches = {kern.name: kern.launches for kern in KERNELS}
+    # delta is the fused kernel's own work at T = 21: count any call of
+    # the two-kernel design's delta ops on this path.
+    plain_delta, delta_calls = attention_ops._flash_delta, []
+
+    def counted_delta(o, do):
+        delta_calls.append(tuple(o.shape))
+        return plain_delta(o, do)
+
+    attention_ops._flash_delta = counted_delta
+    try:
+        for kern in KERNELS:
+            kern.launches = 0
+        for i, batch in enumerate(batches):
+            before = [kern.launches for kern in KERNELS]
+            state, m = step(state, batch)
+            metrics.append({k: float(m[k]) for k in METRICS})
+            per_step.append([kern.launches - n for kern, n in
+                             zip(KERNELS, before)])
+            if i == 0:
+                after_one = {k: v.clone()
+                             for k, v in net.state_dict().items()}
+        launches = {kern.name: kern.launches for kern in KERNELS}
+    finally:
+        attention_ops._flash_delta = plain_delta
     log(f"[train] launches per step {per_step} "
-        f"({[kern.name for kern in KERNELS]}); total {launches}")
-    if any(n != 2 for row in per_step for n in row):
-        raise RuntimeError("each kernel must launch twice per train step "
-                           f"(once per layer); got {per_step}")
+        f"({[kern.name for kern in KERNELS]}); total {launches}; "
+        f"_flash_delta calls {len(delta_calls)}")
+    # Per layer per step: one forward and one fused backward launch.
+    want = [2 if kern.name in ("flash_fwd", "flash_bwd_tile") else 0
+            for kern in KERNELS]
+    if any(row != want for row in per_step) or delta_calls:
+        raise RuntimeError(f"each train step must launch {want} "
+                           f"({[kern.name for kern in KERNELS]}) and no "
+                           f"delta op; got {per_step}, {delta_calls}")
     for batch in batches:
         ref_state, m = ref_step(ref_state, _to_cpu(batch))
         ref_metrics.append({k: float(m[k]) for k in METRICS})
@@ -1012,11 +1164,17 @@ def main() -> int:
     bwd_results, bwd_timings = phase_backward_vs_plain()
     serve_launches = phase_serve()
     train = phase_train()
+    context_backward = phase_context_backward()
 
     launches_by_path = {
         path: counts for path, counts in
-        [*serve_launches.items(), ("train", train["launches"])]
+        [*serve_launches.items(), ("train", train["launches"]),
+         ("context backward", context_backward)]
     }
+    never = [kname for kname in train["launches"]
+             if not any(c[kname] for c in launches_by_path.values())]
+    if never:
+        raise RuntimeError(f"kernels no path launched: {never}")
 
     def row(kname, source, replaces, timing, err, shape, extra):
         return {
@@ -1035,6 +1193,8 @@ def main() -> int:
             "bound_by": timing["bound_by"],
             "bound_ms_no_resets": timing["bound_ms_no_resets"],
             "library_ms": timing["library_ms"],
+            "library_device_ms": timing["library_device_ms"],
+            "design": timing["design"],
             "shape": list(shape),
             "parity": "pass",
             **extra,
@@ -1046,9 +1206,7 @@ def main() -> int:
         "flash_fwd", "moolib_tpu_torch/ops/csrc/flash_fwd.cu",
         "moolib_tpu/ops/attention.py:226", ctx,
         max(f["o_err"], f["lse_err"]), CONTEXT_SHAPE,
-        {"design": ctx["design"],
-         "library_device_ms": ctx["library_device_ms"],
-         "no_resets": fwd_timings["context (no resets)"],
+        {"no_resets": fwd_timings["context (no resets)"],
          "act_shape": dict(shape=list(ACT_SHAPE),
                            **fwd_timings["act (main path)"]),
          "train_shape": dict(shape=list(TRAIN_SHAPE),
@@ -1058,15 +1216,23 @@ def main() -> int:
     )]
     for kname, line, grads in (("flash_bwd_dq", 362, ("dq",)),
                                ("flash_bwd_dkdv", 407, ("dk", "dv"))):
-        b = bwd_results["train (main path)"]
+        b = bwd_results["context (main path)"]
         kernels.append(row(
             kname, "moolib_tpu_torch/ops/csrc/flash_bwd.cu",
             f"moolib_tpu/ops/attention.py:{line}",
-            bwd_timings["train (main path)"][kname],
-            max(b["errs"][g][0] for g in grads), TRAIN_SHAPE,
-            {"context_shape": dict(shape=list(CONTEXT_SHAPE),
-                                   **bwd_timings["context"][kname])},
+            bwd_timings["context (main path)"][kname],
+            max(b["errs"][g][0] for g in grads), CONTEXT_SHAPE,
+            {"no_resets": bwd_timings["context (no resets)"][kname],
+             "bf16_shape": dict(shape=[8, 4, 2048, 32],
+                                **bwd_timings["B*H=32 T=2048 bf16"][kname])},
         ))
+    b = bwd_results["train (main path)"]
+    kernels.append(row(
+        "flash_bwd_tile", "moolib_tpu_torch/ops/csrc/flash_bwd.cu",
+        "moolib_tpu/ops/attention.py:362 and :407 (both, at Tq, Tk <= 64)",
+        bwd_timings["train (main path)"]["flash_bwd_tile"],
+        max(b["errs"][g][0] for g in ("dq", "dk", "dv")), TRAIN_SHAPE, {},
+    ))
     print(json.dumps({"kernels": kernels,
                       "train": {k: train[k] for k in
                                 ("step_ms", "step_host_ms", "breakdown",

@@ -36,11 +36,15 @@ __all__ = [
     "CudaLibrary",
     "FLASH_BWD_DKDV",
     "FLASH_BWD_DQ",
+    "FLASH_BWD_TILE",
     "FLASH_FWD",
     "KERNELS",
+    "TILE_MAX",
     "build_all",
+    "flash_bwd_design",
     "flash_bwd_dkdv",
     "flash_bwd_dq",
+    "flash_bwd_tile",
     "flash_fwd",
     "flash_fwd_design",
 ]
@@ -206,7 +210,15 @@ FLASH_BWD_DKDV = CudaKernel(
     "flash_bwd_dkdv", _FLASH_BWD_LIB,
     [_P] * 10 + [_I] * 7 + [_P],
 )
-KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKDV)
+#: The whole flash backward (delta, dQ, dK, dV) in one launch at
+#: Tq, Tk <= TILE_MAX; replaces both backward kernels there.
+FLASH_BWD_TILE = CudaKernel(
+    "flash_bwd_tile", _FLASH_BWD_LIB,
+    [_P] * 11 + [_I] * 7 + [_P],
+)
+KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKDV, FLASH_BWD_TILE)
+#: The longest Tq and Tk the fused backward kernel takes.
+TILE_MAX = 64
 
 _FLASH_D = (32, 64, 128)
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -298,23 +310,40 @@ def flash_fwd_design(tq: int, tk: int) -> str:
     return "wgmma" if fn(tq, tk) else "simt"
 
 
-def _check_backward(name: str, q, k, v, seg_q, seg_k, lse, delta, do):
-    """The forward's checks, plus dO like q and lse/delta [B*H,1,Tq]
-    f32; returns (B, H, Tq, Tk, D)."""
-    B, H, Tq, Tk, D = _check_attention(name, q, k, v, seg_q, seg_k, lse,
-                                       delta, do)
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError(
-            f"{name} wants dO like q {tuple(q.shape)} {q.dtype}; got "
-            f"{tuple(do.shape)} {do.dtype}"
-        )
+def _check_backward(name: str, q, k, v, seg_q, seg_k, lse, do, delta=None,
+                    o=None):
+    """The forward's checks, plus dO (and the forward's ``o``) like q,
+    lse (and ``delta``) [B*H,1,Tq] f32, and the rows 16-byte aligned;
+    returns (B, H, Tq, Tk, D)."""
+    more = [t for t in (delta, o) if t is not None]
+    B, H, Tq, Tk, D = _check_attention(name, q, k, v, seg_q, seg_k, lse, do,
+                                       *more)
+    for label, t in (("dO", do), ("o", o)):
+        if t is not None and (t.shape != q.shape or t.dtype != q.dtype):
+            raise ValueError(
+                f"{name} wants {label} like q {tuple(q.shape)} {q.dtype}; "
+                f"got {tuple(t.shape)} {t.dtype}"
+            )
     for label, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (B * H, 1, Tq):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != (B * H, 1, Tq)):
             raise ValueError(
                 f"{name} wants {label} [B*H,1,Tq]={(B * H, 1, Tq)} float32; "
                 f"got {tuple(t.shape)} {t.dtype}"
             )
+    rows = (q, k, v, do) + (() if o is None else (o,))
+    if any(t.data_ptr() % 16 for t in rows):
+        # Rows come by 16-byte bulk copies (or float4 loads at one tile).
+        raise ValueError(f"{name} needs q, k, v, o and dO 16-byte aligned")
     return B, H, Tq, Tk, D
+
+
+def flash_bwd_design(tq: int, tk: int) -> str:
+    """Which backward runs at these sequence lengths: "tile" (one fused
+    launch, :func:`flash_bwd_tile`) at Tq, Tk <= TILE_MAX, else "wgmma"
+    (:func:`flash_bwd_dq` and :func:`flash_bwd_dkdv` on the tensor
+    cores)."""
+    return "tile" if tq <= TILE_MAX and tk <= TILE_MAX else "wgmma"
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -323,9 +352,9 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool) -> torch.Tensor:
     """Launch the flash dQ kernel: the forward's inputs, its ``lse``,
     ``delta`` = rowsum(dO * o) [B*H,1,Tq] f32 and dO like q (all
-    contiguous) -> dq in q's dtype."""
+    contiguous, q, k, v and dO 16-byte aligned) -> dq in q's dtype."""
     B, H, Tq, Tk, D = _check_backward("flash_bwd_dq", q, k, v, seg_q, seg_k,
-                                      lse, delta, do)
+                                      lse, do, delta=delta)
     dq = torch.empty_like(q)
     _on_device(q.device, FLASH_BWD_DQ, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), seg_q.data_ptr(), seg_k.data_ptr(),
@@ -341,7 +370,7 @@ def flash_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the flash dK/dV kernel: the arguments of
     :func:`flash_bwd_dq` -> (dk, dv) in k's and v's dtype."""
     B, H, Tq, Tk, D = _check_backward("flash_bwd_dkdv", q, k, v, seg_q,
-                                      seg_k, lse, delta, do)
+                                      seg_k, lse, do, delta=delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _on_device(q.device, FLASH_BWD_DKDV, q.data_ptr(), k.data_ptr(),
@@ -350,3 +379,27 @@ def flash_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                dv.data_ptr(), B * H, H, Tq, Tk, D, int(bool(causal)),
                _FLASH_DTYPES[q.dtype])
     return dk, dv
+
+
+def flash_bwd_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   seg_q: torch.Tensor, seg_k: torch.Tensor, o: torch.Tensor,
+                   lse: torch.Tensor, do: torch.Tensor, causal: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the one-tile flash backward (Tq, Tk <= TILE_MAX): the
+    forward's inputs, its ``o`` (like q) and ``lse``, and dO like q (all
+    contiguous, q, k, v, o and dO 16-byte aligned) -> (dq, dk, dv) in the
+    inputs' dtype. delta comes from o inside the kernel."""
+    B, H, Tq, Tk, D = _check_backward("flash_bwd_tile", q, k, v, seg_q,
+                                      seg_k, lse, do, o=o)
+    if flash_bwd_design(Tq, Tk) != "tile":
+        raise ValueError(f"flash_bwd_tile takes Tq, Tk <= {TILE_MAX}; got "
+                         f"{Tq}, {Tk}")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _on_device(q.device, FLASH_BWD_TILE, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), seg_q.data_ptr(), seg_k.data_ptr(), o.data_ptr(),
+               lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+               dv.data_ptr(), B * H, H, Tq, Tk, D, int(bool(causal)),
+               _FLASH_DTYPES[q.dtype])
+    return dq, dk, dv

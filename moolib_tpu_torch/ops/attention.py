@@ -250,9 +250,14 @@ def _flash_backward_plain(q, k, v, seg_q, seg_k, o, lse, do, causal: bool
 
 def _flash_backward(q, k, v, seg_q, seg_k, o, lse, do, causal: bool
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The dQ and dK/dV kernels for a CUDA tensor (contiguous inputs),
-    the plain version for a CPU tensor."""
+    """The kernels for a CUDA tensor (contiguous inputs), chosen by shape:
+    at Tq, Tk <= 64 the one fused launch (delta from o inside it), else
+    delta here and the dQ and dK/dV kernels; the plain version for a CPU
+    tensor."""
     if q.is_cuda:
+        if _kernels.flash_bwd_design(q.shape[-2], k.shape[-2]) == "tile":
+            return _kernels.flash_bwd_tile(q, k, v, seg_q, seg_k, o, lse, do,
+                                           causal)
         delta = _flash_delta(o, do)
         dq = _kernels.flash_bwd_dq(q, k, v, seg_q, seg_k, lse, delta, do,
                                    causal)

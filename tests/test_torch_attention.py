@@ -216,8 +216,9 @@ def test_kernel_wrapper_checks_inputs_before_launch():
             wrapper(q, k, v, seg, seg, stat, stat, q, True)
     assert [kern.launches for kern in _kernels.KERNELS] == launches
     assert all(kern.source.exists() for kern in _kernels.KERNELS)
-    # The two backward kernels share one source, hence one build.
+    # The three backward kernels share one source, hence one build.
     assert _kernels.FLASH_BWD_DQ.library is _kernels.FLASH_BWD_DKDV.library
+    assert _kernels.FLASH_BWD_TILE.library is _kernels.FLASH_BWD_DQ.library
 
 
 def _fold_tiles(q, k, v, seg_q, seg_k, causal, skip):
@@ -310,8 +311,11 @@ def test_library_hash_covers_included_headers(tmp_path):
     before = lib.library_path()
     (tmp_path / "b.cuh").write_text("int b2;\n")
     assert lib.library_path() != before
-    fwd = _kernels.FLASH_FWD.library.sources()
-    assert {p.name for p in fwd} == {"flash_fwd.cu", "wgmma.cuh"}
+    # Both flash sources include the shared operand header.
+    for kern, src in ((_kernels.FLASH_FWD, "flash_fwd.cu"),
+                      (_kernels.FLASH_BWD_DQ, "flash_bwd.cu")):
+        names = {p.name for p in kern.library.sources()}
+        assert names == {src, "operands.cuh", "wgmma.cuh"}
 
 
 def test_cached_build_keeps_its_log(tmp_path, monkeypatch):

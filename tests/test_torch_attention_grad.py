@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from moolib_tpu.ops import attention as jattn
+from moolib_tpu_torch.ops import _kernels
 from moolib_tpu_torch.ops import attention as tattn
 
 ATOL = 1e-4
@@ -151,3 +152,131 @@ def test_flash_attention_grad_of_permuted_views_and_dtypes():
     (gb,) = torch.autograd.grad((run(xb, False).float() * w).sum(), xb)
     assert gb.dtype == torch.bfloat16
     torch.testing.assert_close(gb.float(), grads[0], atol=0.1, rtol=0.05)
+
+
+def _layout_segments(layout, rng, B, T):
+    """(seg_q, seg_k) int32 [B, T]: the model's cumsum of resets, ids that
+    go back and forth (no tile may be skipped), or kv ids that rows 200+
+    share with no key."""
+    t = np.arange(T)
+    if layout == "monotone":
+        seg_q = np.cumsum(rng.random((B, T)) < 0.02, axis=1)
+        seg_k = seg_q
+    elif layout == "non-monotone":
+        seg_q = np.broadcast_to((t // 37) % 2, (B, T))
+        seg_k = seg_q
+    else:
+        seg_q = np.broadcast_to(t // 100, (B, T))
+        seg_k = seg_q + 10 * (t >= 200)
+    return [torch.from_numpy(np.ascontiguousarray(x).astype(np.int32))
+            for x in (seg_q, seg_k)]
+
+
+def _misses(own, other):
+    """The kernels' skip test: the [min, max] intervals are disjoint."""
+    return bool((other.max() < own.min()) | (other.min() > own.max()))
+
+
+def _fold_backward(q, k, v, seg_q, seg_k, o, lse, do, causal, side, skip,
+                   tile=64):
+    """The wgmma backward's tile loops on the CPU, per (batch, head) as the
+    kernels' CTAs run them: "dq" owns 64 query rows and folds key tiles,
+    "dkdv" owns 64 key rows and folds query tiles; with ``skip``, a
+    streamed tile whose segment interval misses the own rows' is passed
+    over. Returns (gradients, tiles skipped)."""
+    B, H, T, D = q.shape
+    Tk = k.shape[-2]
+    scale = 1.0 / np.sqrt(D)
+    qs = q * scale
+    delta = tattn._flash_delta(o, do).reshape(B, H, T)
+    lse = lse.reshape(B, H, T)
+    live = torch.isfinite(lse)
+    safe = torch.where(live, lse, 0.0)
+
+    def pds(b, i0, i1, j0, j1):
+        vis = seg_q[b, i0:i1, None] == seg_k[b, None, j0:j1]
+        if causal:
+            vis = vis & (torch.arange(i0, i1)[:, None]
+                         >= torch.arange(j0, j1)[None, :])
+        vis = vis & live[b, :, i0:i1, None]
+        s = qs[b, :, i0:i1] @ k[b, :, j0:j1].transpose(-1, -2)
+        p = torch.where(vis, torch.exp(s - safe[b, :, i0:i1, None]), 0.0)
+        dp = do[b, :, i0:i1] @ v[b, :, j0:j1].transpose(-1, -2)
+        return p, p * (dp - delta[b, :, i0:i1, None])
+
+    skipped = 0
+    if side == "dq":
+        dq = torch.zeros_like(q)
+        for b in range(B):
+            for q0 in range(0, T, 64):
+                q1 = min(q0 + 64, T)
+                for k0 in range(0, min(Tk, q1) if causal else Tk, tile):
+                    k1 = min(k0 + tile, Tk)
+                    if skip and _misses(seg_q[b, q0:q1], seg_k[b, k0:k1]):
+                        skipped += 1
+                        continue
+                    _, ds = pds(b, q0, q1, k0, k1)
+                    dq[b, :, q0:q1] += ds @ k[b, :, k0:k1]
+        return [dq * scale], skipped
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for b in range(B):
+        for k0 in range(0, Tk, 64):
+            k1 = min(k0 + 64, Tk)
+            for i0 in range(k0 if causal else 0, T, tile):
+                i1 = min(i0 + tile, T)
+                if skip and _misses(seg_k[b, k0:k1], seg_q[b, i0:i1]):
+                    skipped += 1
+                    continue
+                p, ds = pds(b, i0, i1, k0, k1)
+                dv[b, :, k0:k1] += p.transpose(-1, -2) @ do[b, :, i0:i1]
+                dk[b, :, k0:k1] += ds.transpose(-1, -2) @ qs[b, :, i0:i1]
+    return [dk, dv], skipped
+
+
+@pytest.mark.parametrize("side", ["dq", "dkdv"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("layout", ["monotone", "non-monotone", "disjoint"])
+def test_backward_segment_tile_skip_is_exact(layout, causal, side):
+    """Skipping the streamed tiles whose segment interval is disjoint from
+    the own rows' (key tiles in dQ, query tiles in dK/dV) gives the same
+    bits as folding them: such a tile holds no visible pair, so all of its
+    p and dS are 0. Ragged T = 300 with tiles of 64 (the kernels' own rows)
+    and 32 streamed rows (f32 at D = 64); non-monotone ids, where no tile
+    may be skipped, and fully masked rows included. The fold is the plain
+    backward's arithmetic."""
+    rng = np.random.default_rng(12)
+    T = 300
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(12, T=T, D=32)[:4])
+    seg_q, seg_k = _layout_segments(layout, rng, q.shape[0], T)
+    o, lse = tattn._flash_forward_plain(q, k, v, seg_q, seg_k, causal)
+    args = (q, k, v, seg_q, seg_k, o, lse, do, causal, side)
+    full, n_full = _fold_backward(*args, skip=False, tile=32)
+    kept, n_kept = _fold_backward(*args, skip=True, tile=32)
+    assert n_full == 0
+    assert (n_kept == 0) == (layout == "non-monotone")
+    for a, b in zip(full, kept):
+        assert torch.equal(a, b)
+    want = tattn._flash_backward_plain(q, k, v, seg_q, seg_k, o, lse, do,
+                                       causal)
+    want = want[:1] if side == "dq" else want[1:]
+    for got, ref in zip(kept, want):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+    if layout == "disjoint" and side == "dq":
+        assert torch.all(kept[0][..., 200:, :] == 0)
+
+
+def test_tile_wrapper_checks_inputs_before_launch():
+    """The one-tile backward's wrapper takes only CUDA tensors and never
+    runs the plain version itself: a CPU tensor is refused before any
+    build or launch. The dispatch picks it by shape alone."""
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(13, T=21)[:4])
+    seg = torch.zeros((2, 21), dtype=torch.int32)
+    lse = torch.zeros((6, 1, 21))
+    launches = [kern.launches for kern in _kernels.KERNELS]
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.flash_bwd_tile(q, k, v, seg, seg, q, lse, do, True)
+    assert [kern.launches for kern in _kernels.KERNELS] == launches
+    assert [_kernels.flash_bwd_design(tq, tk) for tq, tk in
+            ((1, 1), (21, 21), (64, 64), (65, 21), (21, 300), (2048, 2048))
+            ] == ["tile", "tile", "tile", "wgmma", "wgmma", "wgmma"]

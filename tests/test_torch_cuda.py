@@ -155,75 +155,131 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="lse"):
         _kernels.flash_bwd_dkdv(q, q, q, seg, seg, stat[..., :4], stat, q,
                                 True)
+    q = torch.zeros((1, 1, 65, 32), device=card)
+    seg = torch.zeros((1, 65), dtype=torch.int32, device=card)
+    stat = torch.zeros((1, 1, 65), device=card)
+    with pytest.raises(ValueError, match="Tq, Tk <= 64"):
+        _kernels.flash_bwd_tile(q, q, q, seg, seg, q, stat, q, True)
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_backward_kernels_match_plain(card, D, dtype, causal):
-    """T=100 leaves ragged tiles on both sides; in the non-causal case kv
-    segments leave some rows fully masked, whose dq must be exactly 0.
-    o and lse come from the forward kernel. Tolerance: f32, summation
-    order (1e-4 of the gradient's scale); bf16 gradients, one rounding
-    of the f32 result (2**-7 relative)."""
-    gen = torch.Generator(device=card).manual_seed(100 + D)
-    B, H, T = 2, 3, 100
-    q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device=card)
-                   .to(dtype) for _ in range(4))
-    seg_q = (torch.rand((B, T), generator=gen, device=card) < 0.05).int()
-    seg_q = torch.cumsum(seg_q, dim=1, dtype=torch.int32)
-    if causal:
-        seg_k = seg_q
-    else:
-        seg_k = torch.zeros_like(seg_q)
-        seg_q[:, 70:] = 9  # no key carries segment 9
-    o, lse = _kernels.flash_fwd(q, k, v, seg_q, seg_k, causal)
-    delta = tattn._flash_delta(o, do)
-    dq = _kernels.flash_bwd_dq(q, k, v, seg_q, seg_k, lse, delta, do, causal)
-    dk, dv = _kernels.flash_bwd_dkdv(q, k, v, seg_q, seg_k, lse, delta, do,
-                                     causal)
-    torch.cuda.synchronize()
-    want = tattn._flash_backward_plain(q, k, v, seg_q, seg_k, o, lse, do,
-                                       causal)
-    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
-    for got, ref in zip((dq, dk, dv), want):
-        assert got.dtype == dtype
-        scale = float(ref.float().abs().max())
-        torch.testing.assert_close(got.float(), ref.float(),
-                                   atol=1e-4 * scale, rtol=rtol)
-    if not causal:
-        masked = torch.isinf(lse).reshape(B, H, T)
-        assert masked.any()
-        assert torch.all(dq[masked] == 0)
-    # No atomics: a second run gives the same bits.
-    dq2 = _kernels.flash_bwd_dq(q, k, v, seg_q, seg_k, lse, delta, do,
-                                causal)
-    dk2, dv2 = _kernels.flash_bwd_dkdv(q, k, v, seg_q, seg_k, lse, delta, do,
-                                       causal)
-    assert torch.equal(dq, dq2) and torch.equal(dk, dk2)
-    assert torch.equal(dv, dv2)
-
-
-def test_auto_backward_launches_every_kernel_once(card):
+@pytest.mark.parametrize("T", [21, 300])
+def test_auto_backward_launches_every_kernel_once(card, T):
     """autograd through attention(backend="auto") on the model's causal
-    segmented path against dense attention's autograd."""
+    segmented path against dense attention's autograd: at T = 21 one
+    fused backward launch (no dQ or dK/dV kernel), at T = 300 the dQ and
+    dK/dV kernels once each."""
     gen = torch.Generator(device=card).manual_seed(1)
-    B, H, T, D = 4, 4, 21, 32
+    B, H, D = 4, 4, 32
     q, k, v = (torch.randn((B, H, T, D), generator=gen, device=card)
                .requires_grad_() for _ in range(3))
     seg = torch.zeros((B, T), dtype=torch.int32, device=card)
     seg[:, 9:] = 1
+    seg[:, 150:] = 2
     w = torch.randn((B, H, T, D), generator=gen, device=card)
     before = [kern.launches for kern in _kernels.KERNELS]
     out = tattn.attention(q, k, v, backend="auto", causal=True,
                           segment_ids=seg)
     got = torch.autograd.grad((out * w).sum(), (q, k, v))
+    # flash_fwd, flash_bwd_dq, flash_bwd_dkdv, flash_bwd_tile
+    want_launches = [1, 0, 0, 1] if T <= 64 else [1, 1, 1, 0]
     assert [kern.launches - n for kern, n in
-            zip(_kernels.KERNELS, before)] == [1, 1, 1]
+            zip(_kernels.KERNELS, before)] == want_launches
     ref = tattn.dense_attention(q, k, v, causal=True, segment_ids=seg)
     want = torch.autograd.grad((ref * w).sum(), (q, k, v))
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, atol=1e-4, rtol=0)
+
+
+# The forward's layouts (past one tile: the wgmma kernels) and layouts of
+# at most one tile (the fused kernel); T = 21 is the train step's.
+BACKWARD_LAYOUTS = LAYOUTS + [
+    ("random", 21, 21),
+    ("resets", 64, 64),
+    ("alternating", 50, 50),
+    ("disjoint", 40, 40),
+    ("tq_ne_tk", 21, 60),
+]
+
+
+def _backward_case(card, D, dtype, causal, layout, seed):
+    name, Tq, Tk = layout
+    gen = torch.Generator(device=card).manual_seed(seed)
+    B, H = 2, 3
+    q, do = (torch.randn((B, H, Tq, D), generator=gen, device=card)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, H, Tk, D), generator=gen, device=card).to(dtype)
+            for _ in range(2))
+    seg_q, seg_k = _segments(name, gen, B, Tq, Tk, causal, card)
+    o, lse = _kernels.flash_fwd(q, k, v, seg_q, seg_k, causal)
+    return q, k, v, seg_q, seg_k, o, lse, do
+
+
+@pytest.mark.parametrize("layout", BACKWARD_LAYOUTS,
+                         ids=lambda x: f"{x[0]}-{x[1]}-{x[2]}")
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernels_match_plain(card, D, dtype, causal, layout):
+    """Both backward designs (the fused kernel at Tq, Tk <= 64, the dQ and
+    dK/dV kernels past it), each chosen by shape through _flash_backward,
+    against the plain backward over the forward's segment layouts (ragged
+    tiles on both sides; fully masked rows in "random" non-causal and
+    "disjoint"). Tolerance: f32, summation order (1e-4 of each
+    gradient's largest entry); bf16 gradients, one rounding of the f32
+    result on top (2**-7 relative); dq exactly 0 on fully masked rows."""
+    args = _backward_case(card, D, dtype, causal, layout, D + layout[1])
+    q, k, v, seg_q, seg_k, o, lse, do = args
+    design = _kernels.flash_bwd_design(q.shape[2], k.shape[2])
+    kerns = ([_kernels.FLASH_BWD_TILE] if design == "tile"
+             else [_kernels.FLASH_BWD_DQ, _kernels.FLASH_BWD_DKDV])
+    before = [kern.launches for kern in kerns]
+    got = tattn._flash_backward(*args, causal)
+    torch.cuda.synchronize()
+    assert [kern.launches - n for kern, n in zip(kerns, before)] == [1] * len(
+        kerns)
+    want = tattn._flash_backward_plain(*args, causal)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for g, ref in zip(got, want):
+        assert g.dtype == dtype
+        scale = float(ref.float().abs().max())
+        torch.testing.assert_close(g.float(), ref.float(),
+                                   atol=1e-4 * scale, rtol=rtol)
+    masked = torch.isinf(lse).reshape(q.shape[:3])
+    if layout[0] == "disjoint":
+        assert masked.all()
+    assert torch.all(got[0][masked] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [21, 2048])
+def test_flash_backward_is_repeatable(card, dtype, T):
+    """Every output row has one owner (no atomics) and tiles run in a
+    fixed order: two backward passes give the same bits (T = 21 runs the
+    fused kernel, T = 2048 the wgmma kernels)."""
+    args = _backward_case(card, 32, dtype, True, ("resets", T, T), T)
+    first = tattn._flash_backward(*args, True)
+    second = tattn._flash_backward(*args, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_wrappers_refuse_misaligned_rows(card):
+    """Rows come by 16-byte bulk copies (float4 loads in the fused
+    kernel): an input that starts off a 16-byte boundary is refused
+    before any launch."""
+    for T in (21, 128):
+        x = torch.zeros(T * 32 + 1, device=card)[1:].view(1, 1, T, 32)
+        seg = torch.zeros((1, T), dtype=torch.int32, device=card)
+        stat = torch.zeros((1, 1, T), device=card)
+        before = [kern.launches for kern in _kernels.KERNELS]
+        with pytest.raises(ValueError, match="aligned"):
+            _kernels.flash_bwd_dq(x, x, x, seg, seg, stat, stat, x, True)
+        with pytest.raises(ValueError, match="aligned"):
+            _kernels.flash_bwd_dkdv(x, x, x, seg, seg, stat, stat, x, True)
+        if T <= 64:
+            with pytest.raises(ValueError, match="aligned"):
+                _kernels.flash_bwd_tile(x, x, x, seg, seg, x, stat, x, True)
+        assert [kern.launches for kern in _kernels.KERNELS] == before
 
 
 def test_conv_torso_backward_is_f32_not_tf32(card):
