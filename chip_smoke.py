@@ -36,7 +36,16 @@ Phases, in order; any failure exits non-zero before the result line:
 7. Context backward: autograd through attention(backend="auto") at the
    context shape with the repo's resets, held against dense attention's
    autograd on the card; the dQ and dK/dV kernels launch once each.
-8. The kernels line, the card line, and the result line.
+8. Impala learner: the full-width ImpalaNet (experiment.py's default
+   model on pixel envs) trained 3 steps on learn batches [T+1=21, B=32]
+   with experiment.py's RMSprop chain, in f32 and in bf16, held against
+   the same steps on the CPU; the grad-step / apply-step split; the
+   steady step's time and one step profiled (device time by kernel
+   class, the forward's, V-trace's and the optimizer's spans); the LSTM
+   variant's act step for 32 envs, its state threaded over 4 steps,
+   against the CPU; then bench_torch.py at B=256 (its JSON line) and one
+   of its steps profiled. No flash kernel runs on this path.
+9. The kernels line, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -911,12 +920,39 @@ CONV_PARAMS = ("conv0.weight", "conv0.bias", "conv1.weight", "conv1.bias")
 METRICS = ("total_loss", "pg_loss", "baseline_loss", "entropy", "grad_norm")
 
 
-def _profile_step(run_step) -> dict:
+def _kernel_class(name: str) -> str:
+    """The part of the step a device work item belongs to, from its name
+    (cuDNN's convolution kernels name their pass: fprop, dgrad, wgrad)."""
+    n = name.lower()
+    if "wgrad" in n:
+        return "conv weight gradient"
+    if "dgrad" in n:
+        return "conv data gradient"
+    if "nchwtonhwc" in n or "nhwctonchw" in n:
+        return "conv layout transposes"
+    if "fft" in n or "cf32" in n:  # cuDNN's FFT algorithm, any pass
+        return "conv via FFT"
+    if "fprop" in n or "convolve" in n or re.search(r"\bconv", n):
+        return "conv forward"
+    if "flash_" in n:
+        return "flash kernels"
+    if "gemm" in n or "gemv" in n or "cublas" in n or "cutlass" in n:
+        return "dense (cuBLAS)"
+    if "max_pool" in n:
+        return "max-pool"
+    if "memcpy" in n or "memset" in n:
+        return "copies and fills"
+    return "elementwise and other"
+
+
+def _profile_step(run_step, tag: str = "train") -> dict:
     """One train step under torch.profiler: its wall time, the number of
     work items on the card (kernels, copies, fills), their summed device
-    time (one stream, so no overlap), the five largest by device time,
-    and the spans that record_function ranges (the optimizer's step)
-    cover on the device timeline."""
+    time (one stream, so no overlap), the device time by kernel class
+    (_kernel_class), the largest items, the spans that record_function
+    ranges (the optimizer's step, and whatever the caller marks) cover on
+    the device timeline, and the device time of the work items that
+    start inside each span."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -928,29 +964,45 @@ def _profile_step(run_step) -> dict:
         float(m["total_loss"])
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name, spans = {}, {}
+    by_name, spans, items = {}, {}, []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
+        r = e.time_range
         if e.is_user_annotation:  # a range over other work, not work
-            spans[e.name] = spans.get(e.name, 0.0) + e.time_range.elapsed_us()
+            spans.setdefault(e.name, []).append((r.start, r.end))
             continue
+        items.append((e.name, r.start, r.elapsed_us()))
         n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    items = sum(n for n, _ in by_name.values())
+        by_name[e.name] = (n + 1, us + r.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
-    log(f"[train] profiled step: {wall_ms:.3f} ms wall (profiler on), "
-        f"{items} device work items, {busy_ms:.3f} ms device busy "
+    by_class = {}
+    for name, (n, us) in by_name.items():
+        c = _kernel_class(name)
+        by_class[c] = by_class.get(c, 0.0) + us / 1e3
+    span_ms = {name: sum(r1 - r0 for r0, r1 in rs) / 1e3
+               for name, rs in spans.items()}
+    span_work_ms = {
+        name: sum(us for _, t, us in items
+                  if any(r0 <= t < r1 for r0, r1 in rs)) / 1e3
+        for name, rs in spans.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    log(f"[{tag}] profiled step: {wall_ms:.3f} ms wall (profiler on), "
+        f"{len(items)} device work items, {busy_ms:.3f} ms device busy "
         f"({100 * busy_ms / wall_ms:.1f}% of the wall time)")
+    log(f"[{tag}]   device ms by class: " + ", ".join(
+        f"{c} {ms:.3f}" for c, ms in sorted(by_class.items(),
+                                             key=lambda kv: -kv[1])))
     for name, (n, us) in top:
-        log(f"[train]   {us / 1e3:.3f} ms in {n} x {name[:90]}")
-    for name, us in spans.items():
-        log(f"[train]   span {name}: {us / 1e3:.3f} ms on the device timeline")
-    return dict(wall_ms=wall_ms, device_items=items, device_busy_ms=busy_ms,
-                spans_ms={k: us / 1e3 for k, us in spans.items()},
+        log(f"[{tag}]   {us / 1e3:.3f} ms in {n} x {name[:90]}")
+    for name in spans:
+        log(f"[{tag}]   span {name}: {span_ms[name]:.3f} ms on the device "
+            f"timeline, {span_work_ms[name]:.3f} ms of device work in it")
+    return dict(wall_ms=wall_ms, device_items=len(items),
+                device_busy_ms=busy_ms, by_class_ms=by_class,
+                spans_ms=span_ms, span_work_ms=span_work_ms,
                 top=[dict(name=name[:90], count=n, ms=us / 1e3)
-                     for name, (n, us) in top])
+                     for name, (n, us) in top[:5]])
 
 
 def phase_train():
@@ -1153,11 +1205,265 @@ def phase_train():
                 step_host_ms=float(np.median(host_ms[2:])))
 
 
+# The impala learner path (experiment.py's default model="auto" on pixel
+# envs builds ImpalaNet). The card's steps against the same steps on the
+# CPU, which differ by more than summation order: f32 convolutions round
+# otherwise on the two, and where a max-pool window's two largest inputs
+# (or a relu's input and zero) lie within that rounding the two pick
+# differently and a position's gradient goes elsewhere; over 672 frames
+# some windows do, and three steps of training carry the difference on.
+# bf16 rounds every conv's product and bias add, so its flips are many.
+# Proxy on the CPU before the first card run (the port against the
+# reference jitted, which rounds otherwise too, same shapes and chain):
+# f32 step-1 gradients 2.1e-3 of a tensor's largest entry, metrics
+# within 1.4e-3 relative over 3 steps, parameters 5.4e-6 absolute; bf16
+# gradients 2.6e-2 in norm over all of them (a tensor whose gradient
+# nearly cancels, such as the baseline head's bias, can differ wholly:
+# bf16 is held only by the norm over all), metrics 5.8e-2, parameters
+# 4.8e-5. Tolerances: a few times that. Measured on an H100 80GB HBM3
+# (700 W): f32 1.1e-3, 3.4e-4, 1.7e-6; bf16 3.0e-2, 2.5e-2, 2.8e-5.
+IMPALA_TOL = {
+    torch.float32: dict(metric=5e-3, grad=1e-2, param=2e-5),
+    torch.bfloat16: dict(metric=0.15, grad_global=0.1, param=2e-4),
+}
+# Act step: a forward only, no gradient to send elsewhere: f32 summation
+# order (1e-4 of the largest entry; measured 1.6e-6 on an H100 80GB
+# HBM3); bf16 rounds every layer and the state carries the flips on over
+# the steps (measured 1.05e-2 there): 3e-2.
+IMPALA_ACT_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+IMPALA_ACT_STEPS = 4
+BENCH_B = 256
+
+
+def _impala_train(dtype) -> dict:
+    from torch.profiler import record_function
+
+    from moolib_tpu_torch import (
+        ClippedRMSprop,
+        ImpalaConfig,
+        ImpalaNet,
+        make_apply_step,
+        make_grad_step,
+        make_impala_train_step,
+        make_train_state,
+    )
+    from moolib_tpu_torch.ops import vtrace as vtrace_ops
+    from moolib_tpu_torch.optim import global_norm
+
+    tag = f"impala {str(dtype)[6:]}"
+    tol = IMPALA_TOL[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    net = ImpalaNet(6, compute_dtype=dtype, device="cuda", generator=gen)
+    cpu = ImpalaNet(6, compute_dtype=dtype, device="cpu")
+    cpu.load_state_dict(net.state_dict())
+    twin = copy.deepcopy(net)
+
+    def optimizer(model):  # experiment.py's chain, as in phase 6
+        return ClippedRMSprop(model.parameters(), 6e-4, decay=0.99,
+                              eps=0.01, max_norm=40.0)
+
+    cfg = ImpalaConfig(discounting=0.99, baseline_cost=0.5,
+                       entropy_cost=0.0006, reward_clip=1.0)
+    batches = _learn_batches(gen, TRAIN_STEPS)
+    log(f"[{tag}] full-width ImpalaNet (16/32/32, hidden 256, 6 actions, "
+        f"{sum(p.numel() for p in net.parameters())} parameters), learn "
+        f"batches obs {tuple(batches[0]['obs'].shape)} u8 x {TRAIN_STEPS}, "
+        f"{int(sum(int(b['done'][1:].sum()) for b in batches))} resets")
+
+    g_card, _ = make_grad_step(config=cfg)(net, batches[0])
+    g_cpu, _ = make_grad_step(config=cfg)(cpu, _to_cpu(batches[0]))
+    diff = {n: (g_card[n].cpu() - g_cpu[n]) for n in g_cpu}
+    max_rel = {n: float(d.abs().max()) / float(g_cpu[n].abs().max())
+               for n, d in diff.items()}
+    worst = max(max_rel, key=max_rel.get)
+    global_rel = float(global_norm(diff.values())
+                       / global_norm(g_cpu.values()))
+    log(f"[{tag}] step-1 gradients vs CPU: largest error relative to the "
+        f"tensor's largest entry {max_rel[worst]:.3e} at {worst} (its "
+        f"norm {float(g_cpu[worst].norm()):.3e}); all gradients together, "
+        f"|card-CPU| / |CPU| {global_rel:.3e} (|CPU| "
+        f"{float(global_norm(g_cpu.values())):.3e})")
+    if "grad" in tol and max_rel[worst] > tol["grad"]:
+        raise RuntimeError(f"{tag} step-1 gradients differ from the CPU's "
+                           f"by {max_rel[worst]:.3e} > {tol['grad']}")
+    if "grad_global" in tol and global_rel > tol["grad_global"]:
+        raise RuntimeError(f"{tag} step-1 gradients differ from the CPU's "
+                           f"by {global_rel:.3e} in norm > "
+                           f"{tol['grad_global']}")
+    grad_errs = dict(max_rel=max_rel[worst], global_rel=global_rel)
+    del g_card, g_cpu
+
+    step = make_impala_train_step(config=cfg)
+    state = make_train_state(net, optimizer(net))
+    ref_step = make_impala_train_step(config=cfg)
+    ref_state = make_train_state(cpu, optimizer(cpu))
+    metric_errs, param_errs = [], []
+    for i, batch in enumerate(batches):
+        state, m = step(state, batch)
+        ref_state, r = ref_step(ref_state, _to_cpu(batch))
+        m = {k: float(m[k]) for k in METRICS}
+        r = {k: float(r[k]) for k in METRICS}
+        errs = {k: abs(m[k] - r[k]) / max(abs(r[k]), 1e-2) for k in METRICS}
+        ref_params = cpu.state_dict()
+        param_err = max(float((p.cpu() - ref_params[n]).abs().max())
+                        for n, p in net.state_dict().items())
+        metric_errs.append(max(errs.values()))
+        param_errs.append(param_err)
+        log(f"[{tag}] step {i + 1}: "
+            + " ".join(f"{k} {m[k]:.6g}" for k in METRICS)
+            + f" | max error vs CPU (relative to max(|value|, 0.01)) "
+            f"{max(errs.values()):.3e} (tol {tol['metric']}) | parameters "
+            f"max|card-CPU| {param_err:.3e} (tol {tol['param']})")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"{tag}: non-finite metrics at step {i + 1}")
+        if max(errs.values()) > tol["metric"] or param_err > tol["param"]:
+            raise RuntimeError(f"{tag} step {i + 1} differs from the CPU's")
+        if i == 0:
+            after_one = {k: v.clone() for k, v in net.state_dict().items()}
+    if not all(bool(torch.isfinite(p).all()) for p in net.parameters()):
+        raise RuntimeError(f"{tag}: parameters not finite")
+
+    # experiment.py's split, as in phase 6: grads x B, the one-peer mean,
+    # then the apply step, against the fused step 1.
+    grads, _ = make_grad_step(config=cfg, grad_scale=float(LEARN_B))(
+        twin, batches[0])
+    make_apply_step()(make_train_state(twin, optimizer(twin)),
+                      {n: g / LEARN_B for n, g in grads.items()})
+    split_err = max(float((p - after_one[n]).abs().max())
+                    for n, p in twin.state_dict().items())
+    log(f"[{tag}] grad step x{LEARN_B} / {LEARN_B} + apply step vs fused "
+        f"step 1: max|diff| {split_err:.3e} (tol 1e-6)")
+    if split_err > 1e-6:
+        raise RuntimeError(f"{tag}: the grad/apply split differs from the "
+                           f"fused train step")
+    del grads, twin
+
+    event_ms, host_ms = [], []
+    for i in range(8):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        state, m = step(state, batches[i % TRAIN_STEPS])
+        end.record()
+        float(m["total_loss"])
+        end.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        event_ms.append(start.elapsed_time(end))
+    log(f"[{tag}] step time ms (CUDA events) "
+        f"{[round(x, 3) for x in event_ms]}")
+    log(f"[{tag}] step time ms (host clock, to the loss on the host) "
+        f"{[round(x, 3) for x in host_ms]}")
+    step_ms = float(np.median(event_ms[2:]))
+    step_host_ms = float(np.median(host_ms[2:]))
+    log(f"[{tag}] steady-state step: {step_ms:.3f} ms (CUDA events, median "
+        f"of steps 3-8), {step_host_ms:.3f} ms (host clock); "
+        f"{UNROLL * LEARN_B / step_ms * 1e3:.0f} env-steps/s")
+
+    # One step profiled, with the model's forward and V-trace marked.
+    def forward(model, obs, done, core_state):
+        with record_function("impala forward"):
+            return model(obs, done, core_state)
+
+    plain_vtrace = vtrace_ops.from_logits
+
+    def traced_vtrace(*args, **kwargs):
+        with record_function("vtrace"):
+            return plain_vtrace(*args, **kwargs)
+
+    marked = make_impala_train_step(apply_fn=forward, config=cfg)
+    vtrace_ops.from_logits = traced_vtrace
+    try:
+        breakdown = _profile_step(lambda: marked(state, batches[0]), tag)
+    finally:
+        vtrace_ops.from_logits = plain_vtrace
+    return dict(grad_err=grad_errs, metric_err=metric_errs,
+                param_err=param_errs, split_err=split_err, step_ms=step_ms,
+                step_host_ms=step_host_ms, breakdown=breakdown)
+
+
+def _impala_act(dtype) -> dict:
+    """The act step of the LSTM ImpalaNet for ACT_ENVS envs at T=1, its
+    state threaded over IMPALA_ACT_STEPS steps (a reset at step 2 for a
+    quarter of the envs), against the same steps on the CPU."""
+    from moolib_tpu_torch import ImpalaNet, make_act_step
+
+    tag = f"impala act {str(dtype)[6:]}"
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    net = ImpalaNet(6, use_lstm=True, compute_dtype=dtype, device="cuda",
+                    generator=gen).eval()
+    cpu = ImpalaNet(6, use_lstm=True, compute_dtype=dtype,
+                    device="cpu").eval()
+    cpu.load_state_dict(net.state_dict())
+    act, ref_act = make_act_step(net), make_act_step(cpu)
+    sample = torch.Generator(device="cuda").manual_seed(6)
+    ref_sample = torch.Generator().manual_seed(6)
+    state, ref_state = net.initial_state(ACT_ENVS), cpu.initial_state(ACT_ENVS)
+    errs, ms = [], []
+    for t in range(IMPALA_ACT_STEPS):
+        obs = torch.randint(0, 256, (ACT_ENVS, 84, 84, 4), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+        done = torch.zeros(ACT_ENVS, dtype=torch.bool, device="cuda")
+        if t == 2:
+            done[: ACT_ENVS // 4] = True
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        actions, logits, state = act(obs, done, state, sample)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        _, ref_logits, ref_state = ref_act(obs.cpu(), done.cpu(), ref_state,
+                                           ref_sample)
+        if actions.shape != (ACT_ENVS,) or not bool(
+                ((actions >= 0) & (actions < 6)).all()):
+            raise RuntimeError(f"{tag}: bad actions {actions}")
+        for got, want in ((logits, ref_logits), *zip(state, ref_state)):
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"{tag}: non-finite output")
+            errs.append(float((got.cpu() - want).abs().max())
+                        / float(want.abs().max()))
+    log(f"[{tag}] LSTM ImpalaNet, {ACT_ENVS} envs x {IMPALA_ACT_STEPS} "
+        f"steps, state threaded: max error vs CPU (logits, c, h; relative "
+        f"to the largest entry) {max(errs):.3e} (tol "
+        f"{IMPALA_ACT_TOL[dtype]}) | act step ms (CUDA events) "
+        f"{[round(x, 3) for x in ms]}")
+    if max(errs) > IMPALA_ACT_TOL[dtype]:
+        raise RuntimeError(f"{tag} differs from the CPU by {max(errs):.3e}")
+    return dict(max_err=max(errs), act_ms=ms)
+
+
+def phase_impala():
+    """The impala learner path: full-width ImpalaNet trained on
+    experiment.py's learn batch in f32 and in bf16 against the CPU, the
+    LSTM variant's act step, then bench_torch.py at B=256 and one of its
+    steps profiled."""
+    import bench_torch
+
+    out = {str(dtype)[6:]: _impala_train(dtype)
+           for dtype in (torch.float32, torch.bfloat16)}
+    out["act"] = {str(dtype)[6:]: _impala_act(dtype)
+                  for dtype in (torch.float32, torch.bfloat16)}
+    line = bench_torch.main(batch=BENCH_B)
+    if not line["value"] or line["mfu"] is None:
+        raise RuntimeError(f"bench_torch.py gave no throughput or MFU: "
+                           f"{line}")
+    step, state, batch = bench_torch.build("cuda", BENCH_B)
+    for _ in range(2):  # cuDNN's choice of algorithms, first allocations
+        state, _ = step(state, batch)
+    out["bench"] = dict(line=line, breakdown=_profile_step(
+        lambda: step(state, batch), f"bench B={BENCH_B}"))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA H100", file=sys.stderr)
         return 2
+    from moolib_tpu_torch.ops._kernels import KERNELS
+
     name, smi = phase_device()
     phase_build()
     fwd_results, fwd_timings = phase_kernel_vs_plain()
@@ -1165,11 +1471,19 @@ def main() -> int:
     serve_launches = phase_serve()
     train = phase_train()
     context_backward = phase_context_backward()
+    for kern in KERNELS:
+        kern.launches = 0
+    impala = phase_impala()
+    impala_launches = {kern.name: kern.launches for kern in KERNELS}
+    if any(impala_launches.values()):
+        raise RuntimeError(f"the impala path launched a flash kernel: "
+                           f"{impala_launches}")
 
     launches_by_path = {
         path: counts for path, counts in
         [*serve_launches.items(), ("train", train["launches"]),
-         ("context backward", context_backward)]
+         ("context backward", context_backward),
+         ("impala", impala_launches)]
     }
     never = [kname for kname in train["launches"]
              if not any(c[kname] for c in launches_by_path.values())]
@@ -1237,7 +1551,8 @@ def main() -> int:
                       "train": {k: train[k] for k in
                                 ("step_ms", "step_host_ms", "breakdown",
                                  "grad_err", "tf32_grad_err", "param_err",
-                                 "split_err")}}), flush=True)
+                                 "split_err")},
+                      "impala": impala}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,7 +2,7 @@
 one NVIDIA H100.
 
 The port grows slice by slice beside the JAX package, which stays the
-reference each ported part is tested against. Two slices so far:
+reference each ported part is tested against. The slices so far:
 
 - serving the ``TransformerNet`` policy: the attention ops with the
   hand-written CUDA flash-attention forward, the model and its weight
@@ -10,7 +10,11 @@ reference each ported part is tested against. Two slices so far:
   queue;
 - training it: the flash-attention backward kernels behind a
   ``torch.autograd.Function``, V-trace, the IMPALA loss and train steps,
-  and the clipped-RMSprop optimizer of the reference's experiment.
+  and the clipped-RMSprop optimizer of the reference's experiment;
+- the flash kernels redesigned for Hopper;
+- training the IMPALA ResNet agent (``ImpalaNet``, its LSTM core, its
+  weight converter), the clipped-Adam chain of the reference's
+  benchmark, and the timing and FLOP accounting of ``bench_torch.py``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -25,9 +29,17 @@ from .learner import (
     make_impala_train_step,
     make_train_state,
 )
-from .models import TransformerNet, transformer_params_from_flax
+from .models import (
+    ImpalaNet,
+    LSTMCore,
+    TransformerNet,
+    impala_params_from_flax,
+    space_to_depth,
+    transformer_params_from_flax,
+    widen_impala_params,
+)
 from .ops import attention, stage_batch, vtrace
-from .optim import ClippedRMSprop, global_norm
+from .optim import ClippedAdam, ClippedRMSprop, global_norm
 from .serving import (
     AdmissionQueue,
     DeadlineExceeded,
@@ -41,9 +53,12 @@ from .utils import nest, resolve_device
 
 __all__ = [
     "AdmissionQueue",
+    "ClippedAdam",
     "ClippedRMSprop",
     "DeadlineExceeded",
     "ImpalaConfig",
+    "ImpalaNet",
+    "LSTMCore",
     "Overloaded",
     "Replica",
     "RpcError",
@@ -54,6 +69,7 @@ __all__ = [
     "error_kind",
     "global_norm",
     "impala_loss",
+    "impala_params_from_flax",
     "make_act_step",
     "make_apply_step",
     "make_grad_step",
@@ -61,7 +77,9 @@ __all__ = [
     "make_train_state",
     "nest",
     "resolve_device",
+    "space_to_depth",
     "stage_batch",
     "transformer_params_from_flax",
     "vtrace",
+    "widen_impala_params",
 ]

@@ -7,14 +7,21 @@ place, which is what donation buys the reference (no second copy of
 either). A :class:`TrainState` holds the module, its optimizer and the
 step count.
 
+The model is any module of the agents' calling convention
+``(logits, baseline), core_state = model(obs, done, core_state)``: the
+``TransformerNet`` or the ``ImpalaNet``, whose ``core_state`` is ``()``
+without its LSTM and the LSTM's ``(c, h)`` with it (the batch's
+``core_state`` is the state at the unroll's first frame).
+
 Gradients leave :func:`make_grad_step` as a dict keyed like the module's
 ``named_parameters()`` (the keys :func:`~moolib_tpu_torch.models.
-transformer_params_from_flax` gives the reference's tree), and
+transformer_params_from_flax` and :func:`~moolib_tpu_torch.models.
+impala_params_from_flax` give the reference's trees), and
 :func:`make_apply_step` takes the same dict back.
 
 On the card, the forward and the backward of every step run with cuDNN's
-TF32 off (:func:`~moolib_tpu_torch.models.transformer.f32_convolutions`):
-the reference computes the convolutions and their gradients in f32.
+TF32 off (:func:`~moolib_tpu_torch.models.common.f32_convolutions`): the
+reference computes the convolutions and their gradients in f32.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from .models.transformer import f32_convolutions
+from .models.common import f32_convolutions
 from .ops import vtrace
 from .optim import global_norm
 from .utils import nest
@@ -87,8 +94,10 @@ def impala_loss(model, apply_fn: Callable, batch: dict,
 
     ``batch``: ``obs`` [T+1, B, ...], ``done`` [T+1, B] bool, ``rewards``
     [T+1, B] f32 (index t = reward entering step t), ``actions`` [T, B]
-    int, ``behavior_logits`` [T, B, A] f32, ``core_state`` (empty for the
-    transformer). Frame T gives the bootstrap value.
+    int, ``behavior_logits`` [T, B, A] f32, ``core_state`` (the model's
+    state at frame 0: empty for the transformer and the feed-forward
+    ``ImpalaNet``, ``(c, h)`` for its LSTM). Frame T gives the bootstrap
+    value.
 
     ``apply_fn(model, obs, done, core_state)`` may return a THIRD element,
     a dict of model aux losses (``load_balance_loss``, ``router_z_loss``,
@@ -254,8 +263,9 @@ def make_act_step(model: Callable, temperature: float = 1.0) -> Callable:
     """Acting step for the actor loop and the serving replica.
 
     ``model(obs_TB, done_TB, core_state) -> ((logits, baseline), state)``
-    is a :class:`~moolib_tpu_torch.models.TransformerNet` or any module of
-    the same calling convention. Returns
+    is a :class:`~moolib_tpu_torch.models.TransformerNet`, an
+    :class:`~moolib_tpu_torch.models.ImpalaNet` or any module of the same
+    calling convention. Returns
 
         act(obs_B, done_B, core_state, generator)
             -> (actions_B, logits_B, new_core_state)
@@ -263,9 +273,11 @@ def make_act_step(model: Callable, temperature: float = 1.0) -> Callable:
     which adds the T=1 axis (per leaf, for dict observations), divides the
     logits by ``temperature`` and samples one action per lane from their
     softmax with ``generator`` (a :class:`torch.Generator` on the logits'
-    device). The returned logits are the temperature-scaled ones: they
-    describe the distribution the action was drawn from, which is what
-    V-trace's behaviour logits must be."""
+    device). ``new_core_state`` is the state to pass to the next call
+    (an LSTM's, after a reset where ``done`` is set). The returned logits
+    are the temperature-scaled ones: they describe the distribution the
+    action was drawn from, which is what V-trace's behaviour logits must
+    be."""
 
     @torch.no_grad()
     def act(obs, done, core_state, generator: torch.Generator):

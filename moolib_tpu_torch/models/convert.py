@@ -13,7 +13,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["transformer_params_from_flax"]
+__all__ = ["impala_params_from_flax", "transformer_params_from_flax"]
 
 
 def _t(x) -> torch.Tensor:
@@ -74,4 +74,47 @@ def transformer_params_from_flax(params: Mapping[str, Any]
     put("ln_f", _norm(p["LayerNorm_0"]))
     put("policy", _dense(p["policy"]))
     put("baseline", _dense(p["baseline"]))
+    return sd
+
+
+def impala_params_from_flax(params: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """Map an ``ImpalaNet`` parameter tree (``{"params": ...}`` or its
+    inside) onto :class:`moolib_tpu_torch.models.ImpalaNet`'s
+    ``state_dict`` keys: ``ConvSequence_i`` -> ``sequences.i`` (its
+    ``Conv_0`` -> ``conv``, ``ResidualBlock_j/Conv_k`` -> ``resj.convk``),
+    ``Dense_0`` -> ``fc`` (both flatten in (h, w, c) order), ``Dense_1``
+    -> ``policy``, ``Dense_2`` -> ``baseline``, and the LSTM cell's
+    kernels (gates i, f, g, o) -> ``core.weight_ih`` (``ii``..``io``, no
+    bias), ``core.weight_hh`` and ``core.bias_hh`` (``hi``..``ho``).
+    Raises ``KeyError`` on a tree of another model."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(prefix: str, tensors: Dict[str, torch.Tensor]):
+        for k, v in tensors.items():
+            sd[f"{prefix}.{k}"] = v
+
+    i = 0
+    while f"ConvSequence_{i}" in p:
+        seq = p[f"ConvSequence_{i}"]
+        put(f"sequences.{i}.conv", _conv(seq["Conv_0"]))
+        for j in range(2):
+            for k in range(2):
+                put(f"sequences.{i}.res{j}.conv{k}",
+                    _conv(seq[f"ResidualBlock_{j}"][f"Conv_{k}"]))
+        i += 1
+    put("fc", _dense(p["Dense_0"]))
+    put("policy", _dense(p["Dense_1"]))
+    put("baseline", _dense(p["Dense_2"]))
+    if "LSTMCore_0" in p:
+        cell = p["LSTMCore_0"]["Scan_MaskedLSTMStep_0"]["OptimizedLSTMCell_0"]
+
+        def stacked(side: str, leaf: str) -> torch.Tensor:
+            return torch.cat([_t(cell[side + g][leaf]) for g in "ifgo"],
+                             dim=-1)
+
+        sd["core.weight_ih"] = stacked("i", "kernel").T.contiguous()
+        sd["core.weight_hh"] = stacked("h", "kernel").T.contiguous()
+        sd["core.bias_hh"] = stacked("h", "bias")
     return sd

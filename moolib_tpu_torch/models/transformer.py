@@ -23,19 +23,15 @@ defaults in four places:
   are f32, so the first convolution or linear layer computes in f32 and
   everything after it, attention included, stays f32.
 
-On the card, f32 means full f32: cuDNN runs f32 convolutions in TF32
-unless told otherwise, so the conv torso turns TF32 off around its two
-convolutions. Their backward runs later, when autograd reaches it, and
-reads the switch then: a caller that differentiates the model runs the
-forward and the backward inside :func:`f32_convolutions` (the learner's
-steps do). The linear layers follow PyTorch's f32 matmul precision,
-full f32 ("highest") unless the caller changes it.
+On the card, f32 means full f32: the conv torso runs inside
+:func:`~moolib_tpu_torch.models.common.f32_convolutions`, and so must a
+caller that differentiates the model (the learner's steps do). The
+linear layers follow PyTorch's f32 matmul precision, full f32
+("highest") unless the caller changes it.
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -44,6 +40,7 @@ from torch import nn
 
 from ..ops import attention as attn_ops
 from ..utils.device import resolve_device
+from .common import f32_convolutions, same_pads
 
 __all__ = ["TransformerNet", "f32_convolutions", "segment_ids_from_done",
            "same_pads"]
@@ -55,32 +52,6 @@ def segment_ids_from_done(done: torch.Tensor) -> torch.Tensor:
     """[T, B] done flags -> [B, T] int32 segment ids (done marks the FIRST
     frame of a new episode)."""
     return torch.cumsum(done.to(torch.int32), dim=0, dtype=torch.int32).T
-
-
-def same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
-    """(low, high) padding of flax/XLA "SAME" for one spatial axis."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + window - size, 0)
-    return total // 2, total - total // 2
-
-
-# Re-entrant: a train step holds it around the forward, which takes it
-# again around the torso.
-_TF32_LOCK = threading.RLock()
-
-
-@contextlib.contextmanager
-def f32_convolutions():
-    """cuDNN's TF32 switch is process-wide: hold it off for the block and
-    put it back after, one thread at a time (the owning thread may
-    enter again)."""
-    with _TF32_LOCK:
-        prev = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            yield
-        finally:
-            torch.backends.cudnn.allow_tf32 = prev
 
 
 def _conv_same(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:

@@ -1,7 +1,11 @@
-"""The learner's optimizer: the counterpart of
-``optax.chain(optax.clip_by_global_norm(max_norm),
-optax.rmsprop(lr, decay, eps))``, the chain that
-``moolib_tpu/examples/vtrace/experiment.py`` trains with.
+"""The learner's optimizers: the counterparts of the optax chains the
+reference trains with,
+
+- ``optax.chain(optax.clip_by_global_norm(max_norm),
+  optax.rmsprop(lr, decay, eps))``, ``moolib_tpu/examples/vtrace/
+  experiment.py``'s (:class:`ClippedRMSprop`);
+- ``optax.chain(optax.clip_by_global_norm(max_norm), optax.adam(lr))``,
+  ``bench.py``'s (:class:`ClippedAdam`).
 
 optax's arithmetic differs from torch's own tools, so the port has its
 own:
@@ -9,6 +13,8 @@ own:
 - ``optax.rmsprop`` keeps nu = decay * nu + (1 - decay) * g**2 from nu = 0
   and updates by -lr * g * rsqrt(nu + eps) (eps inside the square root);
   ``torch.optim.RMSprop`` divides by sqrt(nu) + eps.
+- ``optax.adam`` divides by sqrt(nu_hat + eps_root) + eps, with eps_root
+  a second epsilon that ``torch.optim.Adam`` does not have.
 - ``optax.clip_by_global_norm`` scales every gradient by max_norm / |g|
   only when |g| >= max_norm, with no epsilon; ``clip_grad_norm_`` adds
   1e-6 to the norm.
@@ -20,7 +26,7 @@ from typing import Iterable, Optional
 
 import torch
 
-__all__ = ["ClippedRMSprop", "global_norm"]
+__all__ = ["ClippedAdam", "ClippedRMSprop", "global_norm"]
 
 
 def global_norm(tensors: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
@@ -30,6 +36,29 @@ def global_norm(tensors: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
     if not sums:
         return torch.zeros(())
     return torch.sqrt(sum(sums))
+
+
+def _clipped_grads(optimizer: torch.optim.Optimizer,
+                   max_norm: Optional[float]):
+    """Yield (group, parameter, gradient) with optax's
+    ``clip_by_global_norm(max_norm)`` applied (``None``: no clip); a
+    parameter without a gradient gets zeros."""
+    keep = norm = None
+    if max_norm is not None:
+        norm = global_norm(p.grad for group in optimizer.param_groups
+                           for p in group["params"])
+        keep = norm < max_norm  # a 0-d tensor: no host sync
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            if keep is not None:
+                g = torch.where(keep, g, g / norm * max_norm)
+            yield group, p, g
+
+
+def _check_max_norm(max_norm: Optional[float]) -> None:
+    if max_norm is not None and max_norm <= 0:
+        raise ValueError(f"max_norm must be positive, got {max_norm}")
 
 
 class ClippedRMSprop(torch.optim.Optimizer):
@@ -44,8 +73,7 @@ class ClippedRMSprop(torch.optim.Optimizer):
         if lr <= 0 or not 0 <= decay < 1 or eps < 0:
             raise ValueError(f"bad rmsprop settings lr={lr} decay={decay} "
                              f"eps={eps}")
-        if max_norm is not None and max_norm <= 0:
-            raise ValueError(f"max_norm must be positive, got {max_norm}")
+        _check_max_norm(max_norm)
         super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
         self.max_norm = max_norm
 
@@ -61,18 +89,61 @@ class ClippedRMSprop(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        keep = norm = None
-        if self.max_norm is not None:
-            norm = global_norm(p.grad for group in self.param_groups
-                               for p in group["params"])
-            keep = norm < self.max_norm  # a 0-d tensor: no host sync
-        for group in self.param_groups:
+        for group, p, g in _clipped_grads(self, self.max_norm):
             lr, decay, eps = group["lr"], group["decay"], group["eps"]
-            for p in group["params"]:
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                if keep is not None:
-                    g = torch.where(keep, g, g / norm * self.max_norm)
-                nu = self._nu(p)
-                nu.mul_(decay).add_((1 - decay) * (g * g))
-                p.add_(torch.rsqrt(nu + eps) * g * -lr)
+            nu = self._nu(p)
+            nu.mul_(decay).add_((1 - decay) * (g * g))
+            p.add_(torch.rsqrt(nu + eps) * g * -lr)
+        return loss
+
+
+class ClippedAdam(torch.optim.Optimizer):
+    """``clip_by_global_norm(max_norm)`` then ``adam(lr, b1, b2, eps,
+    eps_root)``, as optax chains them, in one :meth:`step` that updates
+    the parameters and the state ``mu``, ``nu`` in place. mu and nu start
+    at 0; the step count t (optax's ``count``) lives in the parameter
+    group, so that it is saved with the optimizer's ``state_dict``. The
+    update is -lr * mu_hat / (sqrt(nu_hat + eps_root) + eps) with
+    mu_hat = mu / (1 - b1**t) and nu_hat = nu / (1 - b2**t).
+    ``max_norm=None`` skips the clip. No Nesterov, no weight decay."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 eps_root: float = 0.0, max_norm: Optional[float] = None):
+        if lr <= 0 or not 0 <= b1 < 1 or not 0 <= b2 < 1 or eps < 0 \
+                or eps_root < 0:
+            raise ValueError(f"bad adam settings lr={lr} b1={b1} b2={b2} "
+                             f"eps={eps} eps_root={eps_root}")
+        _check_max_norm(max_norm)
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      eps_root=eps_root, count=0))
+        self.max_norm = max_norm
+
+    def _moments(self, p: torch.Tensor):
+        state = self.state[p]
+        if "mu" not in state:
+            state["mu"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            state["nu"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+        return state["mu"], state["nu"]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            group["count"] += 1
+        for group, p, g in _clipped_grads(self, self.max_norm):
+            b1, b2, t = group["b1"], group["b2"], group["count"]
+            mu, nu = self._moments(p)
+            mu.mul_(b1).add_((1 - b1) * g)
+            nu.mul_(b2).add_((1 - b2) * (g * g))
+            mu_hat = mu / (1 - b1 ** t)
+            nu_hat = nu / (1 - b2 ** t)
+            update = mu_hat / (torch.sqrt(nu_hat + group["eps_root"])
+                               + group["eps"])
+            p.add_(update * -group["lr"])
         return loss

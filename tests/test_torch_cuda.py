@@ -8,8 +8,11 @@ They import only torch and the port, so they run on a host without JAX:
 
 import pytest
 import torch
+import torch.nn.functional as F
 
-from moolib_tpu_torch import TransformerNet, make_grad_step
+from moolib_tpu_torch import ImpalaNet, TransformerNet, make_grad_step
+from moolib_tpu_torch.models.common import same_pads
+from moolib_tpu_torch.models.impala import _conv, _max_pool_same
 from moolib_tpu_torch.ops import _kernels
 from moolib_tpu_torch.ops import attention as tattn
 
@@ -316,3 +319,136 @@ def test_conv_torso_backward_is_f32_not_tf32(card):
         scale = float(want[name].abs().max())
         torch.testing.assert_close(got[name].cpu(), want[name],
                                    atol=1e-5 * scale, rtol=0)
+
+
+def _tie_margin(net, obs) -> float:
+    """The smallest gap, relative to its layer's largest value, in the
+    f32 forward of ``net`` (on the CPU) between a max-pool window's two
+    largest inputs, or between a relu's input and zero. Below the card's
+    and the CPU's rounding differences (~1e-7 of a layer's scale), the
+    two may pick another window maximum or relu side, and a position's
+    gradient goes elsewhere: a discrete difference, not summation
+    order."""
+    T, B = obs.shape[:2]
+    x = (obs.float() / 255.0).reshape(T * B, *obs.shape[2:])
+    x = x.permute(0, 3, 1, 2)
+    gaps = []
+
+    def relu_gap(v):
+        gaps.append(float(v.abs().min()) / float(v.abs().max()))
+
+    with torch.no_grad():
+        for seq in net.sequences:
+            y = _conv(x, seq.conv, torch.float32)
+            ph = same_pads(y.shape[-2], 3, 2)
+            pw = same_pads(y.shape[-1], 3, 2)
+            win = F.pad(y, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+            win = win.unfold(2, 3, 2).unfold(3, 3, 2).flatten(-2)
+            top2 = win.topk(2).values
+            gaps.append(float((top2[..., 0] - top2[..., 1]).min())
+                        / float(y.abs().max()))
+            x = _max_pool_same(y)
+            for block in (seq.res0, seq.res1):
+                relu_gap(x)
+                h = _conv(F.relu(x), block.conv0, torch.float32)
+                relu_gap(h)
+                x = x + _conv(F.relu(h), block.conv1, torch.float32)
+        relu_gap(x)
+        flat = F.relu(x).permute(0, 2, 3, 1).reshape(T * B, -1)
+        relu_gap(F.linear(flat, net.fc.weight, net.fc.bias))
+    return min(gaps)
+
+
+def _impala_case(card, use_lstm):
+    """A CPU ImpalaNet with random biases, its copy on the card, and a
+    learn batch [T+1=3, B=2] of 24x24x4 frames (small, so that a seed
+    without near ties exists: see _tie_margin), on the CPU."""
+    T, B, A = 2, 2, 6
+    for seed in range(40):
+        gen = torch.Generator().manual_seed(seed)
+        cpu = ImpalaNet(A, (24, 24, 4), use_lstm=use_lstm, device="cpu",
+                        generator=gen)
+        with torch.no_grad():
+            for name, p in cpu.named_parameters():
+                if name.endswith("bias") or name.endswith("bias_hh"):
+                    p.normal_(0.0, 0.1, generator=gen)
+        obs = torch.randint(0, 256, (T + 1, B, 24, 24, 4), generator=gen,
+                            dtype=torch.uint8)
+        if _tie_margin(cpu, obs) > 2e-6:
+            break
+    else:
+        pytest.fail("no seed of 40 without near ties")
+    net = ImpalaNet(A, (24, 24, 4), use_lstm=use_lstm, device=card)
+    net.load_state_dict(cpu.state_dict())
+    done = torch.zeros((T + 1, B), dtype=torch.bool)
+    done[1, 0] = True
+    batch = {
+        "obs": obs, "done": done,
+        "rewards": torch.randn((T + 1, B), generator=gen),
+        "actions": torch.randint(0, A, (T, B), generator=gen),
+        "behavior_logits": torch.randn((T, B, A), generator=gen),
+        "core_state": (tuple(torch.randn((B, 256), generator=gen)
+                             for _ in range(2)) if use_lstm else ()),
+    }
+    return cpu, net, batch
+
+
+def _to(batch, device):
+    return {k: (v.to(device) if torch.is_tensor(v) else
+                tuple(t.to(device) for t in v)) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("use_lstm", [False, True])
+def test_impala_net_f32_forward_and_gradients_match_the_cpu(card, use_lstm):
+    """f32 ImpalaNet on the card, with cuDNN's TF32 switch left at
+    PyTorch's default (on): the model holds it off in the forward and the
+    grad step through the backward, so the forward and one step's
+    gradients agree with the CPU's to 1e-5 of each tensor's largest entry
+    (TF32's 10 mantissa bits would give ~1e-3)."""
+    cpu, net, batch = _impala_case(card, use_lstm)
+    on_card = _to(batch, card)
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        with torch.no_grad():
+            got = net(on_card["obs"], on_card["done"], on_card["core_state"])
+        grads, _ = make_grad_step()(net, on_card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    with torch.no_grad():
+        want = cpu(batch["obs"], batch["done"], batch["core_state"])
+    want_grads, _ = make_grad_step()(cpu, batch)
+    for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                    torch.utils._pytree.tree_leaves(want)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+    for name, w in want_grads.items():
+        torch.testing.assert_close(grads[name].cpu(), w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_impala_net_bf16_forward_matches_the_cpu(card):
+    """bf16 compute dtype at full frame size: cuDNN's bf16 products
+    against the CPU's, each rounded to bf16 after its own summation
+    order, within 2e-2 of the largest entry (the tolerance the CPU tests
+    hold the port's bf16 forward to against the reference)."""
+    gen = torch.Generator().manual_seed(0)
+    cpu = ImpalaNet(6, use_lstm=True, compute_dtype=torch.bfloat16,
+                    device="cpu", generator=gen)
+    net = ImpalaNet(6, use_lstm=True, compute_dtype=torch.bfloat16,
+                    device=card)
+    net.load_state_dict(cpu.state_dict())
+    obs = torch.randint(0, 256, (3, 2, 84, 84, 4), generator=gen,
+                        dtype=torch.uint8)
+    done = torch.tensor([[False, False], [True, False], [False, True]])
+    state = tuple(torch.randn((2, 256), generator=gen) for _ in range(2))
+    with torch.no_grad():
+        got = net(obs.to(card), done.to(card), tuple(s.to(card)
+                                                     for s in state))
+        want = cpu(obs, done, state)
+    for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                    torch.utils._pytree.tree_leaves(want)):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=2e-2 * float(w.abs().max()))

@@ -1,6 +1,6 @@
-"""Import hygiene of the port: moolib_tpu_torch and chip_smoke.py import
-neither JAX nor anything of the JAX package, and the entry points refuse
-to run on the CPU unasked."""
+"""Import hygiene of the port: moolib_tpu_torch, chip_smoke.py and
+bench_torch.py import neither JAX nor anything of the JAX package, and
+the entry points refuse to run on the CPU unasked."""
 
 import ast
 import json
@@ -11,13 +11,14 @@ from pathlib import Path
 import pytest
 import torch
 
-from moolib_tpu_torch import Replica, resolve_device
+from moolib_tpu_torch import ImpalaNet, Replica, resolve_device
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
 _CHILD = r"""
 import importlib, json, pkgutil, sys
 import moolib_tpu_torch
+import bench_torch
 mods = [m.name for m in pkgutil.walk_packages(
     moolib_tpu_torch.__path__, "moolib_tpu_torch.")]
 for m in mods:
@@ -43,6 +44,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "moolib_tpu_torch.ops.vtrace" in got["modules"]
     assert "moolib_tpu_torch.optim" in got["modules"]
     assert "moolib_tpu_torch.learner" in got["modules"]
+    for mod in ("models.impala", "models.core", "models.common",
+                "utils.flops", "utils.benchmark"):
+        assert f"moolib_tpu_torch.{mod}" in got["modules"], mod
     assert got["bad"] == [], got["bad"]
 
 
@@ -64,6 +68,14 @@ def test_chip_smoke_imports_no_jax_and_no_reference_package():
     assert bad == [], bad
 
 
+def test_bench_torch_imports_no_jax_and_no_reference_package():
+    names = list(_imported_roots(REPO_ROOT / "bench_torch.py"))
+    assert any(n.startswith("moolib_tpu_torch") for n in names), names
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "flax", "optax", "moolib_tpu")]
+    assert bad == [], bad
+
+
 def test_entry_points_refuse_the_cpu_unasked():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
@@ -71,6 +83,13 @@ def test_entry_points_refuse_the_cpu_unasked():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        import bench_torch
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench_torch.main(batch=2, iters=1)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ImpalaNet(6)
 
 
 def test_replica_has_no_rpc_binding_yet():

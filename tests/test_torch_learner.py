@@ -1,4 +1,4 @@
-"""Port parity: moolib_tpu_torch's learner and optimizer against
+"""Port parity: moolib_tpu_torch's learner and optimizers against
 moolib_tpu.learner and optax.
 
 A small TransformerNet (d_model 32, 2 layers, 2 heads) with the
@@ -21,6 +21,21 @@ Tolerances, f32 throughout unless stated:
   per operation in both;
 - parameters after 3 train steps 1e-6 absolute: each step moves them by
   lr * g / sqrt(nu + eps), which scales gradient differences by < 0.1.
+
+ImpalaNet (f32, without and with its LSTM) trains through the same entry
+points on [T+1=3, B=2] 84x84x4 frames with experiment.py's RMSprop
+chain: metrics 1e-5 relative, gradients 1e-4 of each tensor's largest
+entry, parameters after each step 1e-5 of their tensor's largest entry.
+The reference runs op by op there (jax.disable_jit). Jitted, XLA's CPU
+convolutions round otherwise, and now and then a max-pool window's two
+largest inputs (or an input at a relu's kink) fall the other way, which
+sends a whole position's gradient elsewhere: on six seeds the jitted
+reference's gradients differed from its own op-by-op ones by up to
+2.6e-3 of a tensor's largest entry (on two seeds of six), the port's
+from the op-by-op ones by at most 1.7e-5.
+ClippedAdam (bench.py's chain) is held to optax's adam on gradients of
+its own, where each step moves a parameter by about lr whatever the
+gradient's size: 1e-6 relative, as for the RMSprop chain.
 """
 
 import jax
@@ -31,13 +46,16 @@ import pytest
 import torch
 
 from moolib_tpu import learner as jlearner
+from moolib_tpu.models import ImpalaNet as JaxImpalaNet
 from moolib_tpu.models import TransformerNet as JaxTransformerNet
 from moolib_tpu_torch import learner as tlearner
 from moolib_tpu_torch.models import (
+    ImpalaNet,
     TransformerNet,
+    impala_params_from_flax,
     transformer_params_from_flax,
 )
-from moolib_tpu_torch.optim import ClippedRMSprop, global_norm
+from moolib_tpu_torch.optim import ClippedAdam, ClippedRMSprop, global_norm
 
 SMALL = dict(d_model=32, num_layers=2, num_heads=2)
 A = 6
@@ -152,6 +170,50 @@ def test_optimizer_matches_optax(max_norm):
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize("max_norm", [None, 40.0])
+def test_adam_matches_optax(max_norm):
+    """bench.py's chain: 3 steps from mu = nu = 0 on gradients of norm
+    ~130 (clipped at 40) or the same gradients unclipped; parameters, mu
+    and nu against optax's."""
+    rng = np.random.default_rng(1)
+    shapes = {"a": (4, 3), "b": (7,), "c": (2, 2, 2)}
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = [{k: (20.0 * rng.standard_normal(s)).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(3)]
+    adam = optax.adam(6e-4)
+    tx = adam if max_norm is None else optax.chain(
+        optax.clip_by_global_norm(max_norm), adam)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in params.items()}
+    opt = ClippedAdam(tp.values(), 6e-4, max_norm=max_norm)
+    for g in grads:
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
+                                   state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        opt.step()
+    adam_state = (state if max_norm is None else state[1])[0]
+    assert opt.param_groups[0]["count"] == int(adam_state.count) == 3
+    for k, p in tp.items():
+        _close_rel(p.detach(), jp[k], 1e-6, k)
+        _close_rel(opt.state[p]["mu"], adam_state.mu[k], 1e-6, f"mu {k}")
+        _close_rel(opt.state[p]["nu"], adam_state.nu[k], 1e-6, f"nu {k}")
+    assert float(global_norm(torch.from_numpy(v)
+                             for v in grads[0].values())) > 40.0
+
+
+def test_adam_rejects_bad_settings():
+    p = [torch.nn.Parameter(torch.zeros(2))]
+    with pytest.raises(ValueError, match="adam"):
+        ClippedAdam(p, lr=1e-3, b2=1.0)
+    with pytest.raises(ValueError, match="max_norm"):
+        ClippedAdam(p, lr=1e-3, max_norm=-1.0)
+
+
 def test_optimizer_rejects_bad_settings():
     p = [torch.nn.Parameter(torch.zeros(2))]
     with pytest.raises(ValueError, match="rmsprop"):
@@ -249,3 +311,100 @@ def test_unported_options_name_their_roadmap_item():
         tlearner.make_grad_step(batch_axes={"obs": 1})
     with pytest.raises(NotImplementedError, match="StepScope"):
         tlearner.make_apply_step(stepscope=object())
+
+
+def _impala_batch(seed, use_lstm, T=2, B=2):
+    b = _batch(seed, pixels=True, T=T, B=B)
+    rng = np.random.default_rng(seed + 100)
+    b["done"] = np.zeros((T + 1, B), bool)
+    b["done"][1, 0] = b["done"][2, 1] = True  # resets inside the unroll
+    state = tuple(rng.standard_normal((B, 256)).astype(np.float32)
+                  for _ in range(2)) if use_lstm else ()
+    return b, state
+
+
+def _impala_pair(batch, state, use_lstm):
+    """The reference ImpalaNet with random biases (flax starts them at
+    zero) and the port's with the converted weights."""
+    jnet = JaxImpalaNet(num_actions=A, use_lstm=use_lstm)
+    params = jax.jit(jnet.init)(jax.random.PRNGKey(2),
+                                jnp.asarray(batch["obs"]),
+                                jnp.asarray(batch["done"]),
+                                tuple(jnp.asarray(s) for s in state))
+    rng = np.random.default_rng(3)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: (0.1 * rng.standard_normal(x.shape)).astype(
+            np.float32) if path[-1].key == "bias" else np.asarray(x),
+        params)
+    net = ImpalaNet(A, use_lstm=use_lstm, device="cpu")
+    net.load_state_dict(impala_params_from_flax(params))
+    return jnet, params, net
+
+
+@pytest.mark.parametrize("use_lstm", [False, True])
+def test_impala_net_train_steps_match_reference(use_lstm):
+    """Two IMPALA steps of f32 ImpalaNet through make_impala_train_step
+    on both sides, with experiment.py's chain; before each step the
+    gradients of make_grad_step against the reference's. With the LSTM
+    the batch's core_state (the state at frame 0) is a random (c, h)."""
+    batches = [_impala_batch(s, use_lstm) for s in range(2)]
+    jnet, params, net = _impala_pair(*batches[0], use_lstm)
+    tx, opt = _experiment_optimizers(net)
+    cfg = jlearner.ImpalaConfig()
+    jstep = jlearner.make_impala_train_step(jnet.apply, tx, cfg,
+                                            donate=False)
+    jgrad = jax.grad(
+        lambda p, b: jlearner.impala_loss(p, jnet.apply, b, cfg)[0])
+    jstate = jlearner.make_train_state(params, tx)
+    tgrad = tlearner.make_grad_step()
+    tstep = tlearner.make_impala_train_step()
+    tstate = tlearner.make_train_state(net, opt)
+    for b, state in batches:
+        jb = {**{k: jnp.asarray(v) for k, v in b.items()},
+              "core_state": tuple(jnp.asarray(s) for s in state)}
+        tb = {**{k: torch.from_numpy(np.array(v)) for k, v in b.items()},
+              "core_state": tuple(torch.from_numpy(s) for s in state)}
+        with jax.disable_jit():  # op by op (module docstring)
+            want = _convert_impala(jgrad(jstate.params, jb))
+            jstate, jm = jstep(jstate, jb)
+        grads, _ = tgrad(net, tb)
+        assert set(grads) == set(want)
+        for name, g in grads.items():
+            assert float(g.abs().max()) > 0, name
+            _close_rel(g, want[name], 1e-4, f"grad {name}")
+        tstate, tm = tstep(tstate, tb)
+        for name in METRICS + ("grad_norm",):
+            _close_rel(tm[name], jm[name], 1e-5, name)
+        want = _convert_impala(jstate.params)
+        for name, p in net.state_dict().items():
+            _close_rel(p, want[name], 1e-5, name)
+    assert tstate.step == int(jstate.step) == 2
+
+
+def _convert_impala(tree):
+    return impala_params_from_flax(jax.tree_util.tree_map(np.asarray, tree))
+
+
+def test_act_step_threads_the_lstm_state():
+    """make_act_step on the LSTM ImpalaNet: the state it returns, fed
+    back, gives the same logits and state as one unroll over the same
+    frames, with a reset where done is set."""
+    gen = torch.Generator().manual_seed(0)
+    net = ImpalaNet(A, use_lstm=True, device="cpu", generator=gen)
+    rng = np.random.default_rng(4)
+    obs = torch.from_numpy(rng.integers(0, 256, (3, 2, 84, 84, 4),
+                                        dtype=np.uint8))
+    done = torch.tensor([[False, False], [False, True], [True, False]])
+    act = tlearner.make_act_step(net)
+    state = net.initial_state(2)
+    sample = torch.Generator().manual_seed(1)
+    logits = []
+    for t in range(3):
+        actions, lg, state = act(obs[t], done[t], state, sample)
+        assert actions.shape == (2,) and ((actions >= 0) & (actions < A)).all()
+        logits.append(lg)
+    with torch.no_grad():
+        (want, _), want_state = net(obs, done, net.initial_state(2))
+    torch.testing.assert_close(torch.stack(logits), want, rtol=0, atol=1e-5)
+    for got, ref in zip(state, want_state):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
