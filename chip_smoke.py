@@ -25,14 +25,37 @@ Phases, in order; any failure exits non-zero before the result line:
    step at T=1 and a 2048-step context window), a few requests each,
    replies held against the same forward with plain dense attention
    on the CPU; the forward kernel's launch count must rise during each
-   service.
+   service. Telemetry (the phase's own Telemetry): each replica's
+   serving_admitted_total == serving_completed_total == the requests
+   sent, no rejection, shed or failure, serving_batch_rows_total equal
+   to the fill histogram's sum times the batch size, one replica step a
+   batch. Those first requests warm the replica; then STEADY_WAVES more
+   waves of 4 requests each, two waves in flight, every reply held as
+   above, give the steady {service}_replica ledger (queue_wait, linger,
+   infer, other): the difference of the scope's cumulative counters
+   from the warm-up's, and per-batch medians, beside the requests a
+   second and the batch forward's CUDA-event time. The registry's
+   Prometheus text parsed by the port's parse_prometheus into the
+   values of snapshot().
 6. Train: 3 IMPALA/V-trace steps of the full-width TransformerNet on
    learn batches [T+1=21, B=32], held against the same steps with dense
    attention on the CPU; each step must launch the forward and the fused
    backward kernel twice (once per layer), the dQ and dK/dV kernels and
    the two-kernel design's delta ops never; the grad-step / apply-step
    split must give the same result; steady-state step time and one step
-   under torch.profiler.
+   under torch.profiler, with the CUDA API calls (cuda* and cu*) the
+   host made in it (those that can block it counted apart: synchronizes,
+   allocations, frees). Then the StepScope ledgers (the phase's own
+   Telemetry): 8 steps of the fused step built with stepscope= (staging
+   the learn batch from the host, fwd_bwd, host_sync reading the metrics
+   back), still two forward and two fused backward launches a step, and
+   8 of the grad/apply split (fwd_bwd, optimizer), every scoped call
+   under CUDA's sync debug mode "error" (a scoped step must not wait
+   for the device); each phase's median, other and the host-blocked
+   fraction beside the profiler's device-busy time; every ledger must
+   close (overrun gauge 0, phases summing to the wall time); and
+   telemetry's cost, stepscope=None against a live scope in (plain,
+   scoped, scoped, plain) turns, reported, not gated.
 7. Context backward: autograd through attention(backend="auto") at the
    context shape with the repo's resets, held against dense attention's
    autograd on the card; the dQ and dK/dV kernels launch once each.
@@ -44,8 +67,20 @@ Phases, in order; any failure exits non-zero before the result line:
    class, the forward's, V-trace's and the optimizer's spans); the LSTM
    variant's act step for 32 envs, its state threaded over 4 steps,
    against the CPU; then bench_torch.py at B=256 (its JSON line) and one
-   of its steps profiled. No flash kernel runs on this path.
-9. The kernels line, the card line, and the result line.
+   of its steps profiled. No flash kernel runs on this path. The f32
+   and bf16 train steps get phase 6's ledgers and cost, and the act
+   step its own (act, then host_sync reading the actions and logits
+   back).
+9. Flight bundles: one incident bundle per phase's Telemetry (serve,
+   train, impala), captured through the api trigger into
+   build/flightrec/; each must load and validate, record only MOOLIB,
+   TORCH, PYTORCH, CUDA and NCCL environment keys, and (train and
+   impala) carry a step_phases event of every scoped loop.
+10. The kernels line (with the ledgers and the bundles' summaries), the
+    card line, and the result line.
+
+Lines tagged [telemetry], [stepscope] and [flightrec] carry the
+observability checks and readings.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -752,7 +787,63 @@ def _check(name, got, want, shape):
     return float(np.abs(got - want).max())
 
 
-def phase_serve():
+def _serve_steady(rep, reqs, order):
+    """Submit ``reqs[i]`` for ``i`` in ``order`` in waves of BATCH,
+    keeping two waves in flight so the replica always has a full batch
+    queued; returns (index, reply) pairs, each request's latency on the
+    host clock (submit to reply, ms) and the requests served a second."""
+    out, host_ms, in_flight = [], [], []
+
+    def stamp(t0):
+        return lambda fut: host_ms.append(1e3 * (time.perf_counter() - t0))
+
+    def collect(wave):
+        for i, fut in wave:
+            out.append((i, fut.result(timeout=300)))
+
+    t_start = time.perf_counter()
+    for w in range(0, len(order), BATCH):
+        wave = []
+        for i in order[w:w + BATCH]:
+            fut = rep.submit(reqs[i])
+            fut.add_done_callback(stamp(time.perf_counter()))
+            wave.append((i, fut))
+        in_flight.append(wave)
+        if len(in_flight) == 2:
+            collect(in_flight.pop(0))
+    for wave in in_flight:
+        collect(wave)
+    rate = len(order) / (time.perf_counter() - t_start)
+    return out, host_ms, rate
+
+
+def _settle(tel, kind: str, sent: int, timeout: float = 30.0) -> None:
+    """Wait until the replica's worker has recorded every batch served so
+    far: its rows add up to ``sent`` and its scope holds one step a
+    batch (the worker records the step after the replies go out)."""
+    reg, t_end = tel.registry, time.monotonic() + timeout
+    while not (reg.value("serving_batch_rows_total", service=kind) == sent
+               and reg.value("stepscope_steps_total", loop=f"{kind}_replica")
+               == reg.value("serving_batches_total", service=kind)):
+        if time.monotonic() > t_end:
+            raise RuntimeError(f"{kind}: the replica did not record its "
+                               f"{sent} requests within {timeout} s")
+        time.sleep(0.001)
+
+
+def _replica_ledger(tel, kind: str) -> dict:
+    from moolib_tpu_torch.telemetry import summarize_stepscope
+
+    return summarize_stepscope(tel.snapshot())[f"{kind}_replica"]
+
+
+# Steady serving after the warm-up: STEADY_WAVES[kind] waves of BATCH
+# requests, two in flight, cycling over the checked requests.
+STEADY_WAVES = {"act": 64, "context": 32}
+REPLICA_PHASES = ("queue_wait", "linger", "infer", "other")
+
+
+def phase_serve(tel):
     from moolib_tpu_torch import Replica, TransformerNet, make_act_step
     from moolib_tpu_torch.ops._kernels import FLASH_FWD, KERNELS
 
@@ -803,6 +894,31 @@ def phase_serve():
 
         return timed("context", run)
 
+    def dense_ref(kind, req):
+        """The dense-attention forward of one request on the CPU."""
+        obs = torch.from_numpy(req["obs"])
+        done = torch.from_numpy(req["done"])
+        with torch.no_grad():
+            if kind == "act":
+                (logits, _), _ = dense(obs[None], done[None], ())
+                return {"logits": logits[0].numpy()}
+            (logits, baseline), _ = dense(obs[:, None], done[:, None], ())
+            return {"logits": logits[:, 0].numpy(),
+                    "baseline": baseline[:, 0].numpy()}
+
+    def reply_err(kind, out, ref):
+        """A reply's shape, finiteness and actions; its max error."""
+        if kind == "act":
+            a = np.asarray(out["action"])
+            if a.shape != (ACT_ENVS,) or not ((a >= 0) & (a < 6)).all():
+                raise RuntimeError(f"bad actions {a}")
+            return _check("act logits", out["logits"], ref["logits"],
+                          (ACT_ENVS, 6))
+        return max(_check("context logits", out["logits"], ref["logits"],
+                          (CONTEXT_T, 6)),
+                   _check("context baseline", out["baseline"],
+                          ref["baseline"], (CONTEXT_T,)))
+
     # Act request r is step r of 32 envs; a context request is a window
     # of one env. Resets follow EPISODE_LENGTH, each env at its phase.
     act_phase = rng.integers(0, EPISODE_LENGTH, ACT_ENVS)
@@ -819,50 +935,159 @@ def phase_serve():
         ("context", context_fn, ctx_reqs, [[0, 1], [2, 3, 4, 5]]),
     ):
         rep = Replica(None, fn, net, service=kind, batch_size=BATCH,
-                      pad=True, linger_s=0.05, device="cuda")
+                      pad=True, linger_s=0.05, device="cuda", telemetry=tel)
+        # Each served batch's ledger row, as the replica's worker hands
+        # it to its {service}_replica scope.
+        rows, observe = [], rep._scope.observe_step
+
+        def tap(wall_s, phases, ts_us=None, rows=rows, observe=observe):
+            rows.append(dict(phases, wall=wall_s))
+            observe(wall_s, phases, ts_us)
+
+        rep._scope.observe_step = tap
+        order = [j % len(reqs) for j in range(STEADY_WAVES[kind] * BATCH)]
         try:
             for kern in KERNELS:
                 kern.launches = 0
             replies, host_ms, event_ms = _serve(rep, reqs, waves)
             launches[kind] = {kern.name: kern.launches for kern in KERNELS}
+            # Hold every reply against the dense-attention forward on
+            # the CPU.
+            refs = [dense_ref(kind, req) for req in reqs]
+            errs = [reply_err(kind, out, ref)
+                    for out, ref in zip(replies, refs)]
+            # The requests above warm the replica (its first batch is
+            # cold); the steady ledger counts from here.
+            _settle(tel, kind, len(reqs))
+            warm, n_warm = _replica_ledger(tel, kind), len(rows)
+            n_cold_fwd = len(batch_ms[kind])
+            steady, steady_ms, rate = _serve_steady(rep, reqs, order)
+            steady_errs = [reply_err(kind, out, refs[i])
+                           for i, out in steady]
         finally:
             rep.close()
-        # Hold every reply against the dense-attention forward on the CPU.
-        errs = []
-        with torch.no_grad():
-            for req, out in zip(reqs, replies):
-                obs = torch.from_numpy(req["obs"])
-                done = torch.from_numpy(req["done"])
-                if kind == "act":
-                    (logits, _), _ = dense(obs[None], done[None], ())
-                    errs.append(_check("act logits", out["logits"],
-                                       logits[0].numpy(), (ACT_ENVS, 6)))
-                    a = np.asarray(out["action"])
-                    if a.shape != (ACT_ENVS,) or not ((a >= 0) & (a < 6)).all():
-                        raise RuntimeError(f"bad actions {a}")
-                else:
-                    (logits, baseline), _ = dense(obs[:, None],
-                                                  done[:, None], ())
-                    errs.append(_check("context logits", out["logits"],
-                                       logits[:, 0].numpy(), (CONTEXT_T, 6)))
-                    errs.append(_check("context baseline", out["baseline"],
-                                       baseline[:, 0].numpy(), (CONTEXT_T,)))
         log(f"[serve] {kind}: {len(reqs)} requests in waves "
             f"{[len(w) for w in waves]} | max|reply-dense on CPU| "
             f"{max(errs):.3e} (tol {SERVE_TOL}) | launches {launches[kind]}")
-        if max(errs) > SERVE_TOL:
+        if max(errs + steady_errs) > SERVE_TOL:
             raise RuntimeError(f"{kind} replies differ from the CPU forward "
-                               f"by {max(errs):.3e} > {SERVE_TOL}")
+                               f"by {max(errs + steady_errs):.3e} > "
+                               f"{SERVE_TOL}")
         log(f"[serve] {kind}: request latency ms (host clock) "
             f"{[round(x, 3) for x in host_ms]}")
         log(f"[serve] {kind}: request latency ms (CUDA events) "
             f"{[round(x, 3) for x in event_ms]}")
         log(f"[serve] {kind}: batch forward ms (CUDA events) "
-            f"{[round(x, 3) for x in batch_ms[kind]]}")
+            f"{[round(x, 3) for x in batch_ms[kind][:n_cold_fwd]]}")
         if launches[kind][FLASH_FWD.name] == 0:
             raise RuntimeError(f"{FLASH_FWD.name} was never launched by the "
                                f"{kind} service")
+        fwd = batch_ms[kind][n_cold_fwd:]
+        log(f"[serve] {kind} steady: {len(order)} more requests in waves of "
+            f"{BATCH}, two waves in flight | max|reply-dense on CPU| "
+            f"{max(steady_errs):.3e} | {rate:.3f} requests/s | request "
+            f"latency ms (host clock) median {np.median(steady_ms):.3f}, p90 "
+            f"{np.percentile(steady_ms, 90):.3f} | batch forward ms (CUDA "
+            f"events) median {np.median(fwd):.3f} of {len(fwd)}")
+        _serve_telemetry(tel, kind, len(reqs) + len(order), warm,
+                         rows[:n_warm], rows[n_warm:])
+    _check_prometheus(tel, "serve")
     return launches
+
+
+def _serve_telemetry(tel, kind: str, sent: int, warm: dict, warm_rows,
+                     steady_rows) -> None:
+    """The serving series of one closed replica (its worker joined, so
+    every count is in): every request admitted and completed, nothing
+    rejected or shed, the batch rows equal to the fill histogram's sum
+    times the batch size, one replica step a batch; then the
+    {service}_replica ledger: the warm-up's (``warm``, the scope's
+    cumulative summary when the steady run began) and the steady run's,
+    as the difference of the cumulative counters and as per-batch
+    medians."""
+    reg = tel.registry
+    counts = {name: reg.value(f"serving_{name}_total", service=kind)
+              for name in ("admitted", "completed", "shed", "failed",
+                           "batches", "batch_rows")}
+    counts.update({f"rejected_{r}": reg.value("serving_rejected_total",
+                                              service=kind, reason=r)
+                   for r in ("capacity", "draining")})
+    snap = tel.snapshot()
+    fill = snap[f'serving_batch_fill_fraction{{service="{kind}"}}']
+    led = _replica_ledger(tel, kind)
+    log(f"[telemetry] {kind}: sent {sent} | " + " ".join(
+        f"{k} {v:g}" for k, v in counts.items())
+        + f" | fill histogram count {fill['count']} sum {fill['sum']:g} "
+        f"(x batch {BATCH} = {fill['sum'] * BATCH:g} rows)")
+
+    def ledger_txt(steps, wall, phases):
+        return (f"{steps} steps, wall {1e3 * wall:.3f} ms | " + ", ".join(
+            f"{ph} {1e3 * phases.get(ph, 0.0):.3f} ms "
+            f"({phases.get(ph, 0.0) / wall:.3f})" for ph in REPLICA_PHASES))
+
+    log(f"[stepscope] {kind}_replica warm-up (its first batch cold): "
+        + ledger_txt(warm["steps"], warm["wall_s"], warm["phases"])
+        + " | per batch ms " + str([
+            {k: round(1e3 * v, 3) for k, v in r.items()} for r in warm_rows]))
+    phases = {ph: led["phases"].get(ph, 0.0) - warm["phases"].get(ph, 0.0)
+              for ph in REPLICA_PHASES}
+    median = {ph: 1e3 * float(np.median([r.get(ph, 0.0)
+                                         for r in steady_rows]))
+              for ph in REPLICA_PHASES[:-1] + ("wall",)}
+    median["other"] = 1e3 * float(np.median(
+        [r["wall"] - sum(r.get(ph, 0.0) for ph in REPLICA_PHASES[:-1])
+         for r in steady_rows]))
+    log(f"[stepscope] {kind}_replica steady: "
+        + ledger_txt(led["steps"] - warm["steps"],
+                     led["wall_s"] - warm["wall_s"], phases)
+        + " | per batch median ms " + ", ".join(
+            f"{ph} {median[ph]:.3f}" for ph in REPLICA_PHASES + ("wall",)))
+    bad = []
+    if not counts["admitted"] == counts["completed"] == sent:
+        bad.append("admitted == completed == sent")
+    if counts["rejected_capacity"] or counts["rejected_draining"] or \
+            counts["shed"] or counts["failed"]:
+        bad.append("no rejection, shed or failure")
+    if counts["batch_rows"] != fill["sum"] * BATCH or \
+            counts["batches"] != fill["count"]:
+        bad.append("batch rows and batches equal the fill histogram's")
+    if not led["steps"] == counts["batches"] == \
+            len(warm_rows) + len(steady_rows):
+        bad.append("one replica step per batch")
+    if bad:
+        raise RuntimeError(f"serving telemetry of {kind}: failed {bad}: "
+                           f"{counts}, fill {fill}")
+
+
+def _check_prometheus(tel, tag: str) -> None:
+    """The registry's Prometheus text, read back by the port's strict
+    parser, holds the values snapshot() holds: every counter and gauge,
+    and every histogram's count, sum and +Inf bucket."""
+    from moolib_tpu_torch.telemetry import parse_prometheus
+
+    snap, parsed = tel.snapshot(), parse_prometheus(tel.prometheus())
+    want = {}
+    for sid, series in snap.items():
+        if series["type"] != "histogram":
+            want[sid] = series["value"]
+            continue
+        name, _, labels = sid.partition("{")
+        inner = labels[:-1]
+        want[f"{name}_count" + (f"{{{inner}}}" if inner else "")] = \
+            series["count"]
+        want[f"{name}_sum" + (f"{{{inner}}}" if inner else "")] = \
+            series["sum"]
+        want[f"{name}_bucket{{" + (f"{inner}," if inner else "")
+             + 'le="+Inf"}'] = series["buckets"][-1]
+    bad = {sid: (parsed.get(sid), v) for sid, v in want.items()
+           if not (parsed.get(sid) == v
+                   or (v != v and parsed.get(sid) != parsed.get(sid)))}
+    log(f"[telemetry] {tag}: Prometheus text parses into the snapshot's "
+        f"values: {len(snap)} series, {len(want)} samples checked, "
+        f"{len(bad)} differ")
+    if bad:
+        raise RuntimeError(f"{tag}: Prometheus text and snapshot differ: "
+                           f"{bad}")
 
 
 def _learn_batches(gen: torch.Generator, n: int):
@@ -945,6 +1170,19 @@ def _kernel_class(name: str) -> str:
     return "elementwise and other"
 
 
+# The profiled step's range, and the CUDA API calls that may
+# block the host: synchronizes, allocations and frees (cudaFree waits for
+# the device), host registration, and the synchronous copies and fills.
+STEP_RANGE = "chip_smoke step"
+
+
+def _blocking_api(name: str) -> bool:
+    return bool(re.search(r"Synchronize|Malloc|MemAlloc|Free|HostAlloc|"
+                          r"HostRegister", name)) or name in (
+        "cudaMemcpy", "cudaMemset", "cudaMemcpy2D", "cuMemcpy",
+        "cuMemcpyHtoD_v2", "cuMemcpyDtoH_v2")
+
+
 def _profile_step(run_step, tag: str = "train") -> dict:
     """One train step under torch.profiler: its wall time, the number of
     work items on the card (kernels, copies, fills), their summed device
@@ -952,23 +1190,35 @@ def _profile_step(run_step, tag: str = "train") -> dict:
     (_kernel_class), the largest items, the spans that record_function
     ranges (the optimizer's step, and whatever the caller marks) cover on
     the device timeline, and the device time of the work items that
-    start inside each span."""
+    start inside each span. Also the CUDA API calls (cuda* and cu*) the
+    host made inside the step itself (before its read back), by name:
+    those that can block it (synchronizes, allocations and frees, which
+    CUDA's sync debug mode does not all see), and the longest call."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, m = run_step()
+        with record_function(STEP_RANGE):
+            _, m = run_step()
         float(m["total_loss"])
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name, spans, items = {}, {}, []
+    step_range, api_calls = None, []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            if e.name == STEP_RANGE:
+                step_range = (e.time_range.start, e.time_range.end)
+            elif re.match(r"cu[A-Z]|cuda[A-Z]", e.name):
+                api_calls.append((e.name, e.time_range.start,
+                                  e.time_range.elapsed_us()))
             continue
         r = e.time_range
+        if e.name == STEP_RANGE:
+            continue
         if e.is_user_annotation:  # a range over other work, not work
             spans.setdefault(e.name, []).append((r.start, r.end))
             continue
@@ -998,14 +1248,211 @@ def _profile_step(run_step, tag: str = "train") -> dict:
     for name in spans:
         log(f"[{tag}]   span {name}: {span_ms[name]:.3f} ms on the device "
             f"timeline, {span_work_ms[name]:.3f} ms of device work in it")
+    if step_range is None:
+        raise RuntimeError(f"{tag}: the profile holds no {STEP_RANGE!r} "
+                           f"range")
+    in_step = [(n, us) for n, t, us in api_calls
+               if step_range[0] <= t < step_range[1]]
+    api = {}
+    for n, _ in in_step:
+        api[n] = api.get(n, 0) + 1
+    blocking = {n: c for n, c in api.items() if _blocking_api(n)}
+    longest = max(in_step, key=lambda c: c[1], default=("none", 0.0))
+    log(f"[{tag}]   host API calls in the step (to its read back): "
+        f"{sum(api.values())}, "
+        + ", ".join(f"{n} {c}" for n, c in sorted(api.items(),
+                                                  key=lambda kv: -kv[1]))
+        + f" | that can block the host: {blocking or 'none'} | longest "
+        f"{longest[0]} {longest[1]:.1f} us, all "
+        f"{sum(us for _, us in in_step) / 1e3:.3f} ms")
     return dict(wall_ms=wall_ms, device_items=len(items),
+                host_api_calls=api, blocking_api_calls=blocking,
+                longest_api_call=dict(name=longest[0], us=longest[1]),
                 device_busy_ms=busy_ms, by_class_ms=by_class,
                 spans_ms=span_ms, span_work_ms=span_work_ms,
                 top=[dict(name=name[:90], count=n, ms=us / 1e3)
                      for name, (n, us) in top[:5]])
 
 
-def phase_train():
+# StepScope ledgers of the scoped loops (phases 6 and 8): LEDGER_STEPS
+# steps a loop, a step_phases flight event every FLIGHT_EVERY steps, and
+# COST_ROUNDS rounds of (plain, scoped, scoped, plain) steps for
+# telemetry's cost on the step.
+LEDGER_STEPS = 8
+FLIGHT_EVERY = 4
+COST_ROUNDS = 3
+LEDGER_PHASES = ("staging", "act", "fwd_bwd", "optimizer", "host_sync",
+                 "other")
+
+
+def _telemetry(name: str):
+    """A fresh Telemetry for one phase: metrics and spans on."""
+    from moolib_tpu_torch.telemetry import Telemetry
+
+    return Telemetry(name, enabled=True, tracing=True)
+
+
+def _no_sync(fn, *args):
+    """``fn(*args)`` with CUDA's sync debug mode at "error": a scoped
+    step only enqueues, so any call in it that waits for the device
+    (a read back, a synchronize) raises here."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _read_metrics(m):
+    """host_sync: the step's metrics on the host, in one copy."""
+    return torch.stack([m[k].float() for k in METRICS]).cpu()
+
+
+def _ledger(tel, scope, step_fn, steps: int = LEDGER_STEPS) -> dict:
+    """Run ``steps`` steps of ``step_fn(i)`` (which opens its own phases)
+    inside ``scope.step()``; returns the per-step ledgers in ms (from the
+    scope's cumulative counters), each phase's median, and the loop's
+    summary. Fails if the ledger does not close: the overrun gauge must
+    read 0 (no phase claimed more than the step's wall time) and the
+    phases, ``other`` included, must sum to the wall time."""
+    per_step = []
+    prev = scope.summary()
+    for i in range(steps):
+        with scope.step():
+            step_fn(i)
+        cur = scope.summary()
+        row = {ph: 1e3 * (secs - prev["phases"].get(ph, 0.0))
+               for ph, secs in cur["phases"].items()}
+        row["wall"] = 1e3 * (cur["wall_s"] - prev["wall_s"])
+        per_step.append(row)
+        prev = cur
+    summary = scope.summary()
+    overrun = tel.registry.value("stepscope_ledger_overrun_fraction",
+                                 loop=scope.loop)
+    gap = abs(sum(summary["phases"].values()) - summary["wall_s"])
+    if overrun != 0.0 or gap > 1e-9 * summary["wall_s"] or any(
+            v < 0.0 for v in summary["phases"].values()):
+        raise RuntimeError(f"{scope.loop}: the ledger does not close: "
+                           f"overrun {overrun}, |phases - wall| {gap} s, "
+                           f"phases {summary['phases']}")
+    names = [ph for ph in LEDGER_PHASES if ph in summary["phases"]]
+    names += sorted(set(summary["phases"]) - set(names))
+    median = {ph: float(np.median([r.get(ph, 0.0) for r in per_step]))
+              for ph in names + ["wall"]}
+    return dict(loop=scope.loop, steps=summary["steps"], median_ms=median,
+                per_step_ms=per_step,
+                host_blocked=summary["fractions"]["host_blocked"],
+                phases_s=summary["phases"], wall_s=summary["wall_s"],
+                overrun=overrun)
+
+
+def _log_ledger(tag: str, led: dict, breakdown=None, step_ms=None) -> None:
+    """One ledger line; with the profiled step's ``breakdown`` and the
+    steady step's time (CUDA events), the device's busy time beside it,
+    as a share of both (the profiler slows the host, so the profiled
+    step is the longer)."""
+    m = led["median_ms"]
+    busy_txt = ""
+    if breakdown is not None:
+        busy = breakdown["device_busy_ms"]
+        busy_txt = (f" | profiler (same run): device busy {busy:.3f} ms, "
+                    f"{100 * busy / breakdown['wall_ms']:.1f}% of the "
+                    f"profiled step, {100 * busy / step_ms:.1f}% of the "
+                    f"steady step")
+    log(f"[stepscope] {tag} loop {led['loop']}: {led['steps']} steps, "
+        f"median ms " + ", ".join(f"{ph} {m[ph]:.3f}" for ph in m
+                                  if ph != "wall")
+        + f" | wall {m['wall']:.3f} | host-blocked fraction "
+        f"{led['host_blocked']:.3f} | overrun {led['overrun']}" + busy_txt)
+
+
+def _train_ledgers(tag: str, tel, cfg, state, batches, optimizer,
+                   count_launches=None) -> dict:
+    """The scoped loops of one learner: the fused train step (staging the
+    learn batch from the host, the step as ``fwd_bwd``, the metrics read
+    back as ``host_sync``), the grad/apply split (``fwd_bwd``,
+    ``optimizer``) on a copy of the model, and telemetry's cost: plain
+    and scoped steps in (plain, scoped, scoped, plain) turns, each to its
+    metrics on the host. Every scoped call of the two ledgers runs under
+    _no_sync. ``count_launches()``, when given, is called after each
+    fused step. Returns the ledgers and the cost."""
+    from moolib_tpu_torch import (
+        make_apply_step,
+        make_grad_step,
+        make_impala_train_step,
+        make_train_state,
+    )
+    from moolib_tpu_torch.ops import stage_batch
+    from moolib_tpu_torch.telemetry import StepScope
+
+    host = [_to_cpu(b) for b in batches]
+    scope = StepScope(f"{tag}_train", telemetry=tel,
+                      flight_every=FLIGHT_EVERY)
+    step = make_impala_train_step(config=cfg, stepscope=scope)
+    box = [state]
+
+    def fused(i):
+        with scope.phase("staging"):
+            batch = stage_batch(host[i % len(host)], "cuda")
+        box[0], m = _no_sync(step, box[0], batch)
+        with scope.phase("host_sync"):
+            _read_metrics(m)
+        if count_launches is not None:
+            count_launches()
+
+    fused_led = _ledger(tel, scope, fused)
+
+    split_scope = StepScope(f"{tag}_split", telemetry=tel,
+                            flight_every=FLIGHT_EVERY)
+    twin = copy.deepcopy(box[0].model)
+    split_state = [make_train_state(twin, optimizer(twin))]
+    grad_step = make_grad_step(config=cfg, stepscope=split_scope)
+    apply_step = make_apply_step(stepscope=split_scope)
+
+    def split(i):
+        with split_scope.phase("staging"):
+            batch = stage_batch(host[i % len(host)], "cuda")
+        grads, m = _no_sync(grad_step, split_state[0].model, batch)
+        split_state[0] = _no_sync(apply_step, split_state[0], grads)
+        with split_scope.phase("host_sync"):
+            _read_metrics(m)
+
+    split_led = _ledger(tel, split_scope, split)
+    del twin, split_state
+
+    cost_scope = StepScope(f"{tag}_cost", telemetry=tel,
+                           flight_every=FLIGHT_EVERY)
+    plain = make_impala_train_step(config=cfg)
+    scoped = make_impala_train_step(config=cfg, stepscope=cost_scope)
+    times = {"plain": [], "scoped": []}
+    for i in range(4 * COST_ROUNDS):
+        kind = ("plain", "scoped", "scoped", "plain")[i % 4]
+        batch = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "plain":
+            box[0], m = plain(box[0], batch)
+            _read_metrics(m)
+        else:
+            with cost_scope.step():
+                box[0], m = scoped(box[0], batch)
+                with cost_scope.phase("host_sync"):
+                    _read_metrics(m)
+        times[kind].append(1e3 * (time.perf_counter() - t0))
+    cost = {k: float(np.median(v)) for k, v in times.items()}
+    cost["ratio"] = cost["scoped"] / cost["plain"]
+    log(f"[telemetry] {tag}: train step to its metrics on the host, "
+        f"{2 * COST_ROUNDS} steps each in (plain, scoped, scoped, plain) "
+        f"turns: stepscope=None median {cost['plain']:.3f} ms, live scope "
+        f"(spans on) {cost['scoped']:.3f} ms, ratio {cost['ratio']:.4f} "
+        f"| all ms plain {[round(x, 3) for x in times['plain']]} scoped "
+        f"{[round(x, 3) for x in times['scoped']]}")
+    return dict(train=fused_led, split=split_led, cost=cost,
+                state=box[0])
+
+
+def phase_train(tel):
     from moolib_tpu_torch import (
         ClippedRMSprop,
         ImpalaConfig,
@@ -1197,8 +1644,30 @@ def phase_train():
         f"(CUDA events, median of steps 3-8), "
         f"{float(np.median(host_ms[2:])):.3f} ms (host clock)")
     breakdown = _profile_step(lambda: step(state, batches[0]))
+
+    # The scoped loops. Each fused step must still launch the forward and
+    # the fused backward twice (once per layer) with the scope on.
+    scoped_launches, last = [], [kern.launches for kern in KERNELS]
+
+    def count_launches():
+        nonlocal last
+        now = [kern.launches for kern in KERNELS]
+        scoped_launches.append([a - b for a, b in zip(now, last)])
+        last = now
+
+    ledgers = _train_ledgers("transformer", tel, cfg, state, batches,
+                             optimizer, count_launches)
+    state = ledgers.pop("state")
+    step_ms = float(np.median(steady))
+    _log_ledger("transformer", ledgers["train"], breakdown, step_ms)
+    _log_ledger("transformer", ledgers["split"], breakdown, step_ms)
+    log(f"[stepscope] transformer: launches per scoped step "
+        f"{scoped_launches} ({[kern.name for kern in KERNELS]})")
+    if any(row != want for row in scoped_launches):
+        raise RuntimeError(f"each scoped train step must launch {want}; "
+                           f"got {scoped_launches}")
     return dict(launches=launches, metrics=metrics, grad_err=grad_err,
-                breakdown=breakdown,
+                breakdown=breakdown, ledgers=ledgers,
                 tf32_grad_err={n: tf32_errs[n] for n in CONV_PARAMS},
                 param_err=param_err, split_err=split_err,
                 step_ms=float(np.median(steady)),
@@ -1235,7 +1704,7 @@ IMPALA_ACT_STEPS = 4
 BENCH_B = 256
 
 
-def _impala_train(dtype) -> dict:
+def _impala_train(dtype, tel) -> dict:
     from torch.profiler import record_function
 
     from moolib_tpu_torch import (
@@ -1378,16 +1847,23 @@ def _impala_train(dtype) -> dict:
         breakdown = _profile_step(lambda: marked(state, batches[0]), tag)
     finally:
         vtrace_ops.from_logits = plain_vtrace
+    ledgers = _train_ledgers(f"impala_{str(dtype)[6:]}", tel, cfg, state,
+                             batches, optimizer)
+    del ledgers["state"]
+    _log_ledger(tag, ledgers["train"], breakdown, step_ms)
+    _log_ledger(tag, ledgers["split"], breakdown, step_ms)
     return dict(grad_err=grad_errs, metric_err=metric_errs,
                 param_err=param_errs, split_err=split_err, step_ms=step_ms,
-                step_host_ms=step_host_ms, breakdown=breakdown)
+                step_host_ms=step_host_ms, breakdown=breakdown,
+                ledgers=ledgers)
 
 
-def _impala_act(dtype) -> dict:
+def _impala_act(dtype, tel) -> dict:
     """The act step of the LSTM ImpalaNet for ACT_ENVS envs at T=1, its
     state threaded over IMPALA_ACT_STEPS steps (a reset at step 2 for a
     quarter of the envs), against the same steps on the CPU."""
     from moolib_tpu_torch import ImpalaNet, make_act_step
+    from moolib_tpu_torch.telemetry import StepScope
 
     tag = f"impala act {str(dtype)[6:]}"
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1431,19 +1907,40 @@ def _impala_act(dtype) -> dict:
         f"{[round(x, 3) for x in ms]}")
     if max(errs) > IMPALA_ACT_TOL[dtype]:
         raise RuntimeError(f"{tag} differs from the CPU by {max(errs):.3e}")
-    return dict(max_err=max(errs), act_ms=ms)
+
+    # The actor's loop, scoped: the act step as ``act``, the actions and
+    # behaviour logits read back as ``host_sync``.
+    scope = StepScope(f"impala_{str(dtype)[6:]}_actor", telemetry=tel,
+                      flight_every=FLIGHT_EVERY)
+    scoped_act = make_act_step(net, stepscope=scope)
+    frames = [torch.randint(0, 256, (ACT_ENVS, 84, 84, 4), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+              for _ in range(LEDGER_STEPS)]
+    done = torch.zeros(ACT_ENVS, dtype=torch.bool, device="cuda")
+    box = [net.initial_state(ACT_ENVS)]
+
+    def actor(i):
+        actions, logits, box[0] = _no_sync(scoped_act, frames[i], done,
+                                           box[0], sample)
+        with scope.phase("host_sync"):
+            actions.cpu()
+            logits.cpu()
+
+    led = _ledger(tel, scope, actor)
+    _log_ledger(tag, led)
+    return dict(max_err=max(errs), act_ms=ms, ledger=led)
 
 
-def phase_impala():
+def phase_impala(tel):
     """The impala learner path: full-width ImpalaNet trained on
     experiment.py's learn batch in f32 and in bf16 against the CPU, the
     LSTM variant's act step, then bench_torch.py at B=256 and one of its
     steps profiled."""
     import bench_torch
 
-    out = {str(dtype)[6:]: _impala_train(dtype)
+    out = {str(dtype)[6:]: _impala_train(dtype, tel)
            for dtype in (torch.float32, torch.bfloat16)}
-    out["act"] = {str(dtype)[6:]: _impala_act(dtype)
+    out["act"] = {str(dtype)[6:]: _impala_act(dtype, tel)
                   for dtype in (torch.float32, torch.bfloat16)}
     line = bench_torch.main(batch=BENCH_B)
     if not line["value"] or line["mfu"] is None:
@@ -1454,6 +1951,50 @@ def phase_impala():
         state, _ = step(state, batch)
     out["bench"] = dict(line=line, breakdown=_profile_step(
         lambda: step(state, batch), f"bench B={BENCH_B}"))
+    return out
+
+
+BUNDLE_DIR = os.path.join("build", "flightrec")
+# The environment prefixes the port's bundles record (the reference's
+# MOOLIB, and the card's in place of JAX and XLA).
+CARD_ENV_PREFIXES = ("MOOLIB", "TORCH", "PYTORCH", "CUDA", "NCCL")
+
+
+def phase_bundles(tels) -> dict:
+    """One incident bundle per phase's Telemetry, captured through the
+    explicit ``api`` trigger into build/flightrec/: each must load and
+    validate, and the train and impala bundles must carry a step_phases
+    flight event of every scoped loop (each loop's StepScope stamps one
+    every FLIGHT_EVERY steps)."""
+    from moolib_tpu_torch.flightrec import capture_incident, load_bundle
+    from moolib_tpu_torch.telemetry import summarize_stepscope
+
+    out = {}
+    for kind, tel in tels.items():
+        path = capture_incident("api", f"chip_smoke {kind} phase",
+                                telemetry=tel, out_dir=BUNDLE_DIR)
+        bundle = load_bundle(path)  # validates
+        loops = set(summarize_stepscope(bundle["metrics"][kind]))
+        stamped = {e["fields"]["loop"] for e in bundle["events"]
+                   if e["kind"] == "step_phases"}
+        env = sorted(bundle["fingerprint"]["env"])
+        foreign = [k for k in env if k.split("_")[0] not in CARD_ENV_PREFIXES]
+        out[kind] = dict(path=path, events=len(bundle["events"]),
+                         spans=len(bundle["spans"]),
+                         step_phases=len([e for e in bundle["events"]
+                                          if e["kind"] == "step_phases"]),
+                         loops=sorted(loops), env_keys=env)
+        log(f"[flightrec] {kind}: {path} | {out[kind]['events']} events "
+            f"({out[kind]['step_phases']} step_phases, loops stamped "
+            f"{sorted(stamped)}), {out[kind]['spans']} spans, dropped "
+            f"{bundle['events_dropped']}/{bundle['spans_dropped']} | loops "
+            f"in its metrics {sorted(loops)} | fingerprint env {env}")
+        if foreign:
+            raise RuntimeError(f"bundle {path} records env keys outside "
+                               f"{CARD_ENV_PREFIXES}: {foreign}")
+        if kind != "serve" and stamped != loops:
+            raise RuntimeError(f"bundle {path}: scoped loops {sorted(loops)} "
+                               f"but step_phases events of {sorted(stamped)}")
     return out
 
 
@@ -1468,16 +2009,18 @@ def main() -> int:
     phase_build()
     fwd_results, fwd_timings = phase_kernel_vs_plain()
     bwd_results, bwd_timings = phase_backward_vs_plain()
-    serve_launches = phase_serve()
-    train = phase_train()
+    tels = {kind: _telemetry(kind) for kind in ("serve", "train", "impala")}
+    serve_launches = phase_serve(tels["serve"])
+    train = phase_train(tels["train"])
     context_backward = phase_context_backward()
     for kern in KERNELS:
         kern.launches = 0
-    impala = phase_impala()
+    impala = phase_impala(tels["impala"])
     impala_launches = {kern.name: kern.launches for kern in KERNELS}
     if any(impala_launches.values()):
         raise RuntimeError(f"the impala path launched a flash kernel: "
                            f"{impala_launches}")
+    bundles = phase_bundles(tels)
 
     launches_by_path = {
         path: counts for path, counts in
@@ -1551,8 +2094,8 @@ def main() -> int:
                       "train": {k: train[k] for k in
                                 ("step_ms", "step_host_ms", "breakdown",
                                  "grad_err", "tf32_grad_err", "param_err",
-                                 "split_err")},
-                      "impala": impala}), flush=True)
+                                 "split_err", "ledgers")},
+                      "impala": impala, "bundles": bundles}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -14,11 +14,18 @@ reference each ported part is tested against. The slices so far:
 - the flash kernels redesigned for Hopper;
 - training the IMPALA ResNet agent (``ImpalaNet``, its LSTM core, its
   weight converter), the clipped-Adam chain of the reference's
-  benchmark, and the timing and FLOP accounting of ``bench_torch.py``.
+  benchmark, and the timing and FLOP accounting of ``bench_torch.py``;
+- the observability plane: the metrics registry, trace spans,
+  ``StepScope`` phase ledgers (the learner factories' ``stepscope=``,
+  the replica's ``{service}_replica`` loop), the flight recorder and
+  incident bundles, and the serving tier's ``serving_*`` series.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
+import secrets
+
+from .flightrec import FlightRecorder, capture_incident, enable_auto_capture
 from .learner import (
     ImpalaConfig,
     TrainState,
@@ -49,13 +56,15 @@ from .serving import (
     ServingError,
     error_kind,
 )
-from .utils import nest, resolve_device
+from .telemetry import Telemetry, global_telemetry, publish_metrics
+from .utils import nest, resolve_device, set_log_level, set_logging
 
 __all__ = [
     "AdmissionQueue",
     "ClippedAdam",
     "ClippedRMSprop",
     "DeadlineExceeded",
+    "FlightRecorder",
     "ImpalaConfig",
     "ImpalaNet",
     "LSTMCore",
@@ -63,11 +72,16 @@ __all__ = [
     "Replica",
     "RpcError",
     "ServingError",
+    "Telemetry",
     "TrainState",
     "TransformerNet",
     "attention",
+    "capture_incident",
+    "create_uid",
+    "enable_auto_capture",
     "error_kind",
     "global_norm",
+    "global_telemetry",
     "impala_loss",
     "impala_params_from_flax",
     "make_act_step",
@@ -76,10 +90,18 @@ __all__ = [
     "make_impala_train_step",
     "make_train_state",
     "nest",
+    "publish_metrics",
     "resolve_device",
+    "set_log_level",
+    "set_logging",
     "space_to_depth",
     "stage_batch",
     "transformer_params_from_flax",
     "vtrace",
     "widen_impala_params",
 ]
+
+
+def create_uid() -> str:
+    """Random unique peer-name suffix (the reference's ``create_uid``)."""
+    return secrets.token_hex(16)

@@ -27,6 +27,7 @@ reference computes the convolutions and their gradients in f32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -154,17 +155,33 @@ def impala_loss(model, apply_fn: Callable, batch: dict,
     return total, {k: v.detach() for k, v in metrics.items()}
 
 
-def _not_ported(mesh, batch_axes, stepscope) -> None:
+def _not_ported(mesh, batch_axes) -> None:
     if mesh is not None or batch_axes is not None:
         raise NotImplementedError(
             "mesh/batch_axes are not ported yet (ROADMAP queue A: "
             "multi-device, torch.distributed data parallel)"
         )
-    if stepscope is not None:
-        raise NotImplementedError(
-            "stepscope is not ported yet (ROADMAP queue A: telemetry and "
-            "StepScope hooks)"
-        )
+
+
+def _scoped(fn: Callable, stepscope, phase: str) -> Callable:
+    """Wrap a step so each invocation is attributed to a stepscope phase
+    (:mod:`moolib_tpu_torch.telemetry.stepscope`). The phase CM no-ops
+    outside an active ``scope.step()``, so a scoped step factory is safe
+    to call from anywhere. On the card the step only enqueues its
+    kernels, so the attributed time is their dispatch; the device time
+    shows up in whichever phase first reads a result back (the caller's
+    ``host_sync``), where it actually serializes. Nothing in a step
+    reads a result back."""
+    if stepscope is None:
+        return fn
+    cm = stepscope.phase(phase)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with cm:
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def _make_grads(apply_fn: Callable, config: ImpalaConfig,
@@ -193,8 +210,8 @@ def make_apply_step(stepscope=None) -> Callable[[TrainState, Dict[str, Any]],
     """Build the optimizer-apply step ``(state, grads) -> state`` for
     externally reduced gradients (the other half of :func:`make_grad_step`).
     ``grads`` is keyed like ``state.model.named_parameters()``; the
-    parameters and the optimizer's state are updated in place."""
-    _not_ported(None, None, stepscope)
+    parameters and the optimizer's state are updated in place. With a
+    ``stepscope`` each call is its ``optimizer`` phase."""
 
     def apply(state: TrainState, grads: Dict[str, Any]) -> TrainState:
         for name, p in state.model.named_parameters():
@@ -204,7 +221,7 @@ def make_apply_step(stepscope=None) -> Callable[[TrainState, Dict[str, Any]],
         state.optimizer.zero_grad(set_to_none=True)
         return state._replace(step=state.step + 1)
 
-    return apply
+    return _scoped(apply, stepscope, "optimizer")
 
 
 def make_impala_train_step(
@@ -218,8 +235,9 @@ def make_impala_train_step(
     """Build the train step ``(state, batch) -> (state, metrics)``:
     forward, V-trace loss, backward and the optimizer step on one device.
     Metrics are detached 0-d tensors on the model's device (reading them
-    waits for the step), with ``grad_norm`` taken before clipping."""
-    _not_ported(mesh, batch_axes, stepscope)
+    waits for the step), with ``grad_norm`` taken before clipping. With a
+    ``stepscope`` each call is its ``fwd_bwd`` phase."""
+    _not_ported(mesh, batch_axes)
     grads_of = _make_grads(apply_fn, config, loss_fn)
     apply = make_apply_step()
 
@@ -227,7 +245,7 @@ def make_impala_train_step(
         grads, metrics = grads_of(state.model, batch)
         return apply(state, grads), metrics
 
-    return step
+    return _scoped(step, stepscope, "fwd_bwd")
 
 
 def make_grad_step(
@@ -246,8 +264,9 @@ def make_grad_step(
     ``grad_scale`` multiplies the gradients on the device (typically by
     the local batch size, turning batch-mean gradients into the batch-sum
     contribution the Accumulator's count/reduce protocol wants);
-    ``grad_norm`` is the norm before scaling, as in the reference."""
-    _not_ported(mesh, batch_axes, stepscope)
+    ``grad_norm`` is the norm before scaling, as in the reference. With a
+    ``stepscope`` each call is its ``fwd_bwd`` phase."""
+    _not_ported(mesh, batch_axes)
     grads_of = _make_grads(apply_fn, config, loss_fn)
 
     def step(model, batch):
@@ -256,10 +275,11 @@ def make_grad_step(
             grads = {n: g * grad_scale for n, g in grads.items()}
         return grads, metrics
 
-    return step
+    return _scoped(step, stepscope, "fwd_bwd")
 
 
-def make_act_step(model: Callable, temperature: float = 1.0) -> Callable:
+def make_act_step(model: Callable, temperature: float = 1.0,
+                  stepscope=None) -> Callable:
     """Acting step for the actor loop and the serving replica.
 
     ``model(obs_TB, done_TB, core_state) -> ((logits, baseline), state)``
@@ -277,7 +297,7 @@ def make_act_step(model: Callable, temperature: float = 1.0) -> Callable:
     (an LSTM's, after a reset where ``done`` is set). The returned logits
     are the temperature-scaled ones: they describe the distribution the
     action was drawn from, which is what V-trace's behaviour logits must
-    be."""
+    be. With a ``stepscope`` each call is its ``act`` phase."""
 
     @torch.no_grad()
     def act(obs, done, core_state, generator: torch.Generator):
@@ -288,4 +308,4 @@ def make_act_step(model: Callable, temperature: float = 1.0) -> Callable:
         actions = torch.multinomial(probs, 1, generator=generator)[:, 0]
         return actions, logits, core_state
 
-    return act
+    return _scoped(act, stepscope, "act")

@@ -14,6 +14,13 @@ The RPC binding is not ported yet: requests arrive through
 :meth:`Replica.submit`, which hands the same deferred-return shape the
 RPC layer would to the same ``_on_infer`` path and returns a
 :class:`concurrent.futures.Future`.
+
+Telemetry (``service``-labelled, as in the reference):
+``serving_batches_total``, ``serving_batch_rows_total``, the
+``serving_batch_fill_fraction`` histogram, the ``serving_model_version``
+and ``serving_inflight`` gauges, the admission queue's ``serving_*``
+series, and the ``{service}_replica`` step-phase ledger (``queue_wait``,
+``linger``, ``infer`` per served batch).
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import numpy as np
 import torch
 
 from ..ops.batcher import stage_batch
+from ..telemetry import FRACTION_EDGES, Telemetry, global_telemetry
+from ..telemetry.stepscope import StepScope
 from ..utils import nest
 from ..utils.device import resolve_device
 from .admission import AdmissionQueue, DeadlineExceeded, Overloaded, RpcError
@@ -84,6 +93,13 @@ class Replica:
     :meth:`set_model`. ``pad=True`` repeats row 0 up to ``batch_size``
     so the model always sees one shape. ``device`` defaults to the card
     and raises without one; pass ``device="cpu"`` to serve on the CPU.
+
+    Without an RPC binding the replica has no peer identity: it records
+    into ``telemetry`` (default :func:`~moolib_tpu_torch.telemetry.
+    global_telemetry`) with no ``peer`` label. So run at most one live
+    replica per ``service`` on one ``Telemetry``: a second one would
+    replace the first's gauges (``serving_inflight``, the queue depth,
+    the scope's fractions), and closing either unregisters them.
     """
 
     def __init__(self, rpc: None, model_fn: Callable[[Any, Any], Any],
@@ -91,7 +107,8 @@ class Replica:
                  service: str = "serve", batch_size: int = 8,
                  max_queue: int = 64, linger_s: float = 0.002,
                  device: Optional[Union[str, torch.device]] = None,
-                 pad: bool = False, shed_safety: float = 1.0):
+                 pad: bool = False, shed_safety: float = 1.0,
+                 telemetry: Optional[Telemetry] = None):
         if rpc is not None:
             raise NotImplementedError(
                 "Replica has no RPC binding yet (ROADMAP queue A: the RPC "
@@ -110,8 +127,32 @@ class Replica:
         self._version = int(version)
         self._closed = False
         self._stop = threading.Event()
+
+        tel = telemetry if telemetry is not None else global_telemetry()
+        reg = tel.registry
+        self._tel = tel
         self.admission = AdmissionQueue(max_queue, service=service,
+                                        telemetry=tel,
                                         shed_safety=shed_safety)
+        self._m_batches = reg.counter("serving_batches_total",
+                                      service=service)
+        self._m_rows = reg.counter("serving_batch_rows_total",
+                                   service=service)
+        self._m_fill = reg.histogram("serving_batch_fill_fraction",
+                                     edges=FRACTION_EDGES, service=service)
+        self._m_version = reg.gauge("serving_model_version", service=service)
+        self._m_version.set(float(self._version))
+        # Step-phase attribution: each served batch is one step of the
+        # serve loop — queue_wait (blocked in get_batch before the first
+        # entry), linger (the deliberate coalescing window), infer
+        # (stack/stage/model/replies). Idle ticks that pop nothing record
+        # no step, so the fractions describe served traffic.
+        self._scope = StepScope(f"{service}_replica", telemetry=tel)
+        # Weakref gauge: a shared or global Telemetry must never pin a
+        # closed replica; close() unregisters the series.
+        wself = weakref.ref(self)
+        reg.gauge_fn("serving_inflight",
+                     lambda: wself().admission.inflight, service=service)
         self._worker = threading.Thread(
             target=_serve_entry, args=(weakref.ref(self), self._stop),
             name=f"{service}-serve", daemon=True,
@@ -166,6 +207,7 @@ class Replica:
         with self._model_lock:
             self._params = params
             self._version = int(version)
+        self._m_version.set(float(version))
         log.info("%s: model swapped to version %s", self.service, version)
 
     def drain(self, timeout: Optional[float] = None) -> bool:
@@ -177,6 +219,7 @@ class Replica:
 
     def _serve_once(self):
         """One bounded serve tick (pop + batch)."""
+        t_tick = time.monotonic()
         try:
             serve, shed = self.admission.get_batch(
                 self.batch_size, timeout=0.1, linger=self.linger_s
@@ -187,6 +230,7 @@ class Replica:
         except Exception as e:
             log.error("serve loop pop failed: %s", e)
             return
+        pop_s = time.monotonic() - t_tick
         if shed:
             for dr, _x in shed:
                 self._reply_error(
@@ -194,9 +238,23 @@ class Replica:
                     "DeadlineExceeded: remaining budget cannot cover "
                     "the observed p50 service time (shed in queue)",
                 )
-            self.admission.fail(len(shed))
-        if serve:
-            self._run_batch(serve)
+            self.admission.fail(len(shed), shed=True)
+        if not serve:
+            return
+        infer_s = self._run_batch(serve)
+        if infer_s is not None and self._tel.on:
+            # get_batch blocks for the first entry, then lingers up to
+            # linger_s to coalesce — the split below attributes at most
+            # the configured linger to the coalescing window and the
+            # rest of the pop to queue_wait (the exact boundary is
+            # internal to the admission queue's condvar).
+            wall = time.monotonic() - t_tick
+            linger = min(pop_s, self.linger_s) if self.linger_s > 0 else 0.0
+            self._scope.observe_step(wall, {
+                "queue_wait": max(pop_s - linger, 0.0),
+                "linger": linger,
+                "infer": infer_s,
+            })
 
     def _run_batch(self, serve) -> Optional[float]:
         """Serve one admitted batch; returns the batch service time in
@@ -240,6 +298,10 @@ class Replica:
         for (dr, _x), r in zip(serve, results):
             self._reply(dr, r)
         self.admission.done(n, dt / n)
+        if self._tel.on:
+            self._m_batches.inc()
+            self._m_rows.inc(n)
+            self._m_fill.observe(n / self.batch_size)
         return dt
 
     @staticmethod
@@ -263,14 +325,18 @@ class Replica:
     # -- lifecycle -----------------------------------------------------------
 
     def close(self) -> None:
-        """Hard stop: stop the batch loop. For a graceful departure call
-        :meth:`drain` first."""
+        """Hard stop: stop the batch loop and unregister this replica's
+        gauges (its counters and histograms stay, like every cumulative
+        series). For a graceful departure call :meth:`drain` first."""
         if self._closed:
             return
         self._closed = True
         self._stop.set()
         self.admission.close()
         self._worker.join(timeout=5)
+        self._scope.close()
+        self._tel.registry.unregister("serving_inflight",
+                                      service=self.service)
 
     def __enter__(self):
         return self

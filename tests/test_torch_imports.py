@@ -45,7 +45,11 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "moolib_tpu_torch.optim" in got["modules"]
     assert "moolib_tpu_torch.learner" in got["modules"]
     for mod in ("models.impala", "models.core", "models.common",
-                "utils.flops", "utils.benchmark"):
+                "utils.flops", "utils.benchmark", "utils.logging",
+                "telemetry", "telemetry.registry", "telemetry.trace",
+                "telemetry.stepscope", "flightrec", "flightrec.events",
+                "flightrec.recorder", "flightrec.bundle", "flightrec.capture",
+                "flightrec.merge", "bench", "bench.harness"):
         assert f"moolib_tpu_torch.{mod}" in got["modules"], mod
     assert got["bad"] == [], got["bad"]
 

@@ -56,6 +56,7 @@ from moolib_tpu_torch.models import (
     transformer_params_from_flax,
 )
 from moolib_tpu_torch.optim import ClippedAdam, ClippedRMSprop, global_norm
+from moolib_tpu_torch.telemetry import StepScope, Telemetry
 
 SMALL = dict(d_model=32, num_layers=2, num_heads=2)
 A = 6
@@ -309,8 +310,99 @@ def test_unported_options_name_their_roadmap_item():
         tlearner.make_impala_train_step(mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlearner.make_grad_step(batch_axes={"obs": 1})
-    with pytest.raises(NotImplementedError, match="StepScope"):
-        tlearner.make_apply_step(stepscope=object())
+
+
+def _twins(seed=0):
+    """Two identical TransformerNet train states."""
+    states = []
+    for _ in range(2):
+        net = TransformerNet(A, (5,), attention_backend="flash", device="cpu",
+                             generator=torch.Generator().manual_seed(seed),
+                             **SMALL)
+        opt = ClippedRMSprop(net.parameters(), 6e-4, decay=0.99, eps=0.01,
+                             max_norm=40.0)
+        states.append(tlearner.make_train_state(net, opt))
+    return states
+
+
+def _assert_ledger_closes(scope, steps, phases):
+    s = scope.summary()
+    assert s["steps"] == steps
+    assert set(phases) <= set(s["phases"]), s["phases"]
+    assert all(s["phases"][p] > 0 for p in phases)
+    assert sum(s["phases"].values()) == pytest.approx(s["wall_s"],
+                                                      rel=1e-9)
+    snap = scope._tel.snapshot()
+    assert snap[f'stepscope_ledger_overrun_fraction{{loop="{scope.loop}"}}'][
+        "value"] == 0.0
+
+
+def test_scoped_train_step_is_bit_identical_and_its_ledger_closes():
+    """stepscope= only times the step: parameters and metrics are the
+    unscoped step's bits; the ledger holds fwd_bwd and the caller's
+    host_sync and closes (phases + other == wall, no overrun)."""
+    scope = StepScope("learner", telemetry=Telemetry("t"))
+    plain_state, scoped_state = _twins()
+    plain = tlearner.make_impala_train_step()
+    scoped = tlearner.make_impala_train_step(stepscope=scope)
+    for seed in range(2):
+        batch = _tbatch(_batch(20 + seed, pixels=False))
+        plain_state, pm = plain(plain_state, batch)
+        with scope.step():
+            scoped_state, sm = scoped(scoped_state, batch)
+            with scope.phase("host_sync"):
+                loss = float(sm["total_loss"])
+        assert loss == float(pm["total_loss"])
+        for name in pm:
+            assert torch.equal(pm[name], sm[name]), name
+    assert scoped_state.step == plain_state.step == 2
+    for (n, a), b in zip(plain_state.model.state_dict().items(),
+                         scoped_state.model.state_dict().values()):
+        assert torch.equal(a, b), n
+    _assert_ledger_closes(scope, 2, ("fwd_bwd", "host_sync"))
+    # Outside scope.step() a scoped step records nothing.
+    scoped(scoped_state, _tbatch(_batch(30, pixels=False)))
+    assert scope.summary()["steps"] == 2
+
+
+def test_scoped_grad_apply_and_act_steps_are_bit_identical():
+    """The elastic split with fwd_bwd and optimizer phases, and the act
+    step with its act phase, give the unscoped steps' bits."""
+    scope = StepScope("split", telemetry=Telemetry("t"))
+    plain_state, scoped_state = _twins(1)
+    batch = _tbatch(_batch(8, pixels=False))
+    grads, gm = tlearner.make_grad_step(grad_scale=2.0)(plain_state.model,
+                                                        batch)
+    plain_state = tlearner.make_apply_step()(plain_state, grads)
+    with scope.step():
+        sgrads, sgm = tlearner.make_grad_step(
+            grad_scale=2.0, stepscope=scope)(scoped_state.model, batch)
+        scoped_state = tlearner.make_apply_step(stepscope=scope)(
+            scoped_state, sgrads)
+    for name in gm:
+        assert torch.equal(gm[name], sgm[name]), name
+    for (n, a), b in zip(plain_state.model.state_dict().items(),
+                         scoped_state.model.state_dict().values()):
+        assert torch.equal(a, b), n
+    _assert_ledger_closes(scope, 1, ("fwd_bwd", "optimizer"))
+
+    act_scope = StepScope("actor", telemetry=Telemetry("t"))
+    obs = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (3, 5)).astype(np.float32))
+    done = torch.tensor([False, True, False])
+    outs = []
+    for stepscope in (None, act_scope):
+        act = tlearner.make_act_step(plain_state.model, temperature=0.5,
+                                     stepscope=stepscope)
+        with act_scope.step():
+            a, lg, st = act(obs, done, (), torch.Generator().manual_seed(3))
+            with act_scope.phase("host_sync"):
+                a = a.numpy()
+        outs.append((a, lg))
+    assert (outs[0][0] == outs[1][0]).all()
+    assert torch.equal(outs[0][1], outs[1][1])
+    _assert_ledger_closes(act_scope, 2, ("act", "host_sync"))
+    assert act_scope.summary()["phases"]["act"] > 0
 
 
 def _impala_batch(seed, use_lstm, T=2, B=2):

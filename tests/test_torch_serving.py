@@ -1,14 +1,17 @@
 """Port parity: the acting step, batch staging, nest, admission control and
-the serving Replica of moolib_tpu_torch.
+the serving Replica of moolib_tpu_torch, and their telemetry.
 
 The act step's logits are held against the reference's jitted act step;
 its samples cannot match the reference's bits, so their frequencies are
 held against softmax(logits). The Replica is driven through its local
 submit() path (the RPC binding is not ported yet) and its replies are
 held against the direct forward. The admission and replica cases mirror
-the tests/test_serving.py cases that need no RPC.
+the tests/test_serving.py cases that need no RPC. The admission queue's
+``serving_*`` series are held to the reference's exactly (equal
+snapshots after the same sequence of calls).
 """
 
+import json
 import threading
 import time
 
@@ -20,6 +23,8 @@ import torch
 
 from moolib_tpu.learner import make_act_step as jax_make_act_step
 from moolib_tpu.models import TransformerNet as JaxTransformerNet
+from moolib_tpu.serving.admission import AdmissionQueue as JaxAdmissionQueue
+from moolib_tpu.telemetry import Telemetry as JaxTelemetry
 from moolib_tpu.utils import nest as jax_nest
 from moolib_tpu_torch import make_act_step
 from moolib_tpu_torch.models import TransformerNet, transformer_params_from_flax
@@ -31,6 +36,11 @@ from moolib_tpu_torch.serving import (
     Replica,
     RpcError,
     error_kind,
+)
+from moolib_tpu_torch.telemetry import (
+    Telemetry,
+    global_telemetry,
+    summarize_stepscope,
 )
 from moolib_tpu_torch.utils import nest
 
@@ -356,3 +366,155 @@ def test_replica_set_model_swaps_between_batches():
         rep.set_model(3.0, version=7)
         assert rep.version == 7 and rep.health()["model_version"] == 7
         np.testing.assert_allclose(rep.submit(x).result(timeout=10), 3.0)
+
+
+# ---------------------------------------------------------------------------
+# Telemetry of the serving tier
+# ---------------------------------------------------------------------------
+
+
+def _admission_sequence(queue_cls, tel_cls):
+    """One admit/get_batch/done/fail/shed/drain sequence with explicit
+    service times; returns (snapshot before close, snapshot after close,
+    flight events without their stamps)."""
+    tel = tel_cls("q", enabled=True)
+    q = queue_cls(4, service="svc", peer="p0", telemetry=tel)
+    for i in range(4):
+        q.admit(i)
+    with pytest.raises(Exception, match="capacity"):  # each's Overloaded
+        q.admit(99)
+    serve, shed = q.get_batch(3)
+    assert (serve, shed) == ([0, 1, 2], [])
+    q.done(2, service_seconds_per_item=0.004)
+    q.fail(1)
+    serve, _ = q.get_batch(3)
+    q.done(len(serve), service_seconds_per_item=2.0)
+    # p50 is now 2s: a 1s budget is shed at the door, and an entry
+    # admitted with 3s of budget is shed in the queue once p50 is 100s.
+    with pytest.raises(Exception, match="p50"):
+        q.admit("tight", deadline=time.monotonic() + 1.0)
+    q.admit("late", deadline=time.monotonic() + 3.0)
+    q.admit("ok")
+    for _ in range(4):
+        q.done(0, service_seconds_per_item=100.0)  # the estimator only
+    serve, shed = q.get_batch(4)
+    assert (serve, shed) == (["ok"], ["late"])
+    q.fail(1, shed=True)
+    q.done(1, service_seconds_per_item=0.5)
+    assert q.drain(timeout=1.0)
+    with pytest.raises(Exception, match="draining"):
+        q.admit("x")
+    before = tel.snapshot()
+    q.close()
+    q.close()  # idempotent
+    events = [{k: v for k, v in e.items() if k != "ts_us"}
+              for e in tel.flight.events()]
+    return before, tel.snapshot(), events
+
+
+def test_admission_counters_match_reference():
+    ref = _admission_sequence(JaxAdmissionQueue, JaxTelemetry)
+    port = _admission_sequence(AdmissionQueue, Telemetry)
+    assert json.dumps(port[0]) == json.dumps(ref[0])
+    assert json.dumps(port[1]) == json.dumps(ref[1])
+    assert port[2] == ref[2]
+    snap = port[0]
+    counts = {sid: v["value"] for sid, v in snap.items()
+              if v["type"] == "counter"}
+    assert counts == {
+        'serving_admitted_total{service="svc"}': 6.0,
+        'serving_completed_total{service="svc"}': 4.0,
+        'serving_drained_total{service="svc"}': 1.0,
+        'serving_failed_total{service="svc"}': 1.0,
+        'serving_rejected_total{reason="capacity",service="svc"}': 1.0,
+        'serving_rejected_total{reason="draining",service="svc"}': 1.0,
+        'serving_shed_total{service="svc"}': 2.0,
+        "trace_spans_dropped_total": 0.0,
+    }
+    assert snap['serving_service_seconds{service="svc"}']["count"] == 4
+    assert snap['serving_queue_depth{peer="p0",service="svc"}'][
+        "value"] == 0.0
+    # close() unregisters the depth gauge; the counters stay.
+    assert not any(sid.startswith("serving_queue_depth") for sid in port[1])
+    assert [e["kind"] for e in port[2]] == ["serving_shed", "serving_shed",
+                                           "serving_drain"]
+
+
+def _serve_n(rep, n):
+    x = np.ones(3, np.float32)
+    futs = [rep.submit(x * i) for i in range(n)]
+    for i, f in enumerate(futs):
+        np.testing.assert_allclose(f.result(timeout=30), 2.0 * i)
+
+
+def test_replica_records_serving_series_and_replica_steps():
+    """Replica(rpc=None) on the CPU: every request admitted and completed,
+    batch rows and fill, the model version, and one {service}_replica
+    step (queue_wait, linger, infer) per served batch."""
+    tel = Telemetry("rep")
+    n = 7
+    rep = Replica(None, lambda _p, x: x * 2, None, service="echo",
+                  batch_size=4, linger_s=0.05, device="cpu", telemetry=tel,
+                  version=3)
+    try:
+        _serve_n(rep, n)
+        rep.set_model(None, version=5)
+    finally:
+        rep.close()  # joins the worker: every count is in
+    snap = tel.snapshot()
+
+    def value(name):
+        return snap[f'{name}{{service="echo"}}']["value"]
+
+    assert value("serving_admitted_total") == n
+    assert value("serving_completed_total") == n
+    assert value("serving_batch_rows_total") == n
+    assert value("serving_model_version") == 5
+    assert snap['serving_shed_total{service="echo"}']["value"] == 0
+    batches = value("serving_batches_total")
+    fill = snap['serving_batch_fill_fraction{service="echo"}']
+    assert fill["edges"] == [i / 8 for i in range(1, 9)]
+    assert fill["count"] == batches and 2 <= batches <= n
+    assert fill["sum"] * 4 == n  # rows over the batch size, exactly
+    ledger = summarize_stepscope(snap)["echo_replica"]
+    assert ledger["steps"] == batches
+    assert {"queue_wait", "linger", "infer"} <= set(ledger["phases"])
+    assert sum(ledger["phases"].values()) == pytest.approx(ledger["wall_s"],
+                                                           rel=1e-9)
+
+
+def test_replica_without_telemetry_records_into_the_global_registry():
+    reg = global_telemetry().registry
+    service = f"glob{time.monotonic_ns()}"
+    with Replica(None, lambda _p, x: x * 2, None, service=service,
+                 batch_size=2, device="cpu") as rep:
+        assert reg.value("serving_inflight", service=service) == 0.0
+        _serve_n(rep, 3)
+    assert reg.value("serving_completed_total", service=service) == 3
+    assert reg.value("serving_inflight", service=service) is None
+
+
+def test_replica_close_leaves_no_live_series_behind():
+    """close() unregisters every series that reads the replica (the
+    inflight and queue-depth callbacks, the replica loop's windowed
+    fraction gauges), as the reference's close() does; what stays is
+    cumulative (counters, histograms) and the last model version."""
+    tel = Telemetry("rep")
+    rep = Replica(None, lambda _p, x: x, None, service="gone",
+                  batch_size=2, device="cpu", telemetry=tel)
+    for f in [rep.submit(np.zeros(1, np.float32)) for _ in range(3)]:
+        f.result(timeout=30)
+    live = set(tel.snapshot())
+    assert 'serving_inflight{service="gone"}' in live
+    assert 'serving_queue_depth{service="gone"}' in live
+    rep.close()
+    left = tel.snapshot()
+    assert set(left) < live
+    for sid, series in left.items():
+        if series["type"] == "gauge":
+            assert sid == 'serving_model_version{service="gone"}', sid
+    assert {sid.split("{")[0] for sid in live - set(left)} == {
+        "serving_inflight", "serving_queue_depth",
+        "stepscope_exposed_comms_fraction", "stepscope_host_blocked_fraction",
+        "stepscope_env_wait_fraction", "stepscope_attributed_fraction",
+        "stepscope_ledger_overrun_fraction"}
