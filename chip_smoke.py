@@ -37,6 +37,26 @@ Phases, in order; any failure exits non-zero before the result line:
    second and the batch forward's CUDA-event time. The registry's
    Prometheus text parsed by the port's parse_prometheus into the
    values of snapshot().
+5b. Serve over the RPC: a child process (this script with --rpc-child)
+   holds two Rpc peers, replica-0 and replica-1, each with an act
+   Replica of phase 5's TransformerNet on the card, replica-0 also the
+   context Replica. This process's Rpc reaches them: 64 act batches'
+   worth of requests through a Router over both replicas, 32 context
+   batches' worth by direct call_with_deadline to replica-0, two waves
+   of 4 in flight, every reply held against phase 5's dense forward on
+   the CPU at SERVE_TOL; then 8 context batches again with this
+   process's sends pinned to the shm lane, and 8 with both peers on tcp
+   only; then publish_weights of a second seeded state_dict
+   (tensors on the wire) to every replica, after which the replies
+   follow the new weights and every .health reports version 2. The
+   child's flash forward launch count is reset before each run and
+   must be above 0 after it. Each replica peer's __telemetry (JSON
+   and Prometheus) must count every request it was sent as admitted
+   and completed; estimate_offset against replica-0; crawl_cohort over
+   both peers, each bundle validated. [rpc] lines: both native codecs'
+   paths, the lanes, and per service and transport the requests a
+   second, request median and p90, MB a request and MB/s beside phase
+   5's local numbers; the child exits 0 when its stdin closes.
 6. Train: 3 IMPALA/V-trace steps of the full-width TransformerNet on
    learn batches [T+1=21, B=32], held against the same steps with dense
    attention on the CPU; each step must launch the forward and the fused
@@ -76,17 +96,19 @@ Phases, in order; any failure exits non-zero before the result line:
    build/flightrec/; each must load and validate, record only MOOLIB,
    TORCH, PYTORCH, CUDA and NCCL environment keys, and (train and
    impala) carry a step_phases event of every scoped loop.
-10. The kernels line (with the ledgers and the bundles' summaries), the
-    card line, and the result line.
+10. The kernels line (with the ledgers, the bundles' summaries and the
+    RPC phase's readings; launches_by_path includes "rpc act" and "rpc
+    context", the child's launches), the card line, and the result line.
 
 Lines tagged [telemetry], [stepscope] and [flightrec] carry the
-observability checks and readings.
+observability checks and readings, [rpc] lines the RPC phase's.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -94,6 +116,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -787,11 +810,12 @@ def _check(name, got, want, shape):
     return float(np.abs(got - want).max())
 
 
-def _serve_steady(rep, reqs, order):
-    """Submit ``reqs[i]`` for ``i`` in ``order`` in waves of BATCH,
-    keeping two waves in flight so the replica always has a full batch
-    queued; returns (index, reply) pairs, each request's latency on the
-    host clock (submit to reply, ms) and the requests served a second."""
+def _serve_steady(submit, reqs, order):
+    """``submit(reqs[i])`` (a future) for ``i`` in ``order`` in waves
+    of BATCH, keeping two waves in flight so the replica always has a
+    full batch queued; returns (index, reply) pairs, each request's
+    latency on the host clock (submit to reply, ms) and the requests
+    served a second."""
     out, host_ms, in_flight = [], [], []
 
     def stamp(t0):
@@ -805,7 +829,7 @@ def _serve_steady(rep, reqs, order):
     for w in range(0, len(order), BATCH):
         wave = []
         for i in order[w:w + BATCH]:
-            fut = rep.submit(reqs[i])
+            fut = submit(reqs[i])
             fut.add_done_callback(stamp(time.perf_counter()))
             wave.append((i, fut))
         in_flight.append(wave)
@@ -843,23 +867,34 @@ STEADY_WAVES = {"act": 64, "context": 32}
 REPLICA_PHASES = ("queue_wait", "linger", "infer", "other")
 
 
-def phase_serve(tel):
-    from moolib_tpu_torch import Replica, TransformerNet, make_act_step
-    from moolib_tpu_torch.ops._kernels import FLASH_FWD, KERNELS
+def _serve_net(seed: int = 0):
+    """experiment.py's transformer at full width: d_model 128, 2 layers,
+    4 heads, mlp_ratio 4, max_len 2048, 6 actions, bf16 compute dtype,
+    the flash forward on attention(backend="auto"); weights from a
+    seeded generator on the card."""
+    from moolib_tpu_torch import TransformerNet
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    # experiment.py's transformer at full width: d_model 128, 2 layers,
-    # 4 heads, mlp_ratio 4, max_len 2048, 6 actions, bf16 compute dtype.
-    net = TransformerNet(6, (84, 84, 4), compute_dtype=torch.bfloat16,
-                         attention_backend="auto", device="cuda",
-                         generator=gen).eval()
-    # The reference for every reply: the same weights, plain dense
-    # attention, on the CPU (no kernel, no cuDNN).
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return TransformerNet(6, (84, 84, 4), compute_dtype=torch.bfloat16,
+                          attention_backend="auto", device="cuda",
+                          generator=gen).eval()
+
+
+def _dense_copy(state_dict):
+    """The reference for every reply: the same weights, plain dense
+    attention, on the CPU (no kernel, no cuDNN)."""
+    from moolib_tpu_torch import TransformerNet
+
     dense = TransformerNet(6, (84, 84, 4), compute_dtype=torch.bfloat16,
                            attention_backend="dense", device="cpu").eval()
-    dense.load_state_dict(net.state_dict())
-    rng = np.random.default_rng(0)
-    batch_ms = {"act": [], "context": []}
+    dense.load_state_dict(state_dict)
+    return dense
+
+
+def _service_fns(batch_ms):
+    """The act and context services' model functions; each batch
+    forward is timed by CUDA events into ``batch_ms[kind]``."""
+    from moolib_tpu_torch import make_act_step
 
     def timed(kind, fn):
         start = torch.cuda.Event(enable_timing=True)
@@ -894,33 +929,13 @@ def phase_serve(tel):
 
         return timed("context", run)
 
-    def dense_ref(kind, req):
-        """The dense-attention forward of one request on the CPU."""
-        obs = torch.from_numpy(req["obs"])
-        done = torch.from_numpy(req["done"])
-        with torch.no_grad():
-            if kind == "act":
-                (logits, _), _ = dense(obs[None], done[None], ())
-                return {"logits": logits[0].numpy()}
-            (logits, baseline), _ = dense(obs[:, None], done[:, None], ())
-            return {"logits": logits[:, 0].numpy(),
-                    "baseline": baseline[:, 0].numpy()}
+    return {"act": act_fn, "context": context_fn}
 
-    def reply_err(kind, out, ref):
-        """A reply's shape, finiteness and actions; its max error."""
-        if kind == "act":
-            a = np.asarray(out["action"])
-            if a.shape != (ACT_ENVS,) or not ((a >= 0) & (a < 6)).all():
-                raise RuntimeError(f"bad actions {a}")
-            return _check("act logits", out["logits"], ref["logits"],
-                          (ACT_ENVS, 6))
-        return max(_check("context logits", out["logits"], ref["logits"],
-                          (CONTEXT_T, 6)),
-                   _check("context baseline", out["baseline"],
-                          ref["baseline"], (CONTEXT_T,)))
 
-    # Act request r is step r of 32 envs; a context request is a window
-    # of one env. Resets follow EPISODE_LENGTH, each env at its phase.
+def _serve_requests():
+    """Act request r is step r of 32 envs; a context request is a window
+    of one env. Resets follow EPISODE_LENGTH, each env at its phase."""
+    rng = np.random.default_rng(0)
     act_phase = rng.integers(0, EPISODE_LENGTH, ACT_ENVS)
     act_reqs = [{"obs": rng.integers(0, 256, (ACT_ENVS, 84, 84, 4), np.uint8),
                  "done": (r + act_phase) % EPISODE_LENGTH == 0}
@@ -929,11 +944,50 @@ def phase_serve(tel):
                                      np.uint8),
                  "done": (np.arange(CONTEXT_T) + rng.integers(EPISODE_LENGTH))
                  % EPISODE_LENGTH == 0} for _ in range(6)]
+    return {"act": act_reqs, "context": ctx_reqs}
+
+
+def _dense_ref(dense, kind, req):
+    """The dense-attention forward of one request on the CPU."""
+    obs = torch.from_numpy(req["obs"])
+    done = torch.from_numpy(req["done"])
+    with torch.no_grad():
+        if kind == "act":
+            (logits, _), _ = dense(obs[None], done[None], ())
+            return {"logits": logits[0].numpy()}
+        (logits, baseline), _ = dense(obs[:, None], done[:, None], ())
+        return {"logits": logits[:, 0].numpy(),
+                "baseline": baseline[:, 0].numpy()}
+
+
+def _reply_err(kind, out, ref):
+    """A reply's shape, finiteness and actions; its max error."""
+    if kind == "act":
+        a = np.asarray(out["action"])
+        if a.shape != (ACT_ENVS,) or not ((a >= 0) & (a < 6)).all():
+            raise RuntimeError(f"bad actions {a}")
+        return _check("act logits", out["logits"], ref["logits"],
+                      (ACT_ENVS, 6))
+    return max(_check("context logits", out["logits"], ref["logits"],
+                      (CONTEXT_T, 6)),
+               _check("context baseline", out["baseline"],
+                      ref["baseline"], (CONTEXT_T,)))
+
+
+def phase_serve(tel):
+    from moolib_tpu_torch import Replica
+    from moolib_tpu_torch.ops._kernels import FLASH_FWD, KERNELS
+
+    net = _serve_net()
+    dense = _dense_copy(net.state_dict())
+    batch_ms = {"act": [], "context": []}
+    fns = _service_fns(batch_ms)
+    reqs_by_kind = _serve_requests()
+    served = {"refs": {}, "steady": {}}
     launches = {}
-    for kind, fn, reqs, waves in (
-        ("act", act_fn, act_reqs, [[0, 1, 2], [3, 4, 5, 6]]),
-        ("context", context_fn, ctx_reqs, [[0, 1], [2, 3, 4, 5]]),
-    ):
+    for kind, waves in (("act", [[0, 1, 2], [3, 4, 5, 6]]),
+                        ("context", [[0, 1], [2, 3, 4, 5]])):
+        fn, reqs = fns[kind], reqs_by_kind[kind]
         rep = Replica(None, fn, net, service=kind, batch_size=BATCH,
                       pad=True, linger_s=0.05, device="cuda", telemetry=tel)
         # Each served batch's ledger row, as the replica's worker hands
@@ -953,16 +1007,17 @@ def phase_serve(tel):
             launches[kind] = {kern.name: kern.launches for kern in KERNELS}
             # Hold every reply against the dense-attention forward on
             # the CPU.
-            refs = [dense_ref(kind, req) for req in reqs]
-            errs = [reply_err(kind, out, ref)
+            refs = [_dense_ref(dense, kind, req) for req in reqs]
+            served["refs"][kind] = refs
+            errs = [_reply_err(kind, out, ref)
                     for out, ref in zip(replies, refs)]
             # The requests above warm the replica (its first batch is
             # cold); the steady ledger counts from here.
             _settle(tel, kind, len(reqs))
             warm, n_warm = _replica_ledger(tel, kind), len(rows)
             n_cold_fwd = len(batch_ms[kind])
-            steady, steady_ms, rate = _serve_steady(rep, reqs, order)
-            steady_errs = [reply_err(kind, out, refs[i])
+            steady, steady_ms, rate = _serve_steady(rep.submit, reqs, order)
+            steady_errs = [_reply_err(kind, out, refs[i])
                            for i, out in steady]
         finally:
             rep.close()
@@ -991,8 +1046,11 @@ def phase_serve(tel):
             f"events) median {np.median(fwd):.3f} of {len(fwd)}")
         _serve_telemetry(tel, kind, len(reqs) + len(order), warm,
                          rows[:n_warm], rows[n_warm:])
+        served["steady"][kind] = dict(
+            rate=rate, median_ms=float(np.median(steady_ms)),
+            p90_ms=float(np.percentile(steady_ms, 90)))
     _check_prometheus(tel, "serve")
-    return launches
+    return launches, served
 
 
 def _serve_telemetry(tel, kind: str, sent: int, warm: dict, warm_rows,
@@ -1088,6 +1146,433 @@ def _check_prometheus(tel, tag: str) -> None:
     if bad:
         raise RuntimeError(f"{tag}: Prometheus text and snapshot differ: "
                            f"{bad}")
+
+
+# Phase 5b: the same services served from a child process to this one
+# over the port's RPC. STEADY batches of BATCH requests, two waves in
+# flight, as phase 5; LANE_BATCHES context batches again pinned to the shm
+# lane, and LANE_BATCHES with both peers on tcp only; V2_BATCHES per
+# service (cycling over V2_REQUESTS distinct requests) after publishing
+# the second weights.
+RPC_REPLICAS = ("replica-0", "replica-1")
+RPC_STEADY = {"act": 64, "context": 32}
+RPC_LANE_BATCHES = 8
+RPC_V2_BATCHES = {"act": 8, "context": 1}
+RPC_V2_REQUESTS = {"act": 7, "context": 2}  # distinct, checked on the CPU
+RPC_BUDGET_S = 300.0
+RPC_CHILD_FLAG = "--rpc-child"
+
+
+def rpc_child() -> int:
+    """The replica process of the RPC phase (``chip_smoke.py
+    --rpc-child``): two Rpc peers, each with an act Replica of the
+    full-width TransformerNet (phase 5's seed and params), replica-0
+    also with the context Replica, all on the card. replica-0 defines
+    ``chip_child(op)``, its one extra endpoint: the process's kernel
+    launch counts (``reset``, ``kernels``), its batch forwards' CUDA-event
+    times (``forward_ms``), ``tcp`` (both peers to tcp only) and ``info``
+    (its native codec, /dev/shm's free bytes). Prints one JSON line of
+    the peers' addresses, then serves until its stdin closes."""
+    from moolib_tpu_torch import Replica
+    from moolib_tpu_torch.native import native_path
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.rpc import Rpc
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the RPC phase's replicas need the card")
+    batch_ms = {"act": [], "context": []}
+    fns = _service_fns(batch_ms)
+    peers, reps = [], []
+    for name in RPC_REPLICAS:
+        rpc = Rpc(name)
+        rpc.set_timeout(RPC_BUDGET_S)
+        rpc.listen("127.0.0.1:0")
+        peers.append(rpc)
+        net = _serve_net()
+        for kind in (("act", "context") if name == RPC_REPLICAS[0]
+                     else ("act",)):
+            reps.append(Replica(rpc, fns[kind], net, service=kind,
+                                batch_size=BATCH, pad=True, linger_s=0.05,
+                                device="cuda"))
+
+    def control(op):
+        if op == "reset":
+            for kern in KERNELS:
+                kern.launches = 0
+            return None
+        if op == "kernels":
+            return {kern.name: kern.launches for kern in KERNELS}
+        if op == "forward_ms":
+            return {k: list(v) for k, v in batch_ms.items()}
+        if op == "tcp":
+            for rpc in peers:
+                rpc.set_transports({"tcp"})
+            return "tcp"
+        if op == "info":
+            st = os.statvfs("/dev/shm")
+            return {"native": native_path(),
+                    "shm_free_bytes": st.f_bavail * st.f_frsize}
+        raise ValueError(f"unknown op {op!r}")
+
+    peers[0].define("chip_child", control)
+    print(json.dumps({rpc.get_name(): rpc.debug_info()["listen"][0]
+                      for rpc in peers}), flush=True)
+    sys.stdin.read()  # until the parent closes the pipe (or exits)
+    for rep in reps:
+        rep.close()
+    for rpc in peers:
+        rpc.close()
+    return 0
+
+
+def _child_addresses(proc, timeout: float = 600.0) -> dict:
+    """The child's address line; raises if it dies or stays silent."""
+    got = {}
+    reader = threading.Thread(
+        target=lambda: got.setdefault("line", proc.stdout.readline()),
+        daemon=True)
+    reader.start()
+    reader.join(timeout)
+    if not got.get("line"):
+        raise RuntimeError(f"the RPC child printed no addresses within "
+                           f"{timeout} s (exit code {proc.poll()})")
+    return json.loads(got["line"])
+
+
+def _lane_bytes(rpc) -> dict:
+    reg = rpc.telemetry.registry
+    return {t: (reg.value("rpc_bytes_out_total", transport=t) or 0)
+            + (reg.value("rpc_bytes_in_total", transport=t) or 0)
+            for t in ("shm", "unix", "tcp")}
+
+
+def _wait_lanes(rpc, peers, timeout: float = 30.0) -> dict:
+    """The transports of ``rpc``'s connection to each peer, once every
+    lane that will mount has (shm mounts a moment after the greeting)."""
+    t_end = time.monotonic() + timeout
+    while True:
+        conns = {p: sorted(rpc.debug_info()["peers"].get(p, {}).get(
+            "connections", {})) for p in peers}
+        if all("shm" in c for c in conns.values()) or \
+                time.monotonic() > t_end:
+            return conns
+        time.sleep(0.05)
+
+
+def _remote_ledgers(client, peer: str, timeout: float = 30.0) -> dict:
+    """``peer``'s ``{service}_replica`` ledgers from its __telemetry, once
+    every served batch's step is recorded (the worker records it just
+    after the replies go out)."""
+    from moolib_tpu_torch.telemetry import summarize_stepscope
+
+    t_end = time.monotonic() + timeout
+    while True:
+        m = client.async_(peer, "__telemetry").result(
+            timeout=RPC_BUDGET_S)["metrics"]
+        kinds = [sid.split('"')[1] for sid in m
+                 if sid.startswith("serving_batches_total{")]
+        if all(m.get(f'stepscope_steps_total{{loop="{k}_replica"}}', {})
+               .get("value") == m[f'serving_batches_total{{service="{k}"}}']
+               ["value"] for k in kinds):
+            return summarize_stepscope(m)
+        if time.monotonic() > t_end:
+            raise RuntimeError(f"{peer}: replica steps not recorded")
+        time.sleep(0.01)
+
+
+@contextlib.contextmanager
+def _sends_pinned_to_shm():
+    """This process's sends pinned to a peer's shm lane where one is
+    mounted. The transport bandit otherwise picks the lane of the lowest
+    whole-call latency (queueing and cold batches included): a
+    measuring instrument for the lane, not the product's policy."""
+    from moolib_tpu_torch.rpc import rpc as rpc_mod
+
+    best = rpc_mod._best_conn
+    rpc_mod._best_conn = lambda peer: peer.conns.get("shm") or best(peer)
+    try:
+        yield
+    finally:
+        rpc_mod._best_conn = best
+
+
+def phase_rpc(served) -> dict:
+    """Phase 5b: the two services on the card behind the RPC, answered to
+    this process by the replica child (see :func:`rpc_child`)."""
+    from moolib_tpu_torch.flightrec import (crawl_cohort, estimate_offset,
+                                            validate_bundle)
+    from moolib_tpu_torch.native import native_path
+    from moolib_tpu_torch.ops._kernels import FLASH_FWD
+    from moolib_tpu_torch.rpc import Rpc
+    from moolib_tpu_torch.serving import Router
+    from moolib_tpu_torch.telemetry import parse_prometheus
+
+    if native_path() is None:
+        raise RuntimeError("the native codec did not load (g++ build)")
+    reqs = _serve_requests()
+    refs = served["refs"]
+    mb = {kind: sum(v.nbytes for v in reqs[kind][0].values()) / 1e6
+          for kind in reqs}
+    # The second version of the weights (publish_weights), and its
+    # references on the CPU.
+    net2 = _serve_net(seed=2)
+    dense2 = _dense_copy(net2.state_dict())
+    refs2 = {k: [_dense_ref(dense2, k, r)
+                 for r in reqs[k][:RPC_V2_REQUESTS[k]]] for k in reqs}
+    out = {"native": native_path(), "services": {}}
+    sent = {p: {"act": 0, "context": 0} for p in RPC_REPLICAS}
+    here = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"),
+         RPC_CHILD_FLAG], cwd=here, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, text=True)
+    client = tcp_client = router = None
+    try:
+        addrs = _child_addresses(child)
+        client = Rpc("chip-client")
+        client.set_timeout(RPC_BUDGET_S)
+        for addr in addrs.values():
+            client.connect(addr)
+
+        def ctl(op):
+            return client.async_(RPC_REPLICAS[0], "chip_child", op).result(
+                timeout=RPC_BUDGET_S)
+
+        info = ctl("info")
+        out["child"] = info
+        log(f"[rpc] native codec: here {out['native']} | child "
+            f"{info['native']} | /dev/shm free {info['shm_free_bytes']} B")
+        if info["native"] is None:
+            raise RuntimeError("the child's native codec did not load")
+        out["lanes"] = _wait_lanes(client, RPC_REPLICAS)
+        log(f"[rpc] lanes to the replicas: {out['lanes']}")
+        router = Router(client, list(RPC_REPLICAS), service="act",
+                        default_budget_s=RPC_BUDGET_S, probe_interval_s=0.05,
+                        seed=0)
+        t_end = time.monotonic() + 60
+        while len(router.routable()) < len(RPC_REPLICAS):
+            if time.monotonic() > t_end:
+                raise RuntimeError(f"replicas not routable: {router.stats()}")
+            time.sleep(0.05)
+
+        def direct(peer, kind):
+            def submit(req):
+                sent[peer][kind] += 1
+                return client.call_with_deadline(
+                    peer, f"{kind}.infer", RPC_BUDGET_S, req)
+            return submit
+
+        def check(kind, replies, want):
+            errs = [_reply_err(kind, r, want[i]) for i, r in replies]
+            if max(errs) > SERVE_TOL:
+                raise RuntimeError(f"rpc {kind} replies differ from the CPU "
+                                   f"forward by {max(errs):.3e} > "
+                                   f"{SERVE_TOL}")
+            return max(errs)
+
+        def run(tag, kind, submit, n_batches, want, rpc):
+            """Serve n_batches over the RPC with the counts reset just
+            before and read just after; every reply checked."""
+            order = [j % len(want) for j in range(n_batches * BATCH)]
+            lanes0, fwd0 = _lane_bytes(rpc), len(ctl("forward_ms")[kind])
+            ctl("reset")
+            replies, host_ms, rate = _serve_steady(submit, reqs[kind], order)
+            counts = ctl("kernels")
+            err = check(kind, replies, want)
+            lanes = {t: b - lanes0[t] for t, b in _lane_bytes(rpc).items()}
+            fwd = ctl("forward_ms")[kind][fwd0:]
+            row = dict(requests=len(order), rate=rate,
+                       median_ms=float(np.median(host_ms)),
+                       p90_ms=float(np.percentile(host_ms, 90)),
+                       mb_request=mb[kind], mb_per_s=rate * mb[kind],
+                       lane_mb={t: b / 1e6 for t, b in lanes.items()},
+                       lane=max(lanes, key=lanes.get),
+                       forward_median_ms=float(np.median(fwd)),
+                       max_abs_err=err, launches=counts)
+            local = served["steady"][kind]
+            log(f"[rpc] {tag}: {row['requests']} requests over "
+                f"{row['lane']} (MB each lane carried "
+                f"{ {t: round(v, 1) for t, v in row['lane_mb'].items()} }) |"
+                f" {rate:.3f} requests/s | request ms median "
+                f"{row['median_ms']:.3f}, p90 {row['p90_ms']:.3f} | "
+                f"{mb[kind]:.3f} MB a request, {row['mb_per_s']:.1f} MB/s |"
+                f" batch forward ms (CUDA events, child) median "
+                f"{row['forward_median_ms']:.3f} | phase 5 local: "
+                f"{local['rate']:.3f} requests/s, median "
+                f"{local['median_ms']:.3f}, p90 {local['p90_ms']:.3f} | "
+                f"max|reply-dense on CPU| {err:.3e} | launches {counts}")
+            if counts[FLASH_FWD.name] == 0:
+                raise RuntimeError(f"{FLASH_FWD.name} was never launched "
+                                   f"in the child by {tag}")
+            out["services"][tag] = row
+            return row
+
+        # Warm every replica (its first batch is cold), each reply held
+        # against the CPU.
+        for peer in RPC_REPLICAS:
+            kinds = ("act", "context") if peer == RPC_REPLICAS[0] \
+                else ("act",)
+            for kind in kinds:
+                n = len(reqs[kind])
+                got, _, _ = _serve_steady(direct(peer, kind), reqs[kind],
+                                       list(range(n)))
+                check(kind, got, refs[kind])
+        log("[rpc] warmed: act on both replicas, context on "
+            f"{RPC_REPLICAS[0]}")
+        warm = {p: _remote_ledgers(client, p) for p in RPC_REPLICAS}
+
+        def routed(req):
+            return router.infer_async(req, budget_s=RPC_BUDGET_S)
+
+        act = run("act (Router, 2 replicas)", "act", routed,
+                  RPC_STEADY["act"], refs["act"], client)
+        ctx = run("context (direct calls)", "context",
+                  direct(RPC_REPLICAS[0], "context"), RPC_STEADY["context"],
+                  refs["context"], client)
+        # The context service again, pinned to the shm lane, then with
+        # both peers on tcp only.
+        with _sends_pinned_to_shm():
+            shm = run("context pinned to shm", "context",
+                      direct(RPC_REPLICAS[0], "context"), RPC_LANE_BATCHES,
+                      refs["context"], client)
+        if shm["lane"] != "shm":
+            raise RuntimeError(f"the shm-pinned run rode {shm['lane']}")
+        ctl("tcp")
+        tcp_client = Rpc("chip-client-tcp")
+        tcp_client.set_transports({"tcp"})
+        tcp_client.set_timeout(RPC_BUDGET_S)
+        tcp_client.connect(addrs[RPC_REPLICAS[0]])
+        tcp_client.async_(RPC_REPLICAS[0], "context.health").result(
+            timeout=RPC_BUDGET_S)
+        conns = sorted(tcp_client.debug_info()["peers"][RPC_REPLICAS[0]][
+            "connections"])
+        if conns != ["tcp"]:
+            raise RuntimeError(f"the tcp-only client has lanes {conns}")
+
+        def tcp_submit(req):
+            sent[RPC_REPLICAS[0]]["context"] += 1
+            return tcp_client.call_with_deadline(
+                RPC_REPLICAS[0], "context.infer", RPC_BUDGET_S, req)
+
+        tcp = run("context over tcp only", "context", tcp_submit,
+                  RPC_LANE_BATCHES, refs["context"], tcp_client)
+        if tcp["lane"] != "tcp":
+            raise RuntimeError(f"tcp run rode {tcp['lane']}")
+
+        # Weights over the wire: version 2's state_dict travels as
+        # tensors, to both act replicas through the router and to the
+        # context replica through a router of its own.
+        state2 = dict(net2.state_dict())
+        acks = router.publish_weights(state2, version=2,
+                                      timeout_s=RPC_BUDGET_S)
+        ctx_router = Router(client, [RPC_REPLICAS[0]], service="context",
+                            probe_interval_s=0.05, seed=0)
+        try:
+            acks.update({f"{p} context": ok for p, ok in
+                         ctx_router.publish_weights(
+                             state2, version=2,
+                             timeout_s=RPC_BUDGET_S).items()})
+        finally:
+            ctx_router.close()
+        if not all(acks.values()):
+            raise RuntimeError(f"publish_weights failed: {acks}")
+        health = {f"{p} {k}": client.async_(p, f"{k}.health").result(
+            timeout=RPC_BUDGET_S)["model_version"]
+            for p in RPC_REPLICAS for k in ("act", "context")
+            if k == "act" or p == RPC_REPLICAS[0]}
+        if set(health.values()) != {2}:
+            raise RuntimeError(f"health after publish: {health}")
+        v2 = {kind: run(f"{kind} on version 2", kind,
+                        routed if kind == "act"
+                        else direct(RPC_REPLICAS[0], "context"),
+                        RPC_V2_BATCHES[kind], refs2[kind], client)
+              for kind in ("act", "context")}
+        log(f"[rpc] publish_weights v2: acks {acks} | health model_version "
+            f"{health} | max|reply-dense v2 on CPU| "
+            f"{max(r['max_abs_err'] for r in v2.values()):.3e}")
+
+        # Observability over the wire.
+        creg = client.telemetry.registry
+        for peer in RPC_REPLICAS:
+            sent[peer]["act"] += int(creg.value(
+                "serving_dispatch_total", service="act", replica=peer) or 0)
+        retried = creg.value("serving_retried_total", service="act") or 0
+        out["telemetry"] = {}
+        for peer in RPC_REPLICAS:
+            js = client.async_(peer, "__telemetry").result(
+                timeout=RPC_BUDGET_S)
+            prom = parse_prometheus(client.async_(
+                peer, "__telemetry", fmt="prometheus").result(
+                    timeout=RPC_BUDGET_S))
+            ledgers = _remote_ledgers(client, peer)
+            for kind, n in sent[peer].items():
+                if not n:
+                    continue
+                sid = {n2: f'serving_{n2}_total{{service="{kind}"}}'
+                       for n2 in ("admitted", "completed")}
+                vals = [js["metrics"][sid["admitted"]]["value"],
+                        js["metrics"][sid["completed"]]["value"],
+                        prom[sid["admitted"]], prom[sid["completed"]]]
+                led = ledgers[f"{kind}_replica"]
+                w = warm[peer][f"{kind}_replica"]
+                steady = dict(
+                    steps=led["steps"] - w["steps"],
+                    wall_s=led["wall_s"] - w["wall_s"],
+                    phases={ph: v - w["phases"].get(ph, 0.0)
+                            for ph, v in led["phases"].items()})
+                log(f"[stepscope] rpc {peer} {kind}_replica since the "
+                    f"warm-up: {steady['steps']} steps, wall "
+                    f"{1e3 * steady['wall_s']:.3f} ms | " + ", ".join(
+                        f"{ph} {1e3 * v:.3f} ms ({v / steady['wall_s']:.3f})"
+                        for ph, v in sorted(steady["phases"].items()))
+                    + f" | warm-up {w['steps']} steps, wall "
+                    f"{1e3 * w['wall_s']:.3f} ms")
+                log(f"[telemetry] rpc {peer} {kind}: sent {n} | admitted, "
+                    f"completed (JSON, Prometheus) {vals} | router retries "
+                    f"{retried}")
+                if retried or vals != [n] * 4:
+                    raise RuntimeError(f"{peer} {kind}: serving counters "
+                                       f"{vals} != requests sent {n}")
+                out["telemetry"][f"{peer} {kind}"] = dict(
+                    sent=n, ledger=led, steady=steady)
+        offset, rtt = estimate_offset(client, RPC_REPLICAS[0])
+        out["offset_us"], out["rtt_us"] = offset, rtt
+
+        def scrape(peer):
+            reply = client.async_(peer, "__flightrec").result(
+                timeout=RPC_BUDGET_S)
+            return validate_bundle(reply["bundle"]), reply["peers"]
+
+        bundles, failed = crawl_cohort(client, [], scrape)
+        out["crawl"] = {p: len(b["events"]) for p, b in bundles.items()}
+        log(f"[flightrec] rpc: estimate_offset({RPC_REPLICAS[0]}) "
+            f"{offset} us (rtt {rtt} us) | crawl_cohort: "
+            f"{sorted(bundles)} validated ({out['crawl']} events), "
+            f"failed {failed}")
+        if failed or not set(RPC_REPLICAS) <= set(bundles):
+            raise RuntimeError(f"crawl_cohort: got {sorted(bundles)}, "
+                               f"failed {failed}")
+        out["launches"] = {
+            "rpc act": {k: act["launches"][k] + v2["act"]["launches"][k]
+                        for k in act["launches"]},
+            "rpc context": {k: ctx["launches"][k] + shm["launches"][k]
+                            + tcp["launches"][k]
+                            + v2["context"]["launches"][k]
+                            for k in ctx["launches"]}}
+    finally:
+        for peer_rpc in (router, tcp_client, client):
+            if peer_rpc is not None:
+                peer_rpc.close()
+        child.stdin.close()
+        try:
+            code = child.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait(timeout=30)
+            raise RuntimeError("the RPC child did not exit") from None
+    if code != 0:
+        raise RuntimeError(f"the RPC child exited with code {code}")
+    return out
 
 
 def _learn_batches(gen: torch.Generator, n: int):
@@ -2010,7 +2495,8 @@ def main() -> int:
     fwd_results, fwd_timings = phase_kernel_vs_plain()
     bwd_results, bwd_timings = phase_backward_vs_plain()
     tels = {kind: _telemetry(kind) for kind in ("serve", "train", "impala")}
-    serve_launches = phase_serve(tels["serve"])
+    serve_launches, served = phase_serve(tels["serve"])
+    rpc = phase_rpc(served)
     train = phase_train(tels["train"])
     context_backward = phase_context_backward()
     for kern in KERNELS:
@@ -2024,7 +2510,8 @@ def main() -> int:
 
     launches_by_path = {
         path: counts for path, counts in
-        [*serve_launches.items(), ("train", train["launches"]),
+        [*serve_launches.items(), *rpc["launches"].items(),
+         ("train", train["launches"]),
          ("context backward", context_backward),
          ("impala", impala_launches)]
     }
@@ -2095,7 +2582,9 @@ def main() -> int:
                                 ("step_ms", "step_host_ms", "breakdown",
                                  "grad_err", "tf32_grad_err", "param_err",
                                  "split_err", "ledgers")},
-                      "impala": impala, "bundles": bundles}), flush=True)
+                      "impala": impala, "bundles": bundles,
+                      "rpc": {k: rpc[k] for k in rpc if k != "launches"}}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -2104,4 +2593,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [RPC_CHILD_FLAG]:
+        sys.exit(rpc_child())
     sys.exit(main())

@@ -18,7 +18,11 @@ reference each ported part is tested against. The slices so far:
 - the observability plane: the metrics registry, trace spans,
   ``StepScope`` phase ledgers (the learner factories' ``stepscope=``,
   the replica's ``{service}_replica`` loop), the flight recorder and
-  incident bundles, and the serving tier's ``serving_*`` series.
+  incident bundles, and the serving tier's ``serving_*`` series;
+- the RPC core (``Rpc``, its wire codec and native extension, the
+  tcp/unix/shm transports, the ``Broker``), wire-compatible with the
+  reference's, and the serving tier on it: ``Replica(rpc, ...)``, health
+  gating and the ``Router``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -47,12 +51,15 @@ from .models import (
 )
 from .ops import attention, stage_batch, vtrace
 from .optim import ClippedAdam, ClippedRMSprop, global_norm
+from .rpc import Broker, Future, Queue, Rpc, RpcDeferredReturn, RpcError
 from .serving import (
     AdmissionQueue,
+    CircuitBreaker,
     DeadlineExceeded,
     Overloaded,
     Replica,
-    RpcError,
+    ReplicaHealth,
+    Router,
     ServingError,
     error_kind,
 )
@@ -61,15 +68,23 @@ from .utils import nest, resolve_device, set_log_level, set_logging
 
 __all__ = [
     "AdmissionQueue",
+    "Broker",
+    "CircuitBreaker",
     "ClippedAdam",
     "ClippedRMSprop",
     "DeadlineExceeded",
     "FlightRecorder",
+    "Future",
     "ImpalaConfig",
     "ImpalaNet",
     "LSTMCore",
     "Overloaded",
+    "Queue",
     "Replica",
+    "ReplicaHealth",
+    "Router",
+    "Rpc",
+    "RpcDeferredReturn",
     "RpcError",
     "ServingError",
     "Telemetry",
@@ -80,6 +95,7 @@ __all__ = [
     "create_uid",
     "enable_auto_capture",
     "error_kind",
+    "get_max_threads",
     "global_norm",
     "global_telemetry",
     "impala_loss",
@@ -94,6 +110,7 @@ __all__ = [
     "resolve_device",
     "set_log_level",
     "set_logging",
+    "set_max_threads",
     "space_to_depth",
     "stage_batch",
     "transformer_params_from_flax",
@@ -105,3 +122,20 @@ __all__ = [
 def create_uid() -> str:
     """Random unique peer-name suffix (the reference's ``create_uid``)."""
     return secrets.token_hex(16)
+
+
+_max_threads: int | None = None
+
+
+def set_max_threads(n: int) -> None:
+    """Cap the worker threads of the host runtime: each ``Rpc`` created
+    afterwards sizes its handler executor from it (the reference's
+    ``set_max_threads``)."""
+    global _max_threads
+    if n <= 0:
+        raise ValueError("set_max_threads requires n >= 1")
+    _max_threads = n
+
+
+def get_max_threads() -> int | None:
+    return _max_threads

@@ -14,9 +14,8 @@ counterpart of :mod:`moolib_tpu.flightrec`.
 - :mod:`~moolib_tpu_torch.flightrec.merge` — merges bundles of several
   peers into one clock-aligned, causally-ordered timeline (JSONL and
   Chrome trace).
-
-The cohort crawl (``crawl_cohort``) needs the RPC layer and is not
-ported yet.
+- :mod:`~moolib_tpu_torch.flightrec.crawl` — reaches every peer of a
+  cohort over the RPC from one address.
 """
 
 from .events import KINDS, check_event_fields
@@ -38,6 +37,7 @@ from .capture import (
     maybe_capture,
     recent_captures,
 )
+from .crawl import crawl_cohort
 from .merge import (
     estimate_offset,
     merge_bundles,
@@ -62,6 +62,7 @@ __all__ = [
     "disable_auto_capture",
     "auto_capture_dir",
     "recent_captures",
+    "crawl_cohort",
     "estimate_offset",
     "merge_bundles",
     "timeline_to_chrome",

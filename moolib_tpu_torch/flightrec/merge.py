@@ -5,8 +5,9 @@ counterpart of :mod:`moolib_tpu.flightrec.merge`.
    relative to this process is estimated NTP-style over its
    ``__flightrec`` ``op="time"`` endpoint: sample ``t0 -> server_time ->
    t1`` a few times, keep the minimum-RTT sample, and take ``offset =
-   server_time - (t0 + t1) / 2``. ``rpc`` is duck-typed (anything with
-   ``sync(peer, endpoint, **kwargs)``) until the RPC layer is ported.
+   server_time - (t0 + t1) / 2``. ``rpc`` is a
+   :class:`~moolib_tpu_torch.rpc.Rpc` (or anything with
+   ``sync(peer, endpoint, **kwargs)``).
 2. **Merge** (:func:`merge_bundles`): every event/span timestamp is
    mapped into the local clock (``ts - offset``) and the whole set is
    sorted into one sequence.

@@ -1,0 +1,26 @@
+"""The RPC core of the port: named peers, the wire codec, the transports
+(tcp, unix, the same-host shm lane) and the broker; the counterpart of
+:mod:`moolib_tpu.rpc`, wire-compatible with it. ``Group`` and
+``AllReduce`` are not ported yet."""
+
+from .rpc import Future, Queue, Rpc, RpcDeferredReturn, RpcError
+
+__all__ = [
+    "Future",
+    "Queue",
+    "Rpc",
+    "RpcDeferredReturn",
+    "RpcError",
+    "Broker",
+]
+
+
+def __getattr__(name):
+    # The Broker lives in its own module (built on Rpc).
+    if name == "Broker":
+        from .broker import Broker
+
+        return Broker
+    raise AttributeError(
+        f"module 'moolib_tpu_torch.rpc' has no attribute {name!r}"
+    )

@@ -1,0 +1,793 @@
+"""Same-host shared-memory ring transport — the zero-copy lane; the
+counterpart of :mod:`moolib_tpu.rpc.shmring`, with the same segment
+layout, so a port peer and a reference peer on one host share a lane.
+
+The reference moolib ships POSIX shared-memory and fd-passing transports
+with automatic per-peer selection (reference: src/transports/ipc.cc,
+SharedBufferHandle send path); this module is the Python-native
+equivalent for the asyncio port: a pair of single-producer/
+single-consumer byte rings in ONE shared-memory segment per peer pair,
+named-pipe doorbell wakeups, and large-frame spill slots so a multi-MB
+tensor body is written once by the sender and mapped (not copied) by the
+receiver, instead of crossing the loopback socket's kernel copies.
+
+Segment layout (one sparse file under ``/dev/shm``, created by the
+greeting winner — see ``rpc.py``'s rendezvous — and unlinked by it the
+moment the lane mounts (unlink-after-mount: both sides already hold
+their fds + mapping, so a SIGKILL of either process cannot leak
+``/dev/shm`` entries; close-time unlink remains for never-mounted
+lanes))::
+
+    header (64B): u32 magic | u32 version | u64 ring_bytes
+                  | u64 slot_bytes | u32 n_slots
+    2 direction blocks (0 = creator->attacher, 1 = attacher->creator):
+        head  u64  (consumer-advanced)   [own 64B line]
+        tail  u64  (producer-advanced)   [own 64B line]
+        slot states: n_slots x u64 (0 free / 1 busy), padded to 64
+        ring data: ring_bytes
+        spill slots: n_slots x slot_bytes, each 64-byte aligned
+
+``head``/``tail`` are monotonically increasing byte counters (offset =
+counter % ring_bytes); each side writes only its own counter, so the
+rings are lock-free SPSC — there is NO shared Python lock in this module. Records in the ring are
+contiguous (never wrapped): a record that would straddle the end writes
+a ``0xFFFFFFFF`` skip marker and restarts at offset 0.
+
+Record format: ``u32 payload_len | u8 kind | payload``.
+
+====  ============  =====================================================
+kind  name          payload
+====  ============  =====================================================
+0     INLINE        the whole wire frame (header + body), copied through
+                    the ring — small messages (control traffic, acks)
+1     SPILL         ``u32 slot | u64 nbytes``: the frame was written once
+                    into spill slot ``slot``; the receiver maps it
+                    zero-copy and frees the slot when the last decoded
+                    view dies (a ``weakref.finalize`` on the mapping
+                    view — the Python analogue of the reference's
+                    refcounted SharedBufferHandle)
+2     CHUNK_START   ``u64 total``: a frame too big for any free spill
+                    slot streams through the ring in pieces
+3     CHUNK_CONT    the next piece of the CHUNK_START frame
+====  ============  =====================================================
+
+Doorbells are named pipes (``<segment>.db0``/``.db1``): the consumer of
+each direction holds its FIFO open ``O_RDWR`` (so the pipe never EOFs)
+and registers the fd with its asyncio loop (``loop.add_reader``); the
+producer writes one byte after publishing. Doorbell loss and segment
+death are detected by the RPC core's existing keepalive machinery — the
+lane is an ordinary connection there, so 4 silent keepalive intervals
+tear it down and in-flight calls re-route to TCP.
+
+Producer-side backpressure: when the ring is full (or every spill slot
+is busy), frames queue in a pending list, the lane's ``_can_write``
+event clears (the RPC write path's flow-control seam), and a 1 ms loop
+timer drains as the consumer frees space — the producer never blocks
+the IO loop and never drops a frame.
+
+Failure containment: any structural error (bad magic, truncated record,
+impossible geometry) marks the lane down via the ``on_down`` callback;
+the RPC core translates that into a connection drop, which re-routes
+in-flight calls over TCP — a broken shm lane degrades, it never errors
+the call.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import errno
+import os
+import secrets
+import struct
+import weakref
+from typing import Any, Callable, List, Optional
+
+import numpy as np
+
+from ..utils import get_logger
+from . import serial
+
+log = get_logger("shmring")
+
+__all__ = ["ShmLane", "shm_supported", "SHM_DIR", "SEGMENT_PREFIX"]
+
+SHM_DIR = "/dev/shm"
+#: The port's segment names; the reference's are ``moolib-tpu-shm-*``.
+#: The name travels in the offer, so either side may create the lane.
+SEGMENT_PREFIX = "moolib-tpu-torch-shm-"
+
+_MAGIC = 0x4D53484D  # "MSHM"
+_VERSION = 1
+_HDR = struct.Struct("<IIQQI")
+_HDR_BLOCK = 64
+_U64 = struct.Struct("<Q")
+_U32 = struct.Struct("<I")
+_REC = struct.Struct("<IB")          # payload_len, kind
+_SPILL_REF = struct.Struct("<IQ")    # slot index, nbytes
+_SKIP = 0xFFFFFFFF
+
+K_INLINE = 0
+K_SPILL = 1
+K_CHUNK_START = 2
+K_CHUNK_CONT = 3
+
+_ALIGN = 64
+
+#: Frames at or under this ride the ring inline (two small copies);
+#: bigger ones go to a spill slot (one write, zero-copy read).
+INLINE_MAX = 128 * 1024
+
+# Frame placement offset, everywhere a whole wire frame is staged for
+# delivery (spill slot, inline/chunk staging buffer): the frame starts
+# HEADER.size short of a 64-byte boundary so the BODY — whose layout
+# 64-aligns every tensor's body offset (serial.py) — lands dtype-aligned
+# and ``_decode_tensor`` returns zero-copy views, never the copy
+# fallback. A frame at an aligned base would put the body at +12
+# (≡12 mod 64), silently defeating zero-copy for every dtype with
+# alignment > 4 (float64/int64/complex).
+_FRAME_PAD = (-serial.HEADER.size) % 64
+
+
+def _alloc_frame(nbytes: int) -> "np.ndarray":
+    """Staging buffer for a whole wire frame, placed so the body is
+    64-byte aligned (``_FRAME_PAD`` above); the slice keeps the aligned
+    base allocation alive."""
+    return serial.alloc_aligned(nbytes + _FRAME_PAD)[_FRAME_PAD:]
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _geometry():
+    """(ring_bytes, slot_bytes, n_slots) — env-tunable; the segment file
+    is sparse on tmpfs, so generous slot capacity costs address space,
+    not resident memory, until a payload actually touches it."""
+    ring = _env_int("MOOLIB_TPU_SHM_RING_MB", 4) << 20
+    slot = _env_int("MOOLIB_TPU_SHM_SLOT_MB", 48) << 20
+    slots = _env_int("MOOLIB_TPU_SHM_SLOTS", 8)
+    return max(ring, 64 * 1024), max(slot, 1 << 20), max(slots, 1)
+
+
+def shm_supported() -> bool:
+    """Whether this host can run the shm lane at all (Linux tmpfs +
+    named pipes). The ``MOOLIB_TPU_SHM`` policy gate lives in
+    ``rpc.py``; this is the capability check."""
+    return os.path.isdir(SHM_DIR) and hasattr(os, "mkfifo")
+
+
+def _align(n: int) -> int:
+    return (n + _ALIGN - 1) // _ALIGN * _ALIGN
+
+
+class _Geometry:
+    """Byte offsets of every region, derived from the header fields so
+    creator and attacher compute identical layouts."""
+
+    __slots__ = ("ring_bytes", "slot_bytes", "n_slots", "dirs", "total")
+
+    def __init__(self, ring_bytes: int, slot_bytes: int, n_slots: int):
+        self.ring_bytes = ring_bytes
+        self.slot_bytes = _align(slot_bytes)
+        self.n_slots = n_slots
+        per_dir = (
+            _HDR_BLOCK                      # head line
+            + _HDR_BLOCK                    # tail line
+            + _align(8 * n_slots)           # slot states
+            + _align(ring_bytes)            # ring data
+            + n_slots * self.slot_bytes     # spill slots
+        )
+        self.dirs = []
+        off = _HDR_BLOCK
+        for _ in range(2):
+            head = off
+            tail = head + _HDR_BLOCK
+            states = tail + _HDR_BLOCK
+            ring = states + _align(8 * n_slots)
+            slots = ring + _align(ring_bytes)
+            self.dirs.append(
+                {"head": head, "tail": tail, "states": states,
+                 "ring": ring, "slots": slots}
+            )
+            off += per_dir
+        self.total = off
+
+    def slot_off(self, direction: int, idx: int) -> int:
+        return self.dirs[direction]["slots"] + idx * self.slot_bytes
+
+
+def _cleanup(mm, fds: List[int], unlink_paths: List[str]) -> None:
+    """Shared teardown for ``close()`` and the GC finalizer: close fds,
+    unlink the creator's filesystem entries, release the mapping if no
+    decoded views still alias it. Runs at most once (weakref.finalize
+    semantics); must not reference the lane object."""
+    for fd in fds:
+        try:
+            os.close(fd)
+        except OSError:
+            pass
+    fds.clear()
+    for path in unlink_paths:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+    unlink_paths.clear()
+    if mm is not None:
+        try:
+            mm.close()
+        except (BufferError, ValueError):
+            # Decoded tensor views still alias the mapping: the mapping
+            # stays valid for them and is released when the last view
+            # dies (mmap.__del__) — the *name* is already unlinked, so
+            # nothing leaks in /dev/shm either way.
+            pass
+
+
+class ShmLane:
+    """One same-host peer-pair lane: the ``sock``- and ``proto``-shaped
+    object the RPC core mounts as a connection (``writelines`` /
+    ``close`` / ``is_closing`` / ``_can_write``), plus the receive side
+    (doorbell reader + ring drain) it starts on the owning Rpc's loop.
+
+    Create with :meth:`create` (the side that wins the rendezvous) or
+    :meth:`attach` (from the creator's offer payload). All send-path
+    state is touched only on the owning loop thread; the consumer's
+    spill-slot release runs from GC finalizers and writes only its own
+    slot's state word — no shared Python lock exists in this class.
+    """
+
+    def __init__(self, path: str, mm, geo: _Geometry, side: int,
+                 created: bool):
+        self.path = path
+        self._mm = mm
+        self._geo = geo
+        self._side = side          # 0 = creator, 1 = attacher
+        self._tx = geo.dirs[side]            # I produce here
+        self._rx = geo.dirs[1 - side]        # I consume here
+        self._created = created
+        self._closed = False
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._deliver: Optional[Callable] = None
+        self._down: Optional[Callable] = None
+        self._db_rfd = -1   # my doorbell (read side, held O_RDWR)
+        self._db_wfd = -1   # peer's doorbell (write side)
+        self._reader_on = False
+        # Producer state (loop thread only).
+        self._pending: List[List[Any]] = []
+        self._pending_bytes = 0
+        self._chunk_prog: Optional[list] = None  # remaining memoryviews
+        self._drain_timer = None
+        self._can_write = asyncio.Event()
+        self._can_write.set()
+        # Slot allocation order, most-recently-used first: tmpfs pages
+        # fault in on FIRST touch (~7 ms per 4 MB on the CI container vs
+        # ~0.35 ms warm), so reusing the warmest free slot — not the
+        # lowest index — is a 20x difference on the spill hot path.
+        self._slot_mru: List[int] = list(range(geo.n_slots))
+        # Optional slot-pressure callback (the Rpc mounts its response-
+        # cache eviction here), fired from the RECEIVE side: when my rx
+        # direction runs dry it is MY long-lived decoded views (cached
+        # replies above all) starving the PEER's allocator, and only
+        # this process can shed them (refcount -> view finalizer ->
+        # state word). Tx-slot exhaustion has no local remedy and falls
+        # straight to the chunked path (_alloc_slot).
+        self._reclaim: Optional[Callable[[], None]] = None
+        self._rx_pressure = False  # dry-episode edge detector
+
+        # Consumer chunk-reassembly state (loop thread only).
+        self._rx_chunk: Optional[tuple] = None  # (buf, filled)
+        # GC backstop: an abandoned lane (dropped without close()) still
+        # closes its fds and unlinks its files — same discipline as the
+        # envpool supervisor's weakref pattern, so a leaked Rpc can never
+        # leak /dev/shm entries. close() calls the same finalizer.
+        self._fds: List[int] = []
+        self._unlink: List[str] = (
+            [path, path + ".db0", path + ".db1"] if created else []
+        )
+        self._finalizer = weakref.finalize(  # lifelint: intentional -- documented /dev/shm leak backstop: lock-free close+unlink, runs at most once, close() invokes the same finalizer
+            self, _cleanup, mm, self._fds, self._unlink
+        )
+
+    # -- construction --------------------------------------------------------
+
+    #: proto-shaped alias: the RPC write path reads ``conn.proto._can_write``.
+    @property
+    def proto(self) -> "ShmLane":
+        return self
+
+    @classmethod
+    def create(cls, token: Optional[str] = None) -> "ShmLane":
+        """Create the segment + both doorbell FIFOs; returns the creator
+        side (direction 0 producer). The creator owns the filesystem
+        entries and unlinks them on close."""
+        ring, slot, slots = _geometry()
+        geo = _Geometry(ring, slot, slots)
+        # The segment is sparse: a tmpfs too small for all of it accepts
+        # the ftruncate and then kills the process with SIGBUS on the
+        # first write past its capacity. Refuse up front instead; the
+        # rendezvous then stays on the socket lane.
+        st = os.statvfs(SHM_DIR)
+        if st.f_bavail * st.f_frsize < geo.total:
+            raise OSError(
+                errno.ENOSPC, f"{SHM_DIR} has {st.f_bavail * st.f_frsize} "
+                f"bytes free, a lane needs {geo.total}")
+        token = token or secrets.token_hex(8)
+        path = os.path.join(SHM_DIR, f"{SEGMENT_PREFIX}{token}")
+        fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_RDWR, 0o600)
+        try:
+            os.ftruncate(fd, geo.total)
+            import mmap as _mmap
+
+            mm = _mmap.mmap(fd, geo.total)
+        finally:
+            os.close(fd)
+        _HDR.pack_into(mm, 0, _MAGIC, _VERSION, geo.ring_bytes,
+                       geo.slot_bytes, geo.n_slots)
+        os.mkfifo(path + ".db0", 0o600)
+        os.mkfifo(path + ".db1", 0o600)
+        lane = cls(path, mm, geo, side=0, created=True)
+        # Hold my doorbell open O_RDWR from birth so the peer's write
+        # end never sees ENXIO and the pipe never EOFs.
+        lane._db_rfd = os.open(path + ".db1", os.O_RDWR | os.O_NONBLOCK)
+        lane._fds.append(lane._db_rfd)
+        return lane
+
+    def offer_payload(self) -> dict:
+        """The rendezvous message body the creator sends over the
+        already-established socket lane."""
+        return {
+            "path": self.path,
+            "ring_bytes": self._geo.ring_bytes,
+            "slot_bytes": self._geo.slot_bytes,
+            "n_slots": self._geo.n_slots,
+        }
+
+    @classmethod
+    def attach(cls, offer: dict) -> "ShmLane":
+        """Attach to a creator's segment from its offer payload; returns
+        the attacher side (direction 1 producer). Raises ``OSError`` /
+        ``ValueError`` on a missing or malformed segment — the caller
+        replies a refusal and both sides stay on TCP."""
+        path = str(offer["path"])
+        if os.path.dirname(path) != SHM_DIR:
+            raise ValueError(f"shm segment outside {SHM_DIR}: {path!r}")
+        fd = os.open(path, os.O_RDWR)
+        try:
+            size = os.fstat(fd).st_size
+            import mmap as _mmap
+
+            mm = _mmap.mmap(fd, size)
+        finally:
+            os.close(fd)
+        magic, version, ring, slot, slots = _HDR.unpack_from(mm, 0)
+        if magic != _MAGIC or version != _VERSION:
+            mm.close()
+            raise ValueError("shm segment magic/version mismatch")
+        geo = _Geometry(ring, slot, slots)
+        if geo.total > size:
+            mm.close()
+            raise ValueError("shm segment smaller than its geometry")
+        lane = cls(path, mm, geo, side=1, created=False)
+        lane._db_rfd = os.open(path + ".db0", os.O_RDWR | os.O_NONBLOCK)
+        lane._fds.append(lane._db_rfd)
+        lane._db_wfd = os.open(path + ".db1",
+                               os.O_WRONLY | os.O_NONBLOCK)
+        lane._fds.append(lane._db_wfd)
+        return lane
+
+    def open_tx(self) -> None:
+        """Creator side: open the attacher's doorbell for writing (the
+        attacher's read end is guaranteed open once its accept arrives)."""
+        if self._db_wfd < 0:
+            self._db_wfd = os.open(self.path + ".db0",
+                                   os.O_WRONLY | os.O_NONBLOCK)
+            self._fds.append(self._db_wfd)
+
+    def unlink_now(self) -> None:
+        """Creator side, once BOTH peers hold their fds + mapping (the
+        attacher opened everything in :meth:`attach`, the creator's tx
+        doorbell in :meth:`open_tx`): drop the filesystem names NOW —
+        the unlink-after-mount POSIX idiom. tmpfs pages live until the
+        mappings close, so the lane keeps working, but a SIGKILL of
+        either process can no longer leak /dev/shm entries for the
+        lane's whole mounted lifetime (close-time unlink remains only
+        as the fallback for never-mounted lanes). Mutates the list the
+        GC finalizer shares in place."""
+        while self._unlink:
+            p = self._unlink.pop()
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+
+    def start(self, loop: asyncio.AbstractEventLoop,
+              deliver: Callable[[memoryview], None],
+              down: Callable[[str], None]) -> None:
+        """Mount the receive side on ``loop`` (the owning Rpc's IO loop):
+        ``deliver(wire_view)`` is called per received frame on the loop
+        thread; ``down(why)`` on any structural lane failure."""
+        self._loop = loop
+        self._deliver = deliver
+        self._down = down
+        loop.add_reader(self._db_rfd, self._on_doorbell)
+        self._reader_on = True
+
+    # -- sock-shaped surface (send path, loop thread only) -------------------
+
+    def is_closing(self) -> bool:
+        return self._closed
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        if self._reader_on and self._loop is not None:
+            try:
+                self._loop.remove_reader(self._db_rfd)
+            except (RuntimeError, ValueError, OSError):
+                pass  # loop already closed: reader died with it
+            self._reader_on = False
+        if self._drain_timer is not None:
+            self._drain_timer.cancel()
+            self._drain_timer = None
+        self._pending.clear()
+        self._pending_bytes = 0
+        self._can_write.set()  # wake any writer awaiting flow control
+        self._finalizer()  # close fds, unlink (creator), release mapping
+
+    def writelines(self, frames: List[Any]) -> None:
+        """Publish one serialized message (the iovec list from
+        ``serial.serialize``). Never blocks: frames that do not fit are
+        queued and drained by timer as the consumer frees space; raises
+        ``ConnectionError`` only when the lane is closed (the RPC write
+        path translates that into a connection drop + TCP re-route)."""
+        if self._closed:
+            raise ConnectionError("shm lane is closed")
+        if self._pending or self._chunk_prog is not None:
+            self._queue(frames)
+            return
+        if not self._publish(frames):
+            self._queue(frames)
+        if self._closed:
+            # The publish path just detected peer death (doorbell write
+            # hit a reader-less pipe): the bytes are in a ring nobody
+            # will ever drain. Surface the failure NOW so the caller
+            # re-routes THIS message over a socket lane instead of
+            # reporting success on a dead transport.
+            raise ConnectionError("shm lane died during publish")
+
+    # -- producer internals --------------------------------------------------
+
+    def _queue(self, frames: List[Any]) -> None:
+        self._pending.append(frames)
+        self._pending_bytes += serial.frames_len(frames)
+        if self._pending_bytes > 8 << 20:
+            self._can_write.clear()  # engage RPC flow control
+        self._arm_drain()
+
+    def _arm_drain(self) -> None:
+        if self._drain_timer is None and not self._closed:
+            self._drain_timer = self._loop.call_later(
+                0.001, self._drain_pending
+            )
+
+    def _drain_pending(self) -> None:
+        self._drain_timer = None
+        if self._closed:
+            return
+        progressed = False
+        if self._chunk_prog is not None:
+            progressed = self._continue_chunks()
+        while self._chunk_prog is None and self._pending:
+            frames = self._pending[0]
+            if not self._publish(frames):
+                break
+            self._pending.pop(0)
+            self._pending_bytes -= serial.frames_len(frames)
+            progressed = True
+        if progressed:
+            self._ring_doorbell()
+        if self._pending or self._chunk_prog is not None:
+            self._arm_drain()
+        else:
+            self._pending_bytes = 0
+            self._can_write.set()
+
+    def _head(self, d) -> int:
+        return _U64.unpack_from(self._mm, d["head"])[0]
+
+    def _tail(self, d) -> int:
+        return _U64.unpack_from(self._mm, d["tail"])[0]
+
+    def _ring_free(self) -> int:
+        return self._geo.ring_bytes - (
+            self._tail(self._tx) - self._head(self._tx)
+        )
+
+    def _push_record(self, kind: int, parts: List[Any]) -> bool:
+        """Append one contiguous record to my ring; False when it does
+        not fit right now. ``parts`` are bytes-like pieces of the
+        payload (copied into the ring — the inline path's one copy)."""
+        plen = sum(len(p) for p in parts)
+        R = self._geo.ring_bytes
+        rec = _REC.size + plen
+        if rec > R // 2:
+            raise ValueError(f"record too large for ring: {plen}")
+        tail = self._tail(self._tx)
+        free = R - (tail - self._head(self._tx))
+        off = tail % R
+        cont = R - off
+        skip = 0
+        if cont < _REC.size:
+            skip = cont  # consumer auto-skips a sub-header remnant
+        elif cont < rec:
+            skip = cont  # marked skip below
+        if free < skip + rec:
+            return False
+        base = self._tx["ring"]
+        if skip:
+            if cont >= 4:
+                _U32.pack_into(self._mm, base + off, _SKIP)
+            tail += skip
+            off = 0
+        _REC.pack_into(self._mm, base + off, plen, kind)
+        pos = base + off + _REC.size
+        for p in parts:
+            n = len(p)
+            self._mm[pos:pos + n] = bytes(p) if not isinstance(
+                p, (bytes, bytearray, memoryview)
+            ) else p
+            pos += n
+        _U64.pack_into(self._mm, self._tx["tail"], tail + rec)
+        return True
+
+    def set_reclaim(self, cb: Optional[Callable[[], None]]) -> None:
+        """Install the slot-pressure callback (see ``_reclaim``)."""
+        self._reclaim = cb
+
+    def _alloc_slot(self) -> Optional[int]:
+        # TX slots are freed by the PEER's decoded-view finalizers
+        # writing the state word back to 0 — nothing this process can
+        # evict unpins them, so exhaustion falls straight to the chunked
+        # path. The cross-process pressure valve is the RECEIVE side:
+        # _drain_rx sheds our own pinners (the response cache) when our
+        # rx direction runs dry, unblocking the peer's allocator.
+        states = self._tx["states"]
+        for pos, i in enumerate(self._slot_mru):
+            if _U64.unpack_from(self._mm, states + 8 * i)[0] == 0:
+                _U64.pack_into(self._mm, states + 8 * i, 1)
+                if pos:  # move to front: warmest next time
+                    self._slot_mru.insert(0, self._slot_mru.pop(pos))
+                return i
+        return None
+
+    def _publish(self, frames: List[Any]) -> bool:
+        """Try to publish one message now; False = no space (caller
+        queues). The doorbell for direct (non-drain) publishes rings
+        here so writelines stays one call."""
+        total = serial.frames_len(frames)
+        # Inline only when the record also fits the ring's per-record
+        # invariant (rec <= R//2): an env-shrunk ring (64KB floor) can
+        # be smaller than INLINE_MAX, and _push_record's oversize guard
+        # raising through writelines would lose the message instead of
+        # falling through to the spill/chunk paths.
+        if (total <= INLINE_MAX
+                and _REC.size + total <= self._geo.ring_bytes // 2):
+            ok = self._push_record(K_INLINE, list(frames))
+            if ok:
+                self._ring_doorbell()
+            return ok
+        if total + _FRAME_PAD <= self._geo.slot_bytes:
+            slot = self._alloc_slot()
+            if slot is not None:
+                # Frame starts _FRAME_PAD into the slot: body 64-aligned
+                # on the receive side (zero-copy tensor views).
+                off = self._geo.slot_off(self._side, slot)
+                pos = off + _FRAME_PAD
+                for f in frames:
+                    n = len(f)
+                    self._mm[pos:pos + n] = f if isinstance(
+                        f, (bytes, bytearray, memoryview)
+                    ) else bytes(f)
+                    pos += n
+                if self._push_record(
+                    K_SPILL, [_SPILL_REF.pack(slot, total)]
+                ):
+                    self._ring_doorbell()
+                    return True
+                # Ring full even for the 13-byte ref: release and queue.
+                _U64.pack_into(
+                    self._mm, self._tx["states"] + 8 * slot, 0
+                )
+                return False
+        # Oversize (or every slot busy): stream
+        # through the ring in pieces, straight from the caller's frames
+        # (no joined blob — the ring write is the only copy this side).
+        if not self._push_record(K_CHUNK_START, [_U64.pack(total)]):
+            return False
+        self._chunk_prog = [
+            f if isinstance(f, memoryview) else memoryview(f)
+            for f in frames
+        ]
+        self._continue_chunks()
+        self._ring_doorbell()
+        return True
+
+    def _continue_chunks(self) -> bool:
+        """Push as many CHUNK_CONT pieces as fit; True if any landed."""
+        parts = self._chunk_prog
+        piece = max(self._geo.ring_bytes // 4 - _REC.size, 4096)
+        progressed = False
+        while parts:
+            rec_parts: List[Any] = []
+            take = piece
+            while parts and take > 0:
+                p = parts[0]
+                if len(p) <= take:
+                    rec_parts.append(p)
+                    take -= len(p)
+                    parts.pop(0)
+                else:
+                    rec_parts.append(p[:take])
+                    parts[0] = p[take:]
+                    take = 0
+            if not self._push_record(K_CHUNK_CONT, rec_parts):
+                # All-or-nothing record: put the slices back in order.
+                parts[0:0] = rec_parts
+                break
+            progressed = True
+        self._chunk_prog = parts if parts else None
+        if self._chunk_prog is not None:
+            self._arm_drain()
+        return progressed
+
+    def _ring_doorbell(self) -> None:
+        if self._db_wfd < 0:
+            return
+        try:
+            os.write(self._db_wfd, b"!")
+        except BlockingIOError:
+            pass  # pipe full: the consumer already has wakeups queued
+        except OSError as e:
+            self._lane_down(f"doorbell write failed: {e}")
+
+    # -- consumer internals (loop thread only) -------------------------------
+
+    def _on_doorbell(self) -> None:
+        try:
+            while True:
+                if not os.read(self._db_rfd, 4096):
+                    break
+        except BlockingIOError:
+            pass
+        except OSError as e:
+            self._lane_down(f"doorbell read failed: {e}")
+            return
+        self._drain_rx()
+
+    def _drain_rx(self) -> None:
+        """Consume every complete record currently in my rx ring and
+        hand the reassembled wire frames to ``deliver``."""
+        if self._closed:
+            return
+        mm = self._mm
+        d = self._rx
+        # RX slot pressure, checked once per drain pass: OUR references
+        # (decoded views pinned by long-lived holders — the response
+        # cache above all) are what keeps the PEER's allocator starved,
+        # and the peer cannot reach across the process boundary to fix
+        # that — the consumer sheds its own pinners when its receive
+        # direction runs dry (even while the peer is reduced to chunked
+        # sends, which is exactly when recovery matters).
+        if self._reclaim is not None:
+            states_off = d["states"]
+            free = sum(
+                1 for i in range(self._geo.n_slots)
+                if _U64.unpack_from(mm, states_off + 8 * i)[0] == 0
+            )
+            # Fire on the ran-dry TRANSITION only: when the pinners are
+            # in-flight handler views (which cache eviction cannot
+            # free), a per-pass reclaim would halve the response cache
+            # on every doorbell until exactly-once replay state is gone
+            # — one shed per dry episode is the pressure valve.
+            if free <= 1 and not self._rx_pressure:
+                self._rx_pressure = True
+                self._reclaim()
+            elif free > 1:
+                self._rx_pressure = False
+        R = self._geo.ring_bytes
+        base = d["ring"]
+        head = self._head(d)
+        tail = self._tail(d)
+        try:
+            while head < tail:
+                off = head % R
+                cont = R - off
+                if cont < _REC.size:
+                    head += cont
+                    continue
+                plen, kind = _REC.unpack_from(mm, base + off)
+                if plen == _SKIP:
+                    head += cont
+                    continue
+                rec = _REC.size + plen
+                if rec > R // 2 or head + rec > tail:
+                    raise ValueError(
+                        f"corrupt ring record (len={plen} kind={kind})"
+                    )
+                payload_off = base + off + _REC.size
+                self._consume(kind, payload_off, plen)
+                head += rec
+                # Publish progress record-by-record so the producer can
+                # reuse space while a long drain is still running.
+                _U64.pack_into(mm, d["head"], head)
+                tail = self._tail(d)
+        except (ValueError, struct.error) as e:
+            self._rx_pressure = False  # dry episode ends with the lane
+            self._lane_down(f"ring drain failed: {e}")
+
+    def _consume(self, kind: int, off: int, plen: int) -> None:
+        mm = self._mm
+        if kind == K_INLINE:
+            buf = _alloc_frame(plen)
+            buf[:] = np.frombuffer(mm, np.uint8, count=plen, offset=off)
+            self._deliver(memoryview(buf))
+        elif kind == K_SPILL:
+            slot, nbytes = _SPILL_REF.unpack_from(mm, off)
+            if (slot >= self._geo.n_slots
+                    or nbytes + _FRAME_PAD > self._geo.slot_bytes):
+                raise ValueError(f"bad spill ref slot={slot} n={nbytes}")
+            data_off = self._geo.slot_off(1 - self._side, slot)
+            body = np.frombuffer(mm, np.uint8, count=nbytes,
+                                 offset=data_off + _FRAME_PAD)
+            # Zero-copy hand-off: decoded tensor views alias the slot;
+            # the slot's state word flips back to free only when the
+            # LAST view dies (finalizer on the mapping view), exactly
+            # like the reference's refcounted SharedBufferHandle. The
+            # finalizer holds mm, never the lane, so an abandoned lane
+            # still collects.
+            weakref.finalize(
+                body, _U64.pack_into, mm,
+                self._rx["states"] + 8 * slot, 0,
+            )
+            self._deliver(memoryview(body))
+        elif kind == K_CHUNK_START:
+            (total,) = _U64.unpack_from(mm, off)
+            self._rx_chunk = (_alloc_frame(total), 0)
+        elif kind == K_CHUNK_CONT:
+            if self._rx_chunk is None:
+                raise ValueError("chunk continuation without start")
+            buf, filled = self._rx_chunk
+            if filled + plen > len(buf):
+                raise ValueError("chunked frame overflow")
+            buf[filled:filled + plen] = np.frombuffer(
+                mm, np.uint8, count=plen, offset=off
+            )
+            filled += plen
+            if filled == len(buf):
+                self._rx_chunk = None
+                self._deliver(memoryview(buf))
+            else:
+                self._rx_chunk = (buf, filled)
+        else:
+            raise ValueError(f"unknown ring record kind {kind}")
+
+    # -- failure -------------------------------------------------------------
+
+    def _lane_down(self, why: str) -> None:
+        if self._closed:
+            return
+        log.debug("shm lane %s down: %s", self.path, why)
+        down, self._down = self._down, None
+        if down is not None:
+            down(why)  # the Rpc drops the conn, which close()s us
+        else:
+            self.close()
+
+    def __repr__(self) -> str:
+        return (f"<ShmLane {self.path} side={self._side} "
+                f"closed={self._closed}>")

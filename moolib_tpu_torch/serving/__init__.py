@@ -1,20 +1,30 @@
-"""Serving tier of the port: admission control and the replica."""
+"""Serving tier of the port: admission control, the replica (in-process
+or bound to an RPC peer), health gating and the router; the counterpart
+of :mod:`moolib_tpu.serving`. ``publish_from_accumulator`` and
+``publish_from_statestore`` wait for the port's Accumulator and
+StateStore."""
 
+from ..rpc import RpcError
 from .admission import (
     AdmissionQueue,
     DeadlineExceeded,
     Overloaded,
-    RpcError,
     ServingError,
     error_kind,
 )
-from .replica import Replica
+from .health import CircuitBreaker, ReplicaHealth
+from .replica import ENDPOINT_SUFFIXES, Replica
+from .router import Router
 
 __all__ = [
     "AdmissionQueue",
+    "CircuitBreaker",
     "DeadlineExceeded",
+    "ENDPOINT_SUFFIXES",
     "Overloaded",
     "Replica",
+    "ReplicaHealth",
+    "Router",
     "RpcError",
     "ServingError",
     "error_kind",

@@ -20,22 +20,16 @@ import weakref
 from collections import deque
 from typing import Any, List, Optional, Tuple
 
+from ..rpc import RpcError
 from ..telemetry import RollingQuantile, Telemetry, global_telemetry
 
 __all__ = [
     "AdmissionQueue",
     "DeadlineExceeded",
     "Overloaded",
-    "RpcError",
     "ServingError",
     "error_kind",
 ]
-
-
-class RpcError(RuntimeError):
-    """A failed call, carrying the error string a remote peer would
-    send; the base of the serving errors until the RPC layer is
-    ported."""
 
 
 class ServingError(RpcError):

@@ -10,10 +10,22 @@ the device with :func:`~moolib_tpu_torch.ops.batcher.stage_batch`, runs
 ``model_fn(params, batch)`` and unbatches the replies, copied back to
 numpy.
 
-The RPC binding is not ported yet: requests arrive through
-:meth:`Replica.submit`, which hands the same deferred-return shape the
-RPC layer would to the same ``_on_infer`` path and returns a
-:class:`concurrent.futures.Future`.
+Bound to an :class:`~moolib_tpu_torch.rpc.Rpc` (``Replica(rpc, ...)``),
+the replica owns four endpoints on it, named ``{service}.*`` so several
+services can share a peer:
+
+- ``{service}.infer(x)`` — one request (deadline from the caller's
+  ``call_with_deadline``), answered with the reply;
+- ``{service}.health()`` — the router's probe: inflight, queue,
+  latency, ``draining`` and ``model_version``;
+- ``{service}.load(params, version)`` — hot model swap; for a module,
+  ``params`` is its state_dict as it arrives off the wire (numpy
+  leaves, or ``bfloat16`` tensors);
+- ``{service}.drain()`` — graceful departure.
+
+With ``rpc=None`` requests arrive through :meth:`Replica.submit`, which
+hands the same deferred-return shape the RPC layer would to the same
+``_on_infer`` path and returns a :class:`concurrent.futures.Future`.
 
 Telemetry (``service``-labelled, as in the reference):
 ``serving_batches_total``, ``serving_batch_rows_total``, the
@@ -27,6 +39,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import copy
 import logging
 import threading
 import time
@@ -37,15 +50,19 @@ import numpy as np
 import torch
 
 from ..ops.batcher import stage_batch
+from ..rpc import Rpc, RpcError
 from ..telemetry import FRACTION_EDGES, Telemetry, global_telemetry
 from ..telemetry.stepscope import StepScope
 from ..utils import nest
 from ..utils.device import resolve_device
-from .admission import AdmissionQueue, DeadlineExceeded, Overloaded, RpcError
+from .admission import AdmissionQueue, DeadlineExceeded, Overloaded
 
-__all__ = ["Replica"]
+__all__ = ["Replica", "ENDPOINT_SUFFIXES"]
 
 log = logging.getLogger("moolib_tpu_torch.serving")
+
+#: The endpoint family a bound Replica registers: ``{service}.{suffix}``.
+ENDPOINT_SUFFIXES = ("infer", "health", "load", "drain")
 
 
 class _LocalDeferredReturn:
@@ -84,6 +101,15 @@ def _to_host(x):
         np.asarray(x))
 
 
+def _wire_tensor(x) -> torch.Tensor:
+    """A state_dict leaf as it arrives off the wire (a read-only numpy
+    view, or a ``bfloat16`` tensor over the receive buffer) as a tensor
+    of its own."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return torch.from_numpy(np.array(x))
+
+
 class Replica:
     """A serving replica.
 
@@ -94,28 +120,41 @@ class Replica:
     so the model always sees one shape. ``device`` defaults to the card
     and raises without one; pass ``device="cpu"`` to serve on the CPU.
 
+    Bound to ``rpc`` it records into ``rpc.telemetry`` (unless
+    ``telemetry`` is given), its gauges labelled ``peer=rpc.get_name()``,
+    and refuses a service whose endpoints are already defined there.
     Without an RPC binding the replica has no peer identity: it records
     into ``telemetry`` (default :func:`~moolib_tpu_torch.telemetry.
     global_telemetry`) with no ``peer`` label. So run at most one live
-    replica per ``service`` on one ``Telemetry``: a second one would
-    replace the first's gauges (``serving_inflight``, the queue depth,
-    the scope's fractions), and closing either unregisters them.
+    unbound replica per ``service`` on one ``Telemetry``: a second one
+    would replace the first's gauges (``serving_inflight``, the queue
+    depth, the scope's fractions), and closing either unregisters them.
     """
 
-    def __init__(self, rpc: None, model_fn: Callable[[Any, Any], Any],
+    def __init__(self, rpc: Optional[Rpc],
+                 model_fn: Callable[[Any, Any], Any],
                  params: Any = None, *, version: int = 0,
                  service: str = "serve", batch_size: int = 8,
                  max_queue: int = 64, linger_s: float = 0.002,
                  device: Optional[Union[str, torch.device]] = None,
                  pad: bool = False, shed_safety: float = 1.0,
                  telemetry: Optional[Telemetry] = None):
-        if rpc is not None:
-            raise NotImplementedError(
-                "Replica has no RPC binding yet (ROADMAP queue A: the RPC "
-                "binding of Replica); pass rpc=None and use submit()"
-            )
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size!r}")
+        if rpc is not None:
+            for suffix in ENDPOINT_SUFFIXES:
+                name = f"{service}.{suffix}"
+                if rpc.defined(name):
+                    # A silent re-define would clobber another service's
+                    # handlers.
+                    raise RpcError(
+                        f"endpoint {name!r} is already defined on this "
+                        "Rpc: another Replica (or service) with the same "
+                        "service name is registered; pick a distinct "
+                        "service="
+                    )
+        self.rpc = rpc
+        self._peer = rpc.get_name() if rpc is not None else None
         self.service = service
         self.batch_size = int(batch_size)
         self.linger_s = float(linger_s)
@@ -128,11 +167,20 @@ class Replica:
         self._closed = False
         self._stop = threading.Event()
 
-        tel = telemetry if telemetry is not None else global_telemetry()
+        if telemetry is not None:
+            tel = telemetry
+        else:
+            tel = rpc.telemetry if rpc is not None else global_telemetry()
         reg = tel.registry
         self._tel = tel
+        # The peer label keeps two same-service replicas sharing one
+        # Telemetry from replacing or cross-unregistering each other's
+        # gauges (the Rpc inflight/peers gauge rule).
+        self._gauge_labels = {"service": service}
+        if self._peer is not None:
+            self._gauge_labels["peer"] = self._peer
         self.admission = AdmissionQueue(max_queue, service=service,
-                                        telemetry=tel,
+                                        peer=self._peer, telemetry=tel,
                                         shed_safety=shed_safety)
         self._m_batches = reg.counter("serving_batches_total",
                                       service=service)
@@ -152,10 +200,19 @@ class Replica:
         # closed replica; close() unregisters the series.
         wself = weakref.ref(self)
         reg.gauge_fn("serving_inflight",
-                     lambda: wself().admission.inflight, service=service)
+                     lambda: wself().admission.inflight,
+                     **self._gauge_labels)
+
+        if rpc is not None:
+            rpc.define_deferred(f"{service}.infer", self._on_infer)
+            rpc.define(f"{service}.health", self.health)
+            rpc.define(f"{service}.load", self._on_load)
+            rpc.define_deferred(f"{service}.drain", self._on_drain)
+
+        prefix = f"{self._peer}-" if self._peer is not None else ""
         self._worker = threading.Thread(
             target=_serve_entry, args=(weakref.ref(self), self._stop),
-            name=f"{service}-serve", daemon=True,
+            name=f"{prefix}{service}-serve", daemon=True,
         )
         self._worker.start()
 
@@ -185,6 +242,7 @@ class Replica:
         (it never touches the model lock)."""
         adm = self.admission
         return {
+            "name": self._peer,
             "service": self.service,
             "inflight": adm.inflight,
             "queue_depth": adm.depth,
@@ -208,7 +266,29 @@ class Replica:
             self._params = params
             self._version = int(version)
         self._m_version.set(float(version))
-        log.info("%s: model swapped to version %s", self.service, version)
+        log.info("%s%s: model swapped to version %s",
+                 f"{self._peer}/" if self._peer else "", self.service,
+                 version)
+
+    def _on_load(self, params, version):
+        """The ``load`` endpoint. When the served params are a module,
+        ``params`` is a state_dict off the wire: it is loaded into a copy
+        of the module (on the module's device), and the copy is swapped
+        in, so the batch in flight keeps the module it captured."""
+        with self._model_lock:
+            current = self._params
+        if isinstance(current, torch.nn.Module):
+            module = copy.deepcopy(current)
+            module.load_state_dict(
+                {k: _wire_tensor(v) for k, v in params.items()}
+            )
+            params = module
+        self.set_model(params, version)
+        return int(version)
+
+    def _on_drain(self, dr):
+        ok = self.drain(timeout=60.0)
+        dr({"drained": bool(ok), "name": self._peer})
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Graceful departure: refuse new admissions, serve out what was
@@ -325,18 +405,22 @@ class Replica:
     # -- lifecycle -----------------------------------------------------------
 
     def close(self) -> None:
-        """Hard stop: stop the batch loop and unregister this replica's
-        gauges (its counters and histograms stay, like every cumulative
-        series). For a graceful departure call :meth:`drain` first."""
+        """Hard stop: undefine the endpoint family (when bound), stop the
+        batch loop and unregister this replica's gauges (its counters and
+        histograms stay, like every cumulative series). For a graceful
+        departure call :meth:`drain` first."""
         if self._closed:
             return
         self._closed = True
         self._stop.set()
+        if self.rpc is not None:
+            for suffix in ENDPOINT_SUFFIXES:
+                self.rpc.undefine(f"{self.service}.{suffix}")
         self.admission.close()
         self._worker.join(timeout=5)
         self._scope.close()
         self._tel.registry.unregister("serving_inflight",
-                                      service=self.service)
+                                      **self._gauge_labels)
 
     def __enter__(self):
         return self

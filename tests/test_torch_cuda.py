@@ -452,3 +452,52 @@ def test_impala_net_bf16_forward_matches_the_cpu(card):
         assert g.dtype == torch.float32
         torch.testing.assert_close(g.cpu(), w, rtol=0,
                                    atol=2e-2 * float(w.abs().max()))
+
+
+def test_rpc_handlers_get_cuda_tensors_and_reply_with_them(card):
+    """A batched define(..., device="cuda") and a Replica(rpc, ...,
+    device="cuda") both receive CUDA tensors; their CUDA-tensor replies
+    reach the CPU peer as host arrays equal to the handlers' results."""
+    import numpy as np
+
+    from moolib_tpu_torch import Replica
+    from moolib_tpu_torch.rpc import Rpc
+
+    host, client = Rpc("cuda-host"), Rpc("cuda-client")
+    seen, results = [], {}
+
+    def batched(x):
+        seen.append(x.device.type)
+        out = x * 2 + 1
+        for row in out:
+            results[float(row[0])] = row.cpu().numpy()
+        return out
+
+    def model(scale, batch):
+        seen.append(batch["x"].device.type)
+        return {"y": batch["x"].float() * scale}
+
+    rep = Replica(host, model, 3.0, service="card", batch_size=4,
+                  device="cuda")
+    try:
+        host.define("twice", batched, batch_size=4, device="cuda")
+        host.listen("127.0.0.1:0")
+        client.connect(host.debug_info()["listen"][0])
+        xs = [np.full(5, i, np.float32) for i in range(6)]
+        futs = [client.async_("cuda-host", "twice", x) for x in xs]
+        for x, fut in zip(xs, futs):
+            got = fut.result(timeout=60)
+            assert isinstance(got, np.ndarray)
+            np.testing.assert_array_equal(got, results[float(x[0] * 2 + 1)])
+            np.testing.assert_array_equal(got, x * 2 + 1)
+        futs = [client.call_with_deadline("cuda-host", "card.infer", 60.0,
+                                          {"x": np.arange(4) + i})
+                for i in range(3)]
+        for i, fut in enumerate(futs):
+            np.testing.assert_array_equal(fut.result(timeout=60)["y"],
+                                          (np.arange(4) + i) * 3.0)
+        assert seen and set(seen) == {"cuda"}, seen
+    finally:
+        rep.close()
+        client.close()
+        host.close()

@@ -1,5 +1,6 @@
-"""Port parity: the flight recorder, incident bundles, capture and the
-cross-peer merge of moolib_tpu_torch against moolib_tpu.
+"""Port parity: the flight recorder, incident bundles, capture, the
+cross-peer merge and the cohort crawl of moolib_tpu_torch against
+moolib_tpu.
 
 A bundle written by either package must validate and load in the other,
 and the merge of the same bundles must give the same timeline in both.
@@ -243,8 +244,8 @@ def test_capture_incident_and_rate_limited_auto(tmp_path):
 
 
 def test_public_surface_matches_reference_without_the_crawl():
-    assert sorted(port_fr.__all__) == sorted(
-        n for n in ref_fr.__all__ if n != "crawl_cohort")
+    # The crawl came with the port's RPC core: the surfaces are equal.
+    assert sorted(port_fr.__all__) == sorted(ref_fr.__all__)
     import moolib_tpu_torch as port
 
     for name in ("Telemetry", "global_telemetry", "publish_metrics",
@@ -255,3 +256,69 @@ def test_public_surface_matches_reference_without_the_crawl():
     assert port.FlightRecorder is port_fr.FlightRecorder
     uid = port.create_uid()
     assert len(uid) == 32 and uid != port.create_uid()
+
+
+# -- over the RPC --------------------------------------------------------------
+
+
+def test_estimate_offset_against_a_live_port_peer():
+    from moolib_tpu_torch.rpc import Rpc
+
+    a, b = Rpc("clk-a"), Rpc("clk-b")
+    try:
+        b.listen("127.0.0.1:0")
+        a.connect(b.debug_info()["listen"][0])
+        a.async_("clk-b", "__flightrec", op="time").result(timeout=20)
+        for skew in (3_000_000, -2_000_000, 0):
+            b.set_flightrec_skew(skew)
+            off, rtt = port_fr.estimate_offset(a, "clk-b")
+            assert abs(off - skew) < 25_000, (skew, off, rtt)
+    finally:
+        a.close()
+        b.close()
+
+
+def test_crawl_cohort_reaches_every_port_peer_from_one_address():
+    """One address (a hub) leads to the whole cohort: the crawl walks the
+    neighbour lists each ``__flightrec`` snapshot advertises, and every
+    bundle it brings back validates in both packages."""
+    from moolib_tpu_torch.rpc import Rpc
+
+    hub, leaf, crawler = Rpc("cr-hub"), Rpc("cr-leaf"), Rpc("cr-crawler")
+    for p in (hub, leaf, crawler):
+        p.set_timeout(20.0)
+    try:
+        hub.listen("127.0.0.1:0")
+        leaf.listen("127.0.0.1:0")
+        leaf.connect(hub.debug_info()["listen"][0])
+        leaf.async_("cr-hub", "__flightrec", op="time").result(timeout=20)
+        leaf.telemetry.flight.record("conn_up", peer="x", transport="tcp")
+
+        def scrape(peer):
+            reply = crawler.async_(peer, "__flightrec").result(timeout=20)
+            return reply["bundle"], reply["peers"]
+
+        seen = []
+        results, failed = port_fr.crawl_cohort(
+            crawler, [hub.debug_info()["listen"][0]], scrape,
+            on_result=lambda peer, _b: seen.append(peer))
+        assert failed == []
+        assert sorted(results) == ["cr-hub", "cr-leaf"] == sorted(seen)
+        for name, bundle in results.items():
+            for fr_mod, _ in PKGS:
+                fr_mod.validate_bundle(bundle)  # raises when invalid
+            assert bundle["trigger"]["kind"] == "scrape"
+        kinds = [e["kind"] for e in results["cr-leaf"]["events"]
+                 if e["pid"] == "cr-leaf"]
+        assert "conn_up" in kinds
+        # A pinned set crawls only what it names, and a dark peer is a
+        # finding, not a failure of the crawl.
+        crawler.set_timeout(1.0)
+        results, failed = port_fr.crawl_cohort(
+            crawler, [], scrape, want=["cr-hub", "cr-ghost"],
+            discover_seconds=0.1)
+        assert sorted(results) == ["cr-hub"]
+        assert [p for p, _ in failed] == ["cr-ghost"]
+    finally:
+        for p in (crawler, leaf, hub):
+            p.close()

@@ -1,14 +1,21 @@
 """Port parity: the acting step, batch staging, nest, admission control and
-the serving Replica of moolib_tpu_torch, and their telemetry.
+the serving Replica of moolib_tpu_torch, and their telemetry; then the
+serving tier on the RPC.
 
 The act step's logits are held against the reference's jitted act step;
 its samples cannot match the reference's bits, so their frequencies are
 held against softmax(logits). The Replica is driven through its local
-submit() path (the RPC binding is not ported yet) and its replies are
-held against the direct forward. The admission and replica cases mirror
-the tests/test_serving.py cases that need no RPC. The admission queue's
-``serving_*`` series are held to the reference's exactly (equal
-snapshots after the same sequence of calls).
+submit() path and its replies are held against the direct forward. The
+admission and replica cases mirror the tests/test_serving.py cases that
+need no RPC. The admission queue's ``serving_*`` series are held to the
+reference's exactly (equal snapshots after the same sequence of calls).
+
+On the RPC: port Replicas bound to port Rpcs serve the TransformerNet to
+a reference Router and to a port Router; every reply is held against the
+reference's flax TransformerNet on the converted params at 1e-4 (f32),
+before and after publish_weights swaps in a second version. Then the
+reference's fleet cases (drain, health, endpoint collision, the peer
+label) on port peers. Every wait has a timeout of its own.
 """
 
 import json
@@ -21,6 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+import moolib_tpu.rpc as ref_rpc
+import moolib_tpu.serving as ref_serving
+import moolib_tpu_torch.rpc as port_rpc
+import moolib_tpu_torch.serving as port_serving
 from moolib_tpu.learner import make_act_step as jax_make_act_step
 from moolib_tpu.models import TransformerNet as JaxTransformerNet
 from moolib_tpu.serving.admission import AdmissionQueue as JaxAdmissionQueue
@@ -29,11 +40,13 @@ from moolib_tpu.utils import nest as jax_nest
 from moolib_tpu_torch import make_act_step
 from moolib_tpu_torch.models import TransformerNet, transformer_params_from_flax
 from moolib_tpu_torch.ops import stage_batch
+from moolib_tpu_torch.rpc import Rpc
 from moolib_tpu_torch.serving import (
     AdmissionQueue,
     DeadlineExceeded,
     Overloaded,
     Replica,
+    Router,
     RpcError,
     error_kind,
 )
@@ -504,6 +517,14 @@ def test_replica_close_leaves_no_live_series_behind():
                   batch_size=2, device="cpu", telemetry=tel)
     for f in [rep.submit(np.zeros(1, np.float32)) for _ in range(3)]:
         f.result(timeout=30)
+    # The worker records a batch's step after its replies go out: wait
+    # for the last one, so `live` holds every series the replica makes.
+    reg, deadline = tel.registry, time.monotonic() + 30
+    while not (reg.value("serving_batch_rows_total", service="gone") == 3
+               and reg.value("stepscope_steps_total", loop="gone_replica")
+               == reg.value("serving_batches_total", service="gone")):
+        assert time.monotonic() < deadline
+        time.sleep(0.001)
     live = set(tel.snapshot())
     assert 'serving_inflight{service="gone"}' in live
     assert 'serving_queue_depth{service="gone"}' in live
@@ -518,3 +539,347 @@ def test_replica_close_leaves_no_live_series_behind():
         "stepscope_exposed_comms_fraction", "stepscope_host_blocked_fraction",
         "stepscope_env_wait_fraction", "stepscope_attributed_fraction",
         "stepscope_ledger_overrun_fraction"}
+
+
+# ---------------------------------------------------------------------------
+# The serving tier on the RPC
+# ---------------------------------------------------------------------------
+
+RPC_WAIT = 30.0  # seconds: the bound of every wait below
+SERVE_T = 8      # steps per context request
+
+
+def _flax_params(seed):
+    jnet = JaxTransformerNet(num_actions=4, attention_backend="dense",
+                             **SMALL)
+    obs = jnp.zeros((SERVE_T, 1, 5), jnp.float32)
+    params = jnet.init(jax.random.PRNGKey(seed), obs,
+                       jnp.zeros((SERVE_T, 1), bool), ())
+    return jnet, params
+
+
+def _jax_reply(jnet, params, req):
+    (logits, baseline), _ = jnet.apply(
+        params, jnp.asarray(req["obs"][:, None]),
+        jnp.asarray(req["done"][:, None]), ())
+    return np.asarray(logits[:, 0]), np.asarray(baseline[:, 0])
+
+
+def _wait_routable(router, n):
+    deadline = time.monotonic() + RPC_WAIT
+    while len(router.routable()) < n:
+        assert time.monotonic() < deadline, router.stats()
+        time.sleep(0.02)
+
+
+class _Fleet:
+    """Two port replicas of the context service, each on its own port
+    Rpc, the port net carrying the reference's converted params."""
+
+    def __init__(self, seed=1, **replica_kw):
+        self.jnet, self.params = _flax_params(seed)
+        self.rpcs, self.reps = [], []
+        for i in range(2):
+            rpc = Rpc(f"tsrep{i}")
+            rpc.set_timeout(RPC_WAIT)
+            rpc.listen("127.0.0.1:0")
+            net = _net()
+            net.load_state_dict(transformer_params_from_flax(
+                jax.tree_util.tree_map(np.asarray, self.params)))
+            kw = dict(batch_size=4, pad=True, linger_s=0.02, device="cpu",
+                      version=1)
+            kw.update(replica_kw)
+            self.reps.append(Replica(rpc, _forward, net.eval(), **kw))
+            self.rpcs.append(rpc)
+
+    @property
+    def names(self):
+        return [rpc.get_name() for rpc in self.rpcs]
+
+    def addrs(self):
+        return [rpc.debug_info()["listen"][0] for rpc in self.rpcs]
+
+    def close(self):
+        for rpc, rep in zip(self.rpcs, self.reps):
+            rep.close()
+            rpc.close()
+
+
+def _router(pkg, fleet, name):
+    rpc_mod, router_mod = ((ref_rpc, ref_serving) if pkg == "ref"
+                           else (port_rpc, port_serving))
+    client = rpc_mod.Rpc(name)
+    client.set_timeout(RPC_WAIT)
+    for addr in fleet.addrs():
+        client.connect(addr)
+    router = router_mod.Router(client, fleet.names, probe_interval_s=0.05,
+                               attempt_timeout_s=RPC_WAIT, seed=5)
+    _wait_routable(router, 2)
+    return client, router
+
+
+def _context_requests(rng, n):
+    return [{"obs": rng.standard_normal((SERVE_T, 5)).astype(np.float32),
+             "done": rng.random(SERVE_T) < 0.2} for _ in range(n)]
+
+
+@pytest.mark.parametrize("router_pkg", ["ref", "port"])
+def test_rpc_replicas_answer_a_router_with_the_reference_model(router_pkg):
+    """Port Replica(rpc, ...) on the CPU behind a reference or a port
+    Router: replies equal the reference TransformerNet's on the
+    converted params (1e-4, f32); publish_weights to version 2 (numpy
+    leaves from the reference router, the torch state_dict from the
+    port's) changes every reply to the new params' and both replicas'
+    health to version 2."""
+    rng = np.random.default_rng(11)
+    fleet = _Fleet()
+    client, router = _router(router_pkg, fleet, f"tsrouter-{router_pkg}")
+    try:
+        for version, params in ((1, fleet.params), (2, None)):
+            if version == 2:
+                jnet2, params = _flax_params(seed=7)
+                new = transformer_params_from_flax(
+                    jax.tree_util.tree_map(np.asarray, params))
+                if router_pkg == "ref":
+                    new = {k: v.numpy() for k, v in new.items()}
+                acks = router.publish_weights(new, version=2,
+                                              timeout_s=RPC_WAIT)
+                assert acks == {n: True for n in fleet.names}, acks
+            reqs = _context_requests(rng, 6)
+            futs = [router.infer_async(r, budget_s=RPC_WAIT) for r in reqs]
+            for req, fut in zip(reqs, futs):
+                out = fut.result(timeout=RPC_WAIT)
+                logits, baseline = _jax_reply(fleet.jnet, params, req)
+                assert out["logits"].shape == (SERVE_T, 4)
+                np.testing.assert_allclose(out["logits"], logits, atol=1e-4)
+                np.testing.assert_allclose(out["baseline"], baseline,
+                                           atol=1e-4)
+            for name, rep in zip(fleet.names, fleet.reps):
+                health = client.async_(name, "serve.health").result(
+                    timeout=RPC_WAIT)
+                assert health["model_version"] == version == rep.version
+                assert health["name"] == name
+        served = [rpc.telemetry.registry.value("serving_completed_total",
+                                               service="serve") or 0
+                  for rpc in fleet.rpcs]
+        assert sum(served) == 12
+    finally:
+        router.close()
+        client.close()
+        fleet.close()
+
+
+def test_rpc_load_swaps_a_module_copy_and_keeps_bfloat16():
+    """The load endpoint loads a state_dict off the wire into a copy of
+    the module (the batch in flight keeps the module it captured), with
+    bfloat16 leaves arriving as tensors."""
+    rpc, client = Rpc("loadrep"), Rpc("loadclient")
+    net = TransformerNet(4, (5,), attention_backend="flash", device="cpu",
+                         compute_dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(0),
+                         **SMALL).to(torch.bfloat16).eval()
+    rep = Replica(rpc, _forward, net, device="cpu")
+    try:
+        rpc.listen("127.0.0.1:0")
+        client.connect(rpc.debug_info()["listen"][0])
+        new = {k: torch.full_like(v, 0.25)
+               for k, v in net.state_dict().items()}
+        assert client.async_("loadrep", "serve.load", new, 9).result(
+            timeout=RPC_WAIT) == 9
+        assert rep.version == 9 and rep._params is not net
+        for k, v in rep._params.state_dict().items():
+            assert v.dtype == torch.bfloat16 and bool((v == 0.25).all()), k
+        assert all(not bool((v == 0.25).all())
+                   for v in net.state_dict().values())
+    finally:
+        rep.close()
+        client.close()
+        rpc.close()
+
+
+def test_rpc_fleet_graceful_drain():
+    fleet = _Fleet()
+    client, router = _router("port", fleet, "tsrouter-drain")
+    try:
+        name0 = fleet.names[0]
+        assert router.drain_replica(name0, timeout_s=RPC_WAIT)
+        deadline = time.monotonic() + RPC_WAIT
+        while name0 in router.routable():
+            assert time.monotonic() < deadline, router.stats()
+            time.sleep(0.05)
+        req = _context_requests(np.random.default_rng(3), 1)[0]
+        for _ in range(4):
+            out = router.infer(req, budget_s=RPC_WAIT)
+            assert out["logits"].shape == (SERVE_T, 4)
+        st = router.stats()["replicas"][name0]
+        assert st["draining"] and st["breaker"] == "closed", st
+        assert client.async_(name0, "serve.health").result(
+            timeout=RPC_WAIT)["draining"] is True
+        with pytest.raises(RpcError, match="Overloaded"):
+            client.call_with_deadline(name0, "serve.infer", 5.0,
+                                      req).result(timeout=RPC_WAIT)
+    finally:
+        router.close()
+        client.close()
+        fleet.close()
+
+
+def test_rpc_replica_endpoint_collision_refused():
+    rpc = Rpc("colrep")
+    try:
+        rep = Replica(rpc, lambda p, x: x, None, service="col", device="cpu")
+        with pytest.raises(RpcError, match="already defined"):
+            Replica(rpc, lambda p, x: x, None, service="col", device="cpu")
+        rep.close()
+        for suffix in ("infer", "health", "load", "drain"):
+            assert not rpc.defined(f"col.{suffix}")
+        rep2 = Replica(rpc, lambda p, x: x, None, service="col",
+                       device="cpu")
+        rep2.close()
+    finally:
+        rpc.close()
+
+
+def test_rpc_replica_gauges_carry_the_peer_label():
+    """Bound to an Rpc, the replica records into rpc.telemetry with
+    peer=rpc.get_name() on its gauges, as the reference's does, and
+    close() unregisters them; telemetry= overrides the Rpc's."""
+    rpc = Rpc("gaugerep")
+    try:
+        rep = Replica(rpc, lambda p, x: x, None, service="gg", device="cpu")
+        reg = rpc.telemetry.registry
+        labels = {"service": "gg", "peer": "gaugerep"}
+        assert reg.value("serving_inflight", **labels) == 0
+        assert reg.value("serving_queue_depth", **labels) == 0
+        assert reg.value("serving_inflight", service="gg") is None
+        rep.close()
+        assert reg.value("serving_inflight", **labels) is None
+        assert reg.value("serving_queue_depth", **labels) is None
+        tel = Telemetry("own")
+        rep = Replica(rpc, lambda p, x: x, None, service="gg", device="cpu",
+                      telemetry=tel)
+        assert tel.registry.value("serving_inflight", **labels) == 0
+        assert reg.value("serving_inflight", **labels) is None
+        rep.close()
+    finally:
+        rpc.close()
+
+
+def test_rpc_replica_refuses_the_cpu_unasked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    rpc = Rpc("nodev")
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Replica(rpc, lambda p, x: x, None)
+        assert not rpc.defined("serve.infer")
+    finally:
+        rpc.close()
+
+
+def _scale_fleet(n=2, **kw):
+    rpcs, reps = [], []
+    for i in range(n):
+        rpc = Rpc(f"screp{i}")
+        rpc.set_timeout(RPC_WAIT)
+        rpc.listen("127.0.0.1:0")
+        reps.append(Replica(rpc, lambda p, x: x * p, 2.0, batch_size=4,
+                            pad=True, device="cpu", **kw))
+        rpcs.append(rpc)
+    client = Rpc("scrouter")
+    client.set_timeout(RPC_WAIT)
+    for rpc in rpcs:
+        client.connect(rpc.debug_info()["listen"][0])
+    router = Router(client, [r.get_name() for r in rpcs],
+                    probe_interval_s=0.05, attempt_timeout_s=2.0, seed=5)
+    _wait_routable(router, n)
+    return rpcs, reps, client, router
+
+
+def test_rpc_fleet_failover_zero_accepted_dropped():
+    """The reference's failover case on port peers: one of two replicas
+    dies mid-load; every accepted request completes on the survivor or
+    fails fast with an explicit error, and the dead one leaves rotation."""
+    rpcs, reps, client, router = _scale_fleet()
+    try:
+        x = np.ones(3, np.float32)
+        router.infer(x, budget_s=RPC_WAIT)
+        futs = [router.infer_async(x, budget_s=RPC_WAIT) for _ in range(40)]
+        time.sleep(0.01)
+        rpcs[0].close()
+        outcomes = []
+        for f in futs:
+            try:
+                outcomes.append(("ok", f.result(timeout=RPC_WAIT)))
+            except RpcError as e:
+                outcomes.append(("err", str(e)))
+        assert len(outcomes) == 40
+        n_ok = sum(1 for k, _ in outcomes if k == "ok")
+        assert n_ok >= 36, outcomes
+        for k, v in outcomes:
+            if k == "ok":
+                np.testing.assert_array_equal(v, 2 * x)
+        deadline = time.monotonic() + RPC_WAIT
+        while "screp0" in router.routable():
+            assert time.monotonic() < deadline, router.stats()
+            time.sleep(0.05)
+        reg = client.telemetry.registry
+        assert reg.value("serving_router_ok_total", service="serve") >= n_ok
+    finally:
+        router.close()
+        client.close()
+        for rpc, rep in zip(rpcs, reps):
+            rep.close()
+            rpc.close()
+
+
+def test_rpc_overloaded_replica_is_explicit_and_retried_elsewhere():
+    block = threading.Event()
+
+    def slow(p, x):
+        block.wait(RPC_WAIT)
+        return x
+
+    rpc0, rpc1 = Rpc("ovrep0"), Rpc("ovrep1")
+    for rpc in (rpc0, rpc1):
+        rpc.listen("127.0.0.1:0")
+    rep0 = Replica(rpc0, slow, None, batch_size=1, max_queue=2,
+                   service="ov", device="cpu")
+    rep1 = Replica(rpc1, lambda p, x: x, None, batch_size=1, max_queue=64,
+                   service="ov", device="cpu")
+    client = Rpc("ovrouter")
+    client.set_timeout(RPC_WAIT)
+    for rpc in (rpc0, rpc1):
+        client.connect(rpc.debug_info()["listen"][0])
+    router = Router(client, ["ovrep0", "ovrep1"], service="ov",
+                    probe_interval_s=0.05, seed=2)
+    try:
+        _wait_routable(router, 2)
+        x = np.ones(2, np.float32)
+        direct = [client.call_with_deadline("ovrep0", "ov.infer", RPC_WAIT,
+                                            x)]
+        deadline = time.monotonic() + RPC_WAIT
+        while rep0.admission.inflight < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        direct += [client.call_with_deadline("ovrep0", "ov.infer",
+                                             RPC_WAIT, x) for _ in range(2)]
+        while rep0.admission.depth < 2:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        with pytest.raises(RpcError, match="Overloaded"):
+            client.call_with_deadline("ovrep0", "ov.infer", 5.0,
+                                      x).result(timeout=RPC_WAIT)
+        futs = [router.infer_async(x, budget_s=RPC_WAIT) for _ in range(12)]
+        for f in futs:
+            np.testing.assert_array_equal(f.result(timeout=RPC_WAIT), x)
+        block.set()
+        for f in direct:
+            f.result(timeout=RPC_WAIT)
+    finally:
+        block.set()
+        router.close()
+        client.close()
+        for rep, rpc in ((rep0, rpc0), (rep1, rpc1)):
+            rep.close()
+            rpc.close()
