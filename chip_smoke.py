@@ -91,17 +91,48 @@ Phases, in order; any failure exits non-zero before the result line:
    and bf16 train steps get phase 6's ledgers and cost, and the act
    step its own (act, then host_sync reading the actions and logits
    back).
-9. Flight bundles: one incident bundle per phase's Telemetry (serve,
+9. Accumulate: the elastic gradient plane. A port Broker and learner-0
+   here, learner-1 in a child (this script with --acc-child), each with
+   the full-width TransformerNet as phase 5 builds it, experiment.py's
+   RMSprop chain, make_grad_step(grad_scale=32) on a seeded learn batch
+   of its own and an Accumulator(virtual_batch_size=64,
+   parallel_gradients=1) over a Group of the two (get_state/set_state
+   under a state lock; cuDNN deterministic). 6 updates, each learner
+   contributing once an update under CUDA's sync debug mode "error"
+   (reduce_gradients must not wait for the card), the mean going back
+   onto the card pinned and non-blocking before the apply; update 1's
+   mean held against the same peers' grad steps on the CPU with dense
+   attention (phase 6's gradient tolerance); after every update every
+   learner's params hold the same bits (per-tensor checksums of the raw
+   bits, compared over the control channel). Then learner-2 (another
+   seed) joins in the child, takes the leader's state (its params and
+   nu equal the leader's bits), and the three train 4 more updates; the
+   GlobalStatsAccumulator sums every learner's env_steps exactly. The
+   two-learner part again with MOOLIB_TPU_ALLREDUCE_CHUNK=1048576 (the
+   child's environment; learner-0 passes the same chunk_bytes): the
+   2.93 MB bundle goes chunked, and the params equal the first run's
+   at every version. Then 3 updates of the full-width f32 ImpalaNet
+   over two learners, under the same checks and with no flash kernel.
+   flash_fwd and flash_bwd_tile must launch in both processes. [acc]
+   lines: updates/s; per update the grad step (CUDA events),
+   reduce_gradients (host), the acc_grad_round ledger and the apply
+   (CUDA events); wire MB per gradient round by lane; the leader;
+   group_rounds_total; then bench_allreduce_torch.py's JSON lines (4
+   peers, the reference's three sizes) from a process of its own.
+10. Flight bundles: one incident bundle per phase's Telemetry (serve,
    train, impala), captured through the api trigger into
    build/flightrec/; each must load and validate, record only MOOLIB,
    TORCH, PYTORCH, CUDA and NCCL environment keys, and (train and
    impala) carry a step_phases event of every scoped loop.
-10. The kernels line (with the ledgers, the bundles' summaries and the
-    RPC phase's readings; launches_by_path includes "rpc act" and "rpc
-    context", the child's launches), the card line, and the result line.
+11. The kernels line (with the ledgers, the bundles' summaries and the
+    RPC and accumulate phases' readings; launches_by_path includes "rpc
+    act" and "rpc context", the child's launches, and "acc", both
+    processes' launches in the accumulate phase's transformer runs),
+    the card line, and the result line.
 
 Lines tagged [telemetry], [stepscope] and [flightrec] carry the
-observability checks and readings, [rpc] lines the RPC phase's.
+observability checks and readings, [rpc] lines the RPC phase's, [acc]
+lines the accumulate phase's.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2439,6 +2470,836 @@ def phase_impala(tel):
     return out
 
 
+# The accumulate phase: the elastic gradient plane on the card.
+ACC_CHILD_FLAG = "--acc-child"
+ACC_VBS = 2 * LEARN_B     # virtual batch: one learn batch from each of 2 peers
+ACC_UPDATES = 6           # two peers
+ACC_JOIN_UPDATES = 4      # then three, after learner-2 joins
+ACC_IMPALA_UPDATES = 3
+ACC_CHUNK = 1 << 20       # MOOLIB_TPU_ALLREDUCE_CHUNK of the chunked run
+ACC_GROUP_TIMEOUT = 60.0
+ACC_BUDGET_S = 300.0
+ACC_BENCH_TIMEOUT_S = 240.0
+# One learner thread at a time runs under CUDA's sync debug mode, which
+# is one setting of the whole process.
+_SYNC_MODE_LOCK = threading.Lock()
+
+
+def _checksums(tensors) -> torch.Tensor:
+    """Per tensor, two int64 sums over its raw bits (plain, and weighted by
+    position), on the card: equal rows mean equal bytes, up to a collision
+    of both sums. Integer sums do not depend on the order of addition."""
+    rows = []
+    for t in tensors:
+        flat = t.detach().reshape(-1)
+        bits = flat.view(torch.int16 if flat.element_size() == 2
+                         else torch.int32).to(torch.int64)
+        w = torch.arange(1, bits.numel() + 1, device=bits.device)
+        rows.append(torch.stack([bits.sum(), (bits * w).sum()]))
+    return torch.stack(rows)
+
+
+class _Learner:
+    """One elastic learner of the accumulate phase: its own Rpc (and
+    Telemetry), a Group at sort order ``rank`` (its place in the reduce
+    tree), an Accumulator(virtual_batch_size=64, parallel_gradients=1)
+    whose get_state/set_state take the state lock, a model with
+    experiment.py's RMSprop chain, make_grad_step(grad_scale=32) and
+    make_apply_step, one seeded learn batch of its own, and a
+    GlobalStatsAccumulator of its env_steps. Its thread owns the
+    Accumulator: it calls update(), contributes one gradient an update
+    (skipping the count rounds that poll it again before the virtual
+    batch fills) while its params are below ``target``, and applies every
+    result: the mean goes onto the card pinned and non-blocking, the
+    apply runs under the state lock, and the params' checksums are
+    recorded on the card for every version."""
+
+    def __init__(self, name: str, rank: int, broker_addr: str, group: str,
+                 kind: str, seed: int = 0, chunk_bytes=None):
+        from moolib_tpu_torch import (ClippedRMSprop, ImpalaConfig, ImpalaNet,
+                                      make_apply_step, make_grad_step,
+                                      make_train_state)
+        from moolib_tpu_torch.parallel import (Accumulator,
+                                               GlobalStatsAccumulator)
+        from moolib_tpu_torch.rpc import Group, Rpc
+        from moolib_tpu_torch.telemetry import Telemetry
+        from moolib_tpu_torch.utils import StatSum, Stats
+
+        self.name = name
+        self.rpc = Rpc(name, telemetry=Telemetry(name, enabled=True))
+        self.rpc.set_timeout(ACC_BUDGET_S)
+        self.rpc.listen("127.0.0.1:0")
+        self.rpc.connect(broker_addr)
+        if kind == "transformer":
+            net = _serve_net(seed).train()
+        else:  # experiment.py's default pixel model, f32
+            net = ImpalaNet(6, compute_dtype=torch.float32, device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(4 + seed))
+        self.state = make_train_state(net, ClippedRMSprop(
+            net.parameters(), 6e-4, decay=0.99, eps=0.01, max_norm=40.0))
+        cfg = ImpalaConfig(discounting=0.99, baseline_cost=0.5,
+                           entropy_cost=0.0006, reward_clip=1.0)
+        self.grad_step = make_grad_step(config=cfg,
+                                        grad_scale=float(LEARN_B))
+        self.apply_step = make_apply_step()
+        self.batch = _learn_batches(torch.Generator(
+            device="cuda").manual_seed(100 + rank), 1)[0]
+        self.lock = threading.Lock()  # the state lock
+        self.group = Group(self.rpc, group_name=group, sort_order=rank,
+                           timeout=ACC_GROUP_TIMEOUT)
+        self.acc = Accumulator(
+            self.rpc, group=self.group, virtual_batch_size=ACC_VBS,
+            parallel_gradients=1, get_state=self._get_state,
+            set_state=self._set_state, chunk_bytes=chunk_bytes)
+        self.stats = Stats(env_steps=StatSum())
+        self.gsa = GlobalStatsAccumulator(self.group, self.stats)
+        self.target = 0
+        self.done_step = 0  # the step of the last update fully recorded
+        self.sent = False
+        self.t_sent = None  # when the last contribution was handed over
+        self.first_mean = None
+        self.contribs, self.applies = [], []
+        self.error = None
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name=f"learner {name}")
+        self.thread.start()
+
+    def _get_state(self):
+        from moolib_tpu_torch.learner import train_state_to_host
+
+        try:
+            with self.lock:
+                return train_state_to_host(self.state)
+        except Exception as e:  # reported by status(), fails the phase
+            self.error = f"get_state: {type(e).__name__}: {e}"
+            raise
+
+    def _set_state(self, payload):
+        from moolib_tpu_torch.learner import load_train_state
+
+        try:
+            with self.lock:
+                self.state = load_train_state(self.state, payload)
+                self.done_step = self.state.step
+        except Exception as e:  # reported by status(), fails the phase
+            self.error = f"set_state: {type(e).__name__}: {e}"
+            raise
+
+    def _run(self):
+        try:
+            while not self.stop.is_set():
+                self.acc.update()
+                busy = False
+                if self.state.step < self.target and \
+                        self.acc.wants_gradients():
+                    if self.sent:
+                        self.acc.skip_gradients()
+                    else:
+                        self._contribute()
+                        busy = True
+                if self.acc.has_gradients():
+                    self._apply()
+                    busy = True
+                if not busy:
+                    time.sleep(0.0005)
+        except BaseException as e:  # reported by status(), fails the phase
+            self.error = f"{type(e).__name__}: {e}"
+
+    def _contribute(self):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        grads, _ = self.grad_step(self.state.model, self.batch)
+        ev[1].record()
+        t0 = time.perf_counter()
+        with _SYNC_MODE_LOCK:
+            _no_sync(self.acc.reduce_gradients, grads, LEARN_B)
+        self.t_sent = time.perf_counter()
+        self.contribs.append(dict(
+            events=ev, step=self.state.step, wall=time.time(),
+            allreduce_ms=1e3 * (self.t_sent - t0)))
+        self.stats["env_steps"] += UNROLL * LEARN_B
+        self.sent = True
+
+    def _apply(self):
+        from moolib_tpu_torch.ops import stage_batch
+
+        t_result = time.perf_counter()
+        mean, count = self.acc.result_gradients()
+        if self.first_mean is None:
+            self.first_mean = {k: np.array(v) for k, v in mean.items()}
+        grads = stage_batch(mean, "cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with self.lock:
+            ev[0].record()
+            self.state = self.apply_step(self.state, grads)
+            ev[1].record()
+        version = self.acc.result_model_version()
+        self.acc.zero_gradients()
+        self.sent = False
+        self.applies.append(dict(
+            version=version, step=self.state.step, count=count, events=ev,
+            t=time.perf_counter(), wall=time.time(), reduce_ms=(
+                None if self.t_sent is None
+                else 1e3 * (t_result - self.t_sent)),
+            checksum=_checksums(self.state.model.parameters())))
+        self.done_step = self.state.step
+
+    def state_checksum(self) -> list:
+        """Checksums of the params and the optimizer's nu, read back."""
+        with self.lock:
+            params = list(self.state.model.parameters())
+            nu = [self.state.optimizer.state[p]["nu"] for p in params]
+            return _checksums(params + nu).cpu().tolist()
+
+    def status(self) -> dict:
+        stats = self.acc.get_gradient_stats()
+        return dict(step=self.done_step, version=self.acc.model_version,
+                    connected=self.acc.connected(), synced=stats["synced"],
+                    leader=self.acc.get_leader(),
+                    members=self.group.members, error=self.error,
+                    count_rounds=stats["count_rounds"],
+                    gradient_rounds=stats["gradient_rounds"],
+                    ops=sorted(self.group._active),
+                    state_request=self.acc._state_req_inflight)
+
+    def counters(self) -> dict:
+        """The cumulative readings that report() subtracts a base of."""
+        from moolib_tpu_torch.telemetry import summarize_stepscope
+
+        reg = self.rpc.telemetry.registry
+        return dict(
+            acc_grad_round=summarize_stepscope(reg.snapshot()).get(
+                "acc_grad_round"),
+            lanes=_lane_bytes(self.rpc),
+            gradient_rounds=int(reg.value("acc_gradient_rounds_total") or 0),
+            count_rounds=int(reg.value("acc_count_rounds_total") or 0))
+
+    def report(self) -> dict:
+        """What the learner recorded (read once it is idle): per applied
+        update its version, count and params' checksums; the medians of
+        its grad step, reduce_gradients and apply; the Accumulator's
+        acc_grad_round ledger; its group's rounds and its lanes' bytes."""
+        torch.cuda.synchronize()
+        reg = self.rpc.telemetry.registry
+        stats = self.acc.get_gradient_stats()
+        return dict(**self.counters(),
+            updates=[dict(version=a["version"], step=a["step"],
+                          count=a["count"], t=a["t"], wall=a["wall"],
+                          reduce_ms=a["reduce_ms"],
+                          checksum=a["checksum"].cpu().tolist(),
+                          apply_ms=a["events"][0].elapsed_time(
+                              a["events"][1]))
+                     for a in self.applies],
+            contribs=[dict(step=c["step"], allreduce_ms=c["allreduce_ms"],
+                           wall=c["wall"],
+                           grad_ms=c["events"][0].elapsed_time(
+                               c["events"][1]))
+                      for c in self.contribs],
+            group_rounds_total=reg.value("group_rounds_total",
+                                         group=self.group.group_name),
+            chunked_rounds=stats["chunked_gradient_rounds"],
+            negotiated_chunk=stats["negotiated_chunk_bytes"],
+            leader=stats["leader"], env_steps=self.stats["env_steps"].result(),
+            params=sum(p.numel() for p in self.state.model.parameters()))
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=30)
+        self.acc.close()
+        self.group.close()
+        self.rpc.close()
+
+
+def acc_child(broker_addr: str) -> int:
+    """The second process of the accumulate phase (``chip_smoke.py
+    --acc-child BROKER``): learners created, driven and read by the
+    parent through one control endpoint, ``chip_acc(op, ...)``: the
+    process's kernel launch counts (``reset``, ``kernels``), ``learner``
+    (a new _Learner), ``target``, ``status``, ``state_checksum``,
+    ``stats`` (start each learner's global stats round), ``stats_result``,
+    ``report`` and ``close``. Prints its address, then serves until its
+    stdin closes. Its chunk size is its environment's
+    MOOLIB_TPU_ALLREDUCE_CHUNK."""
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.rpc import Rpc
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the accumulate phase's learners need the card")
+    torch.backends.cudnn.deterministic = True
+    _log_accumulators()
+    learners = {}
+
+    def control(op, *args):
+        if op == "reset":
+            for kern in KERNELS:
+                kern.launches = 0
+            return None
+        if op == "kernels":
+            return {kern.name: kern.launches for kern in KERNELS}
+        if op == "learner":
+            name, rank, group, kind, seed = args
+            learners[name] = _Learner(name, rank, broker_addr, group, kind,
+                                      seed)
+            return True
+        if op == "target":
+            learners[args[0]].target = int(args[1])
+            return True
+        if op == "status":
+            return {n: lr.status() for n, lr in learners.items()}
+        if op == "stacks":
+            return _thread_stacks()
+        if op == "state_checksum":
+            return learners[args[0]].state_checksum()
+        if op == "stats":
+            return {n: lr.gsa.enqueue_global_stats()
+                    for n, lr in learners.items()}
+        if op == "stats_result":
+            return {n: dict(busy=lr.gsa.busy,
+                            local=lr.stats["env_steps"].result(),
+                            global_=lr.gsa.global_stats.results())
+                    for n, lr in learners.items()}
+        if op == "report":
+            return {n: lr.report() for n, lr in learners.items()}
+        if op == "close":
+            for lr in learners.values():
+                lr.close()
+            learners.clear()
+            return True
+        raise ValueError(f"unknown op {op!r}")
+
+    ctl = Rpc("acc-child")
+    ctl.set_timeout(ACC_BUDGET_S)
+    ctl.listen("127.0.0.1:0")
+    ctl.define("chip_acc", control)
+    print(json.dumps({"addr": ctl.debug_info()["listen"][0]}), flush=True)
+    sys.stdin.read()  # until the parent closes the pipe (or exits)
+    for lr in learners.values():
+        lr.close()
+    ctl.close()
+    return 0
+
+
+@contextlib.contextmanager
+def _counting_split_reduces(calls: list):
+    """Record this process's allreduces that the Group splits into chunk
+    sub-ops (the name and chunk floor of each): a measuring instrument,
+    since neither package counts them."""
+    from moolib_tpu_torch.rpc.group import Group
+
+    split = Group._all_reduce_chunked
+
+    def counted(self, name, data, leaves, op_fn, floor):
+        calls.append((name, floor))
+        return split(self, name, data, leaves, op_fn, floor)
+
+    Group._all_reduce_chunked = counted
+    try:
+        yield
+    finally:
+        Group._all_reduce_chunked = split
+
+
+def _until(cond, what: str, describe=None, timeout: float = ACC_BUDGET_S,
+           poll=0.01):
+    t_end = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > t_end:
+            raise RuntimeError(f"accumulate phase: {what} not reached "
+                               f"within {timeout} s"
+                               + (f"; {describe()}" if describe else ""))
+        time.sleep(poll)
+
+
+def _thread_stacks() -> str:
+    """Every thread's stack in this process (a stalled run's evidence)."""
+    import traceback
+
+    names = {t.ident: t.name for t in threading.enumerate()}
+    return "\n".join(
+        f"--- thread {names.get(ident, ident)}\n"
+        + "".join(traceback.format_stack(frame))
+        for ident, frame in sys._current_frames().items())
+
+
+def _log_accumulators() -> None:
+    """The accumulators' elections, state syncs and failed rounds on
+    stderr (their info and debug lines)."""
+    import logging
+
+    from moolib_tpu_torch.utils import get_logger
+
+    acc_log = get_logger("accumulator")
+    if not acc_log.handlers:
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(process)d %(name)s: %(message)s"))
+        acc_log.addHandler(handler)
+        acc_log.setLevel(logging.DEBUG)
+
+
+class _AccRun:
+    """The processes of the accumulate phase's runs: a fresh Broker and
+    each run's learner-0 here, the other learners in a child process
+    (this script with --acc-child) with ``env`` added to its
+    environment."""
+
+    def __init__(self, env=None):
+        from moolib_tpu_torch.rpc import Rpc
+        from moolib_tpu_torch.rpc.broker import Broker
+
+        self.broker_rpc = Rpc("broker")
+        self.broker_rpc.listen("127.0.0.1:0")
+        self.addr = self.broker_rpc.debug_info()["listen"][0]
+        self.broker = Broker(self.broker_rpc)
+        self.stop = threading.Event()
+        self.pump = threading.Thread(target=self._pump, daemon=True)
+        self.pump.start()
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.child = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             ACC_CHILD_FLAG, self.addr], cwd=here, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True,
+            env={**os.environ, **(env or {})})
+        self.client = None
+        self.learners = []
+        try:
+            addr = _child_addresses(self.child)["addr"]
+            self.client = Rpc("acc-client")
+            self.client.set_timeout(ACC_BUDGET_S)
+            self.client.connect(addr)
+        except BaseException:
+            self.close()
+            raise
+
+    def _pump(self):
+        while not self.stop.is_set():
+            self.broker.update()
+            time.sleep(0.02)
+
+    def dump(self) -> str:
+        """Every learner's status and both processes' thread stacks."""
+        here = _thread_stacks()
+        try:
+            there = self.ctl("stacks")
+        except Exception as e:  # the evidence is best effort
+            there = f"(the child's stacks: {type(e).__name__}: {e})"
+        print(f"=== status {self.status()}\n=== stacks here\n{here}\n"
+              f"=== stacks in the child\n{there}", file=sys.stderr,
+              flush=True)
+        return "status and stacks on stderr"
+
+    def ctl(self, op, *args):
+        return self.client.async_("acc-child", "chip_acc", op, *args).result(
+            timeout=ACC_BUDGET_S)
+
+    def learner(self, *args, **kw) -> "_Learner":
+        lr = _Learner(*args, **kw)
+        self.learners.append(lr)
+        return lr
+
+    def status(self) -> dict:
+        st = {lr.name: lr.status() for lr in self.learners}
+        st.update(self.ctl("status"))
+        bad = {n: s["error"] for n, s in st.items() if s["error"]}
+        if bad:
+            raise RuntimeError(f"accumulate phase: learner failed: {bad}")
+        return st
+
+    def train_to(self, target: int, names) -> float:
+        """Every learner trains until its params reach version ``target``;
+        returns the seconds it took."""
+        t0 = time.perf_counter()
+        for lr in self.learners:
+            lr.target = target
+        for name in names:
+            self.ctl("target", name, target)
+        _until(lambda: all(s["step"] >= target
+                           for s in self.status().values()),
+               f"version {target} on every learner", self.dump)
+        return time.perf_counter() - t0
+
+    def reports(self) -> dict:
+        out = {lr.name: lr.report() for lr in self.learners}
+        out.update(self.ctl("report"))
+        return out
+
+    def close_learners(self):
+        """Close every learner, here and in the child."""
+        try:
+            for lr in self.learners:
+                lr.close()
+        finally:
+            self.learners = []
+            self.ctl("close")
+
+    def close(self):
+        try:
+            if self.client is not None:
+                try:
+                    self.close_learners()
+                finally:
+                    self.client.close()
+        finally:
+            self.child.stdin.close()
+            try:
+                code = self.child.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.child.kill()
+                self.child.wait(timeout=30)
+                raise RuntimeError("the accumulate child did not exit") \
+                    from None
+            finally:
+                self.stop.set()
+                self.pump.join(timeout=5)
+                self.broker_rpc.close()
+        if code != 0:
+            raise RuntimeError(f"the accumulate child exited with {code}")
+
+
+def _check_versions(reps: dict, tag: str) -> dict:
+    """Every learner's params hold the same bits at every version that
+    more than one learner applied; returns {version: checksum rows}."""
+    by_version = {}
+    for name, rep in reps.items():
+        for u in rep["updates"]:
+            by_version.setdefault(u["version"], {})[name] = u["checksum"]
+    for v, rows in sorted(by_version.items()):
+        if len({json.dumps(r) for r in rows.values()}) != 1:
+            raise RuntimeError(f"{tag}: the learners' params differ after "
+                               f"update {v} ({sorted(rows)})")
+    return {v: next(iter(rows.values())) for v, rows in by_version.items()}
+
+
+def _acc_readings(tag: str, rep: dict, since: int, seconds: float,
+                  base=None) -> dict:
+    """The [acc] line of one learner's report, over the updates past
+    version ``since``; ``base``, the same learner's counters() taken
+    earlier, is subtracted from the cumulative readings."""
+    def minus(a, b):
+        return a - (b or 0)
+
+    updates = [u for u in rep["updates"] if u["version"] > since]
+    contribs = [c for c in rep["contribs"] if c["step"] >= since]
+    rounds = rep["acc_grad_round"] or {"steps": 0, "wall_s": 0.0,
+                                       "phases": {}}
+    b_rounds = (base or {}).get("acc_grad_round") or {
+        "steps": 0, "wall_s": 0.0, "phases": {}}
+    n = max(rounds["steps"] - b_rounds["steps"], 1)
+    per_round = {ph: 1e3 * minus(v, b_rounds["phases"].get(ph)) / n
+                 for ph, v in rounds["phases"].items()}
+    grad_rounds = max(minus(rep["gradient_rounds"],
+                            (base or {}).get("gradient_rounds")), 1)
+    count_rounds = minus(rep["count_rounds"], (base or {}).get("count_rounds"))
+    lane_mb = {t: minus(b, (base or {}).get("lanes", {}).get(t)) / 1e6
+               / grad_rounds for t, b in rep["lanes"].items()}
+    ts = [u["t"] for u in updates]
+    reduce_ms = [u["reduce_ms"] for u in updates
+                 if u["reduce_ms"] is not None]
+    steady = (len(ts) - 1) / (ts[-1] - ts[0]) if len(ts) > 1 else 0.0
+    out = dict(updates=len(updates), seconds=seconds,
+               updates_per_s=len(updates) / seconds,
+               steady_updates_per_s=steady,
+               reduce_ms=float(np.median(reduce_ms)) if reduce_ms else None,
+               reduce_share=(float(np.median(reduce_ms)) * steady / 1e3
+                             if reduce_ms and steady else None),
+               grad_ms=float(np.median([c["grad_ms"] for c in contribs])),
+               allreduce_ms=float(np.median([c["allreduce_ms"]
+                                             for c in contribs])),
+               apply_ms=float(np.median([u["apply_ms"] for u in updates])),
+               acc_grad_round_ms=1e3 * minus(rounds["wall_s"],
+                                             b_rounds["wall_s"]) / n,
+               acc_grad_round_phases_ms=per_round,
+               wire_mb_per_grad_round=lane_mb, leader=rep["leader"],
+               group_rounds_total=rep["group_rounds_total"],
+               gradient_rounds=grad_rounds, count_rounds=count_rounds,
+               chunked_rounds=rep["chunked_rounds"],
+               negotiated_chunk=rep["negotiated_chunk"],
+               counts=[u["count"] for u in updates], params=rep["params"])
+    log(f"[acc] {tag}: {out['updates']} updates in {seconds:.3f} s "
+        f"({out['updates_per_s']:.3f} updates/s; from the first to the "
+        f"last apply {out['steady_updates_per_s']:.3f}) | per update, "
+        f"medians: the reduce (reduce_gradients' return to the result) "
+        f"{out['reduce_ms']} ms, share of an update {out['reduce_share']};"
+        f" grad step {out['grad_ms']:.3f} ms (CUDA events), "
+        f"grad_allreduce (reduce_gradients, host) "
+        f"{out['allreduce_ms']:.3f} ms, acc_grad_round "
+        f"{out['acc_grad_round_ms']:.3f} ms a round ("
+        + ", ".join(f"{ph} {v:.3f}" for ph, v in sorted(per_round.items()))
+        + f"), apply {out['apply_ms']:.3f} ms (CUDA events) | wire MB per "
+        f"gradient round by lane "
+        f"{ {t: round(v, 3) for t, v in lane_mb.items()} } | leader "
+        f"{rep['leader']} | group_rounds_total {rep['group_rounds_total']} |"
+        f" count rounds {count_rounds} "
+        f"({count_rounds / max(len(updates), 1):.1f} an update) | gradient "
+        f"rounds {grad_rounds} "
+        f"(chunked wire format in the run "
+        f"{rep['chunked_rounds']}, negotiated chunk "
+        f"{rep['negotiated_chunk']}), counts {out['counts']} | "
+        f"{rep['params']} parameters")
+    return out
+
+
+def _cpu_mean_ref(state_dict, ranks) -> dict:
+    """The first update's mean on the CPU: the same peers' grad steps
+    (grad_scale 32, their own learn batches) on the same params with
+    dense attention, summed and divided by the virtual batch."""
+    from moolib_tpu_torch import ImpalaConfig, TransformerNet, make_grad_step
+
+    cpu = TransformerNet(6, (84, 84, 4), compute_dtype=torch.bfloat16,
+                         attention_backend="dense", device="cpu")
+    cpu.load_state_dict(state_dict)
+    cfg = ImpalaConfig(discounting=0.99, baseline_cost=0.5,
+                       entropy_cost=0.0006, reward_clip=1.0)
+    step = make_grad_step(config=cfg, grad_scale=float(LEARN_B))
+    total = None
+    for r in ranks:
+        batch = _learn_batches(torch.Generator(
+            device="cuda").manual_seed(100 + r), 1)[0]
+        g, _ = step(cpu, _to_cpu(batch))
+        total = g if total is None else {n: total[n] + g[n] for n in g}
+    return {n: (v / ACC_VBS).numpy() for n, v in total.items()}
+
+
+def _transformer_run(run: "_AccRun", chunked: bool) -> dict:
+    """Two learners (learner-0 here, learner-1 in the child) train the
+    full-width TransformerNet ACC_UPDATES updates; in the unchunked run a
+    third, learner-2 (the child, another seed), then joins, takes the
+    leader's state, and the three train ACC_JOIN_UPDATES more; global
+    stats close the run."""
+    from moolib_tpu_torch.ops._kernels import FLASH_BWD_TILE, FLASH_FWD, KERNELS
+
+    tag = "chunked" if chunked else "whole"
+    out = {}
+    try:
+        group = f"acc-{tag}"
+        for kern in KERNELS:
+            kern.launches = 0
+        run.ctl("reset")
+        l0 = run.learner("learner-0", 0, run.addr, group, "transformer",
+                         chunk_bytes=ACC_CHUNK if chunked else None)
+        run.ctl("learner", "learner-1", 1, group, "transformer", 0)
+        _until(lambda: all(s["connected"] and s["synced"]
+                           for s in run.status().values()),
+               "two connected learners")
+        initial = _checksums(l0.state.model.parameters()).cpu().tolist()
+        ref = None if chunked else _cpu_mean_ref(
+            {k: v.cpu() for k, v in l0.state.model.state_dict().items()},
+            (0, 1))
+        splits = []
+        start, before = time.time(), l0.counters()
+        with _counting_split_reduces(splits):
+            seconds = run.train_to(ACC_UPDATES, ["learner-1"])
+        grads_split = [f for n, f in splits if n.startswith("acc.grads.")]
+        log(f"[acc] transformer {tag}: learner-0's gradient reduces split "
+            f"into chunk sub-ops: {len(grads_split)} of {ACC_UPDATES} "
+            f"(chunk floor {sorted(set(grads_split))})")
+        if len(grads_split) != (ACC_UPDATES if chunked else 0) or any(
+                f != ACC_CHUNK for f in grads_split):
+            raise RuntimeError(f"transformer {tag}: split reduces {splits}")
+        out["split_reduces"] = len(grads_split)
+        if not chunked:
+            got = l0.first_mean
+            errs = {n: float(np.abs(got[n] - ref[n]).max())
+                    / float(np.abs(ref[n]).max()) for n in ref}
+            worst = max((n for n in errs if n not in BF16_GRAD_TOL),
+                        key=errs.get)
+            log(f"[acc] update 1's mean gradient vs the CPU's (dense "
+                f"attention, the same two learn batches): max relative "
+                f"error {errs[worst]:.3e} at {worst} (tol {TRAIN_GRAD_TOL})"
+                "; " + " ".join(f"{n} {errs[n]:.3e} (tol {t:.3e})"
+                                for n, t in BF16_GRAD_TOL.items()))
+            bad = [n for n, e in errs.items()
+                   if not e <= BF16_GRAD_TOL.get(n, TRAIN_GRAD_TOL)]
+            if bad:
+                raise RuntimeError(f"update 1's mean gradient differs from "
+                                   f"the CPU's at {bad}")
+            out["mean_grad_err"] = errs[worst]
+        two = run.reports()
+        log(f"[acc] transformer {tag}: seconds from the targets to each "
+            f"learner's first contribution "
+            f"{ {n: round(r['contribs'][0]['wall'] - start, 3) for n, r in two.items()} }"
+            f", to its first apply "
+            f"{ {n: round(r['updates'][0]['wall'] - start, 3) for n, r in two.items()} }")
+        versions = _check_versions(two, f"transformer {tag}")
+        if sorted(versions) != list(range(1, ACC_UPDATES + 1)) or any(
+                u["count"] != ACC_VBS for rep in two.values()
+                for u in rep["updates"]):
+            raise RuntimeError(f"transformer {tag}: updates "
+                               f"{sorted(versions)}, counts "
+                               f"{[u['count'] for u in two['learner-0']['updates']]}")
+        out["versions"] = {0: initial, **versions}
+        out["two"] = _acc_readings(f"transformer {tag}, 2 learners",
+                                   two["learner-0"], 0, seconds, before)
+        if chunked:
+            neg = {n: r["negotiated_chunk"] for n, r in two.items()}
+            if set(neg.values()) != {ACC_CHUNK}:
+                raise RuntimeError(f"the chunked run negotiated {neg}")
+        else:
+            # The joiner: another seed, so only the leader's state can
+            # make it equal.
+            run.ctl("learner", "learner-2", 2, group, "transformer", 7)
+            _until(lambda: (lambda st: len(st) == 3 and all(
+                s["connected"] and s["synced"] and len(s["members"]) == 3
+                for s in st.values()))(run.status()), "the joiner's sync",
+                run.dump, timeout=120.0)
+            st = run.status()
+            leader = st["learner-2"]["leader"]
+            want = (l0.state_checksum() if leader == "learner-0"
+                    else run.ctl("state_checksum", leader))
+            got = run.ctl("state_checksum", "learner-2")
+            log(f"[acc] learner-2 joined at version "
+                f"{st['learner-2']['step']}; leader {leader}; its params "
+                f"and nu equal the leader's: {got == want}")
+            if got != want or st["learner-2"]["step"] != ACC_UPDATES:
+                raise RuntimeError("the joiner's state differs from the "
+                                   "leader's")
+            target = ACC_UPDATES + ACC_JOIN_UPDATES
+            seconds3 = run.train_to(target, ["learner-1", "learner-2"])
+            three = run.reports()
+            _check_versions(three, "transformer, 3 learners")
+            out["three"] = _acc_readings(
+                "transformer whole, 3 learners", three["learner-0"],
+                ACC_UPDATES, seconds3, base=two["learner-0"])
+            out["leader"] = leader
+            # Global stats: every learner's env_steps, summed exactly.
+            started = [l0.gsa.enqueue_global_stats(),
+                       *run.ctl("stats").values()]
+            if not all(started):
+                raise RuntimeError("a global stats round did not start")
+            _until(lambda: not l0.gsa.busy and not any(
+                s["busy"] for s in run.ctl("stats_result").values()),
+                "the global stats round")
+            res = run.ctl("stats_result")
+            local = l0.stats["env_steps"].result() + sum(
+                s["local"] for s in res.values())
+            seen = [l0.gsa.global_stats.results()["env_steps"]] + [
+                s["global_"]["env_steps"] for s in res.values()]
+            log(f"[acc] GlobalStatsAccumulator env_steps on each learner "
+                f"{seen}; the learners' own sum {local}")
+            if any(v != local for v in seen):
+                raise RuntimeError(f"global env_steps {seen} != {local}")
+            out["env_steps"] = local
+        here = {kern.name: kern.launches for kern in KERNELS}
+        there = run.ctl("kernels")
+        out["launches"] = {k: here[k] + there[k] for k in here}
+        log(f"[acc] transformer {tag}: launches here {here}, in the child "
+            f"{there}")
+        for counts in (here, there):
+            if not (counts[FLASH_FWD.name] and counts[FLASH_BWD_TILE.name]):
+                raise RuntimeError(f"transformer {tag}: a process launched "
+                                   f"no flash_fwd or flash_bwd_tile: {counts}")
+    finally:
+        run.close_learners()
+    return out
+
+
+def _impala_run(run: "_AccRun") -> dict:
+    """Two learners of the full-width f32 ImpalaNet, ACC_IMPALA_UPDATES
+    updates, under the same checks; no flash kernel may launch."""
+    from moolib_tpu_torch.ops._kernels import KERNELS
+
+    try:
+        for kern in KERNELS:
+            kern.launches = 0
+        run.ctl("reset")
+        i0 = run.learner("impala-0", 0, run.addr, "acc-impala", "impala",
+                         chunk_bytes=ACC_CHUNK)
+        run.ctl("learner", "impala-1", 1, "acc-impala", "impala", 0)
+        _until(lambda: all(s["connected"] and s["synced"]
+                           for s in run.status().values()),
+               "two connected impala learners")
+        splits, before = [], i0.counters()
+        with _counting_split_reduces(splits):
+            seconds = run.train_to(ACC_IMPALA_UPDATES, ["impala-1"])
+        log(f"[acc] impala: learner impala-0's gradient reduces split into "
+            f"chunk sub-ops: "
+            f"{sum(n.startswith('acc.grads.') for n, _ in splits)} of "
+            f"{ACC_IMPALA_UPDATES}")
+        reps = run.reports()
+        _check_versions(reps, "impala")
+        out = _acc_readings("impala f32, 2 learners", reps["impala-0"], 0,
+                            seconds, before)
+        launches = [{k.name: k.launches for k in KERNELS}, run.ctl("kernels")]
+        if any(any(c.values()) for c in launches):
+            raise RuntimeError(f"the impala learners launched a flash "
+                               f"kernel: {launches}")
+    finally:
+        run.close_learners()
+    return out
+
+
+def _bench_allreduce() -> list:
+    """bench_allreduce_torch.py (4 peers, the reference's sizes) in a
+    process of its own, with a time limit."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    # A session of its own, so that a timeout also stops its workers.
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "bench_allreduce_torch.py"),
+         "--peers", "4"], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=ACC_BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"bench_allreduce_torch.py did not finish in "
+                           f"{ACC_BENCH_TIMEOUT_S} s") from None
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench_allreduce_torch.py exited with "
+                           f"{proc.returncode}: {stderr[-2000:]}")
+    rows = [json.loads(line) for line in stdout.splitlines()
+            if line.startswith("{")]
+    for row in rows:
+        log(f"[acc] bench_allreduce_torch: {json.dumps(row)}")
+    if len(rows) != 3:
+        raise RuntimeError(f"bench_allreduce_torch.py printed {rows}")
+    return rows
+
+
+def phase_acc() -> dict:
+    """Phase 9: the elastic gradient plane on the card (see the module
+    docstring)."""
+    _log_accumulators()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        run = _AccRun()
+        try:
+            whole = _transformer_run(run, chunked=False)
+        finally:
+            run.close()
+        run = _AccRun({"MOOLIB_TPU_ALLREDUCE_CHUNK": str(ACC_CHUNK)})
+        try:
+            chunked = _transformer_run(run, chunked=True)
+            same = [v for v in range(ACC_UPDATES + 1)
+                    if whole["versions"][v] == chunked["versions"][v]]
+            log(f"[acc] the chunked run's params equal the whole run's at "
+                f"versions {same} of 0-{ACC_UPDATES}")
+            if len(same) != ACC_UPDATES + 1:
+                raise RuntimeError("the chunked run's params differ from "
+                                   "the whole run's")
+            impala = _impala_run(run)
+        finally:
+            run.close()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    bench = _bench_allreduce()
+    launches = {k: whole["launches"][k] + chunked["launches"][k]
+                for k in whole["launches"]}
+    for result in (whole, chunked):
+        result.pop("versions")
+        result.pop("launches")
+    return dict(whole=whole, chunked=chunked, impala=impala, bench=bench,
+                launches={"acc": launches})
+
+
 BUNDLE_DIR = os.path.join("build", "flightrec")
 # The environment prefixes the port's bundles record (the reference's
 # MOOLIB, and the card's in place of JAX and XLA).
@@ -2506,6 +3367,7 @@ def main() -> int:
     if any(impala_launches.values()):
         raise RuntimeError(f"the impala path launched a flash kernel: "
                            f"{impala_launches}")
+    acc = phase_acc()
     bundles = phase_bundles(tels)
 
     launches_by_path = {
@@ -2513,7 +3375,7 @@ def main() -> int:
         [*serve_launches.items(), *rpc["launches"].items(),
          ("train", train["launches"]),
          ("context backward", context_backward),
-         ("impala", impala_launches)]
+         ("impala", impala_launches), *acc["launches"].items()]
     }
     never = [kname for kname in train["launches"]
              if not any(c[kname] for c in launches_by_path.values())]
@@ -2583,7 +3445,8 @@ def main() -> int:
                                  "grad_err", "tf32_grad_err", "param_err",
                                  "split_err", "ledgers")},
                       "impala": impala, "bundles": bundles,
-                      "rpc": {k: rpc[k] for k in rpc if k != "launches"}}),
+                      "rpc": {k: rpc[k] for k in rpc if k != "launches"},
+                      "acc": {k: acc[k] for k in acc if k != "launches"}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2595,4 +3458,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == [RPC_CHILD_FLAG]:
         sys.exit(rpc_child())
+    if sys.argv[1:2] == [ACC_CHILD_FLAG]:
+        sys.exit(acc_child(sys.argv[2]))
     sys.exit(main())

@@ -22,7 +22,11 @@ reference each ported part is tested against. The slices so far:
 - the RPC core (``Rpc``, its wire codec and native extension, the
   tcp/unix/shm transports, the ``Broker``), wire-compatible with the
   reference's, and the serving tier on it: ``Replica(rpc, ...)``, health
-  gating and the ``Router``.
+  gating and the ``Router``;
+- the elastic gradient plane: ``Group`` and its tree allreduce, the
+  ``Accumulator`` (leader election, virtual batches, state hand-off to
+  joiners), the ``GlobalStatsAccumulator`` and ``Stats``, and the
+  ``Checkpointer``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -51,7 +55,17 @@ from .models import (
 )
 from .ops import attention, stage_batch, vtrace
 from .optim import ClippedAdam, ClippedRMSprop, global_norm
-from .rpc import Broker, Future, Queue, Rpc, RpcDeferredReturn, RpcError
+from .parallel import Accumulator, GlobalStatsAccumulator
+from .rpc import (
+    AllReduce,
+    Broker,
+    Future,
+    Group,
+    Queue,
+    Rpc,
+    RpcDeferredReturn,
+    RpcError,
+)
 from .serving import (
     AdmissionQueue,
     CircuitBreaker,
@@ -64,17 +78,32 @@ from .serving import (
     error_kind,
 )
 from .telemetry import Telemetry, global_telemetry, publish_metrics
-from .utils import nest, resolve_device, set_log_level, set_logging
+from .utils import (
+    Checkpointer,
+    StatMax,
+    StatMean,
+    Stats,
+    StatSum,
+    nest,
+    resolve_device,
+    set_log_level,
+    set_logging,
+)
 
 __all__ = [
+    "Accumulator",
     "AdmissionQueue",
+    "AllReduce",
     "Broker",
+    "Checkpointer",
     "CircuitBreaker",
     "ClippedAdam",
     "ClippedRMSprop",
     "DeadlineExceeded",
     "FlightRecorder",
     "Future",
+    "GlobalStatsAccumulator",
+    "Group",
     "ImpalaConfig",
     "ImpalaNet",
     "LSTMCore",
@@ -87,6 +116,10 @@ __all__ = [
     "RpcDeferredReturn",
     "RpcError",
     "ServingError",
+    "StatMax",
+    "StatMean",
+    "StatSum",
+    "Stats",
     "Telemetry",
     "TrainState",
     "TransformerNet",

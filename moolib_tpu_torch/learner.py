@@ -30,17 +30,20 @@ import dataclasses
 import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .models.common import f32_convolutions
 from .ops import vtrace
 from .optim import global_norm
-from .utils import nest
+from .utils import HostStaged, nest, stage_host_async
 
 __all__ = [
     "ImpalaConfig",
     "TrainState",
     "make_train_state",
+    "train_state_to_host",
+    "load_train_state",
     "impala_loss",
     "make_impala_train_step",
     "make_grad_step",
@@ -75,6 +78,72 @@ def make_train_state(model: torch.nn.Module,
                      optimizer: torch.optim.Optimizer) -> TrainState:
     """``optimizer`` is built over ``model.parameters()``."""
     return TrainState(model=model, optimizer=optimizer, step=0)
+
+
+def train_state_to_host(state: TrainState) -> dict:
+    """A host copy of ``state``, keyed by parameter name: ``{"params":
+    {name: tensor}, "optimizer": {name: {key: tensor}}, "groups":
+    [hyperparameters of each param group], "step": int}``; the payload
+    of the Accumulator's state hand-off and of a checkpoint. Card tensors
+    are copied into pinned memory together and waited for by their
+    events (no stream synchronize), host tensors are cloned. The state
+    is updated in place by the apply step, so call it under the lock
+    that orders it against the apply (the elastic loop's state lock)."""
+    named = list(state.model.named_parameters())
+    opt = state.optimizer
+    tree = {
+        "params": {n: p.detach() for n, p in named},
+        "optimizer": {n: dict(opt.state[p]) for n, p in named
+                      if p in opt.state},
+    }
+    staged = stage_host_async(tree)
+    tree = nest.map_structure(
+        lambda x: x.result() if isinstance(x, HostStaged)
+        else x.detach().clone() if torch.is_tensor(x) else x, staged)
+    tree["groups"] = [{k: v for k, v in g.items() if k != "params"}
+                      for g in opt.param_groups]
+    tree["step"] = int(state.step)
+    return tree
+
+
+def _host_scalar(v):
+    # A host payload off the wire holds numbers as 0-d arrays.
+    if isinstance(v, np.ndarray) and v.ndim == 0:
+        return v.item()
+    return v
+
+
+def _upload(v, like: torch.Tensor) -> torch.Tensor:
+    """A host value (tensor or numpy array) on ``like``'s device: pinned
+    and non-blocking onto a card, ordered before later work on the
+    stream."""
+    t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+    if like.device.type == "cuda":
+        return t.contiguous().pin_memory().to(like.device, non_blocking=True)
+    return t.to(like.device)
+
+
+def load_train_state(state: TrainState, host: dict) -> TrainState:
+    """Load a :func:`train_state_to_host` payload (tensors, or the numpy
+    arrays the wire delivers) into ``state`` in place: the parameters
+    and the optimizer's per-parameter state go onto the parameters'
+    device. Returns ``state`` with the payload's step."""
+    named = list(state.model.named_parameters())
+    opt = state.optimizer
+    with torch.no_grad():
+        for n, p in named:
+            p.copy_(_upload(host["params"][n], p))
+    for n, p in named:
+        if n in host["optimizer"]:
+            values = {k: _host_scalar(v)
+                      for k, v in host["optimizer"][n].items()}
+            opt.state[p] = {k: _upload(v, p) if hasattr(v, "shape") else v
+                            for k, v in values.items()}
+        else:
+            opt.state.pop(p, None)
+    for g, saved in zip(opt.param_groups, host["groups"]):
+        g.update({k: _host_scalar(v) for k, v in saved.items()})
+    return state._replace(step=int(_host_scalar(host["step"])))
 
 
 def call_model(model, obs, done, core_state):

@@ -1,12 +1,15 @@
 """The RPC core of the port: named peers, the wire codec, the transports
-(tcp, unix, the same-host shm lane) and the broker; the counterpart of
-:mod:`moolib_tpu.rpc`, wire-compatible with it. ``Group`` and
-``AllReduce`` are not ported yet."""
+(tcp, unix, the same-host shm lane), the broker, and the group
+membership view with its tree allreduce; the counterpart of
+:mod:`moolib_tpu.rpc`, wire-compatible with it."""
 
+from .group import AllReduce, Group
 from .rpc import Future, Queue, Rpc, RpcDeferredReturn, RpcError
 
 __all__ = [
+    "AllReduce",
     "Future",
+    "Group",
     "Queue",
     "Rpc",
     "RpcDeferredReturn",

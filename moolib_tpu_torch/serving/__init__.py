@@ -1,8 +1,7 @@
 """Serving tier of the port: admission control, the replica (in-process
 or bound to an RPC peer), health gating and the router; the counterpart
-of :mod:`moolib_tpu.serving`. ``publish_from_accumulator`` and
-``publish_from_statestore`` wait for the port's Accumulator and
-StateStore."""
+of :mod:`moolib_tpu.serving`. ``publish_from_statestore`` waits for the
+port's StateStore."""
 
 from ..rpc import RpcError
 from .admission import (
@@ -14,7 +13,7 @@ from .admission import (
 )
 from .health import CircuitBreaker, ReplicaHealth
 from .replica import ENDPOINT_SUFFIXES, Replica
-from .router import Router
+from .router import Router, publish_from_accumulator
 
 __all__ = [
     "AdmissionQueue",
@@ -28,4 +27,5 @@ __all__ = [
     "RpcError",
     "ServingError",
     "error_kind",
+    "publish_from_accumulator",
 ]

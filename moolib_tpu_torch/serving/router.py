@@ -1,7 +1,6 @@
 """Load-aware, health-gated request router with deadline-bounded
 failover; the counterpart of :mod:`moolib_tpu.serving.router`
-(``publish_from_accumulator`` and ``publish_from_statestore`` wait for
-the port's Accumulator and StateStore).
+(``publish_from_statestore`` waits for the port's StateStore).
 
 The router is the client-facing half of the serving tier: it owns the
 fleet view (one :class:`~moolib_tpu_torch.serving.health.ReplicaHealth` per
@@ -42,7 +41,7 @@ from ..utils import get_logger
 from .admission import DeadlineExceeded, Overloaded, error_kind
 from .health import CircuitBreaker, ReplicaHealth
 
-__all__ = ["Router"]
+__all__ = ["Router", "publish_from_accumulator"]
 
 log = get_logger("serving")
 
@@ -536,3 +535,14 @@ class Router:
     def __exit__(self, *exc):
         self.close()
 
+
+def publish_from_accumulator(router: Router, accumulator, params: Any,
+                             *, timeout_s: float = 30.0) -> Dict[str, bool]:
+    """Publish a training cohort's current weights into the serving
+    fleet: the version is the accumulator's ``model_version`` (already
+    monotone under its election/supersession rules), ``params`` the
+    bundle the trainer materialized for that version. In-flight requests
+    keep the params their batch captured — nothing is dropped by a swap."""
+    return router.publish_weights(
+        params, int(accumulator.model_version), timeout_s=timeout_s
+    )

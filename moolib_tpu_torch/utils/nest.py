@@ -17,6 +17,7 @@ import torch
 __all__ = [
     "map_structure",
     "flatten",
+    "unflatten_as",
     "stack_fields",
     "unstack_fields",
     "slice_fields",
@@ -60,6 +61,33 @@ def flatten(tree: Any) -> list:
     if isinstance(tree, (list, tuple)):
         return [leaf for x in tree for leaf in flatten(x)]
     return [tree]
+
+
+def unflatten_as(structure: Any, leaves: Iterable) -> Any:
+    """A tree shaped like ``structure`` with ``leaves`` in
+    :func:`flatten`'s order; the inverse of :func:`flatten`."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            items = [build(x) for x in node]
+            if _is_namedtuple(node):
+                return type(node)(*items)
+            return type(node)(items)
+        return next(it)
+
+    out = build(structure)
+    if next(it, _END) is not _END:
+        raise ValueError("more leaves than the structure holds")
+    return out
+
+
+_END = object()
 
 
 def stack_fields(trees: Iterable[Any], axis: int = 0) -> Any:

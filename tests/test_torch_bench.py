@@ -67,3 +67,19 @@ def test_time_train_step_refuses_non_finite_parameters():
         state.model.policy.weight.fill_(math.inf)
     with pytest.raises(RuntimeError, match="not finite"):
         time_train_step(make_impala_train_step(), state, batch, iters=1)
+
+
+def test_bench_allreduce_at_two_peers_prints_the_reference_keys(capsys):
+    """bench_allreduce_torch.py's tree sweep on the CPU at 2 peers and
+    2**10 floats: one JSON line of bench_allreduce.py's keys, each result
+    checked by the workers (the sum of the ranks)."""
+    import bench_allreduce_torch
+
+    rows = bench_allreduce_torch.bench_rpc_tree(2, (2**10,), timeout=120.0)
+    out = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(line) for line in out] == rows
+    (row,) = rows
+    assert set(row) == {"plane", "peers", "mb", "ms", "gbps"}
+    assert row["plane"] == "dcn_rpc_tree" and row["peers"] == 2
+    assert row["mb"] == round(2**10 * 4 / 1e6, 2)
+    assert row["ms"] > 0 and row["gbps"] > 0

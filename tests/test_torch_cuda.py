@@ -501,3 +501,189 @@ def test_rpc_handlers_get_cuda_tensors_and_reply_with_them(card):
         rep.close()
         client.close()
         host.close()
+
+
+def test_stage_host_async_copy_is_exact(card):
+    """Every CUDA leaf becomes a HostStaged whose pinned host tensor, once
+    its event completes, holds the leaf's bits; host leaves pass through."""
+    from moolib_tpu_torch.utils import HostStaged, stage_host_async
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn((64, 33), generator=gen, device="cuda"),
+            "h": torch.randn(1000, generator=gen,
+                             device="cuda").to(torch.bfloat16),
+            "t": torch.randn((8, 6), generator=gen, device="cuda").t(),
+            "i": torch.arange(17, device="cuda"),
+            "cpu": torch.ones(3), "n": 5}
+    staged = stage_host_async(tree)
+    assert staged["cpu"] is tree["cpu"] and staged["n"] == 5
+    for k in ("w", "h", "t", "i"):
+        s = staged[k]
+        assert isinstance(s, HostStaged) and s.host.is_pinned()
+        got = s.result()
+        assert s.is_ready()
+        assert got.dtype == tree[k].dtype and got.shape == tree[k].shape
+        assert torch.equal(got, tree[k].cpu()), k
+
+
+def _broker_pump(ref):
+    """Module-level thread target holding only a weakref between ticks."""
+    import time
+
+    while True:
+        self = ref()
+        if self is None or self.stop.is_set():
+            return
+        self.broker.update()
+        del self
+        time.sleep(0.05)
+
+
+class _PortCluster:
+    """A port Broker and port Accumulators, in this process."""
+
+    def __init__(self):
+        import threading
+        import weakref
+
+        from moolib_tpu_torch.rpc import Rpc
+        from moolib_tpu_torch.rpc.broker import Broker
+
+        self.broker_rpc = Rpc("broker")
+        self.broker_rpc.listen("127.0.0.1:0")
+        self.addr = self.broker_rpc.debug_info()["listen"][0]
+        self.broker = Broker(self.broker_rpc)
+        self.stop = threading.Event()
+        self._closed = False
+        self.thread = threading.Thread(
+            target=_broker_pump, args=(weakref.ref(self),), daemon=True)
+        self.thread.start()
+        self.peers = []
+
+    def accumulator(self, name, **kw):
+        from moolib_tpu_torch.parallel import Accumulator
+        from moolib_tpu_torch.rpc import Rpc
+
+        rpc = Rpc(name)
+        rpc.listen("127.0.0.1:0")
+        rpc.connect(self.addr)
+        acc = Accumulator(rpc, **kw)
+        self.peers.append((rpc, acc))
+        return acc
+
+    def pump(self, until, timeout=30.0):
+        import time
+
+        deadline = time.monotonic() + timeout
+        while not until():
+            assert time.monotonic() < deadline, [
+                a.get_gradient_stats() for _, a in self.peers]
+            for _, a in self.peers:
+                a.update()
+            time.sleep(0.005)
+
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        self.stop.set()
+        self.thread.join(timeout=5)
+        assert not self.thread.is_alive()
+        for rpc, acc in self.peers:
+            acc.close()
+            rpc.close()
+        self.broker_rpc.close()
+
+
+def test_reduce_gradients_of_card_tensors_never_waits_for_the_card(card):
+    """reduce_gradients stages card gradients and returns under CUDA's
+    sync debug mode "error" (any wait for the card would raise); the
+    reduced mean is the host's exact division of the staged bits."""
+    cluster = _PortCluster()
+    try:
+        acc = cluster.accumulator("card-peer", virtual_batch_size=3)
+        cluster.pump(lambda: acc.connected() and acc.wants_gradients())
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        grads = {"w": torch.randn((256, 128), generator=gen, device="cuda"),
+                 "h": torch.randn(512, generator=gen,
+                                  device="cuda").to(torch.bfloat16)}
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):  # the third call compacts landed parts
+                acc.reduce_gradients({k: v * 1.0 for k, v in grads.items()},
+                                     batch_size=1)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        cluster.pump(acc.has_gradients)
+        mean, count = acc.result_gradients()
+        assert count == 3
+        w = grads["w"].cpu().numpy()
+        assert mean["w"].tobytes() == (((w + w) + w) / 3).tobytes()
+        h = grads["h"].cpu()
+        assert torch.equal(mean["h"], ((h + h) + h) / 3)
+    finally:
+        cluster.close()
+
+
+def test_train_state_round_trips_through_get_state_and_set_state(card):
+    """A card TrainState after one step (parameters and ClippedRMSprop's
+    nu) handed from a leader to a joiner: bit for bit on the joiner's
+    card."""
+    import threading
+
+    from moolib_tpu_torch import (ClippedRMSprop, make_impala_train_step,
+                                  make_train_state)
+    from moolib_tpu_torch.learner import load_train_state, train_state_to_host
+
+    def train_state(seed):
+        net = TransformerNet(6, (5,), d_model=64, num_layers=1, num_heads=2,
+                             device="cuda",
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(seed))
+        return make_train_state(net, ClippedRMSprop(
+            net.parameters(), 6e-4, decay=0.99, eps=0.01, max_norm=40.0))
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    T, B = 4, 2
+    batch = {"obs": torch.randn((T + 1, B, 5), generator=gen, device="cuda"),
+             "done": torch.rand((T + 1, B), generator=gen,
+                                device="cuda") < 0.25,
+             "rewards": torch.randn((T + 1, B), generator=gen,
+                                    device="cuda"),
+             "actions": torch.randint(0, 6, (T, B), generator=gen,
+                                      device="cuda"),
+             "behavior_logits": torch.randn((T, B, 6), generator=gen,
+                                            device="cuda"),
+             "core_state": ()}
+    lead, _ = make_impala_train_step()(train_state(0), batch)
+    held = {"joiner": train_state(1)}
+    lock = threading.Lock()
+
+    def get_state():
+        with lock:
+            return train_state_to_host(lead)
+
+    def set_state(payload):
+        with lock:
+            held["joiner"] = load_train_state(held["joiner"], payload)
+
+    cluster = _PortCluster()
+    try:
+        leader = cluster.accumulator("lead", virtual_batch_size=2,
+                                     get_state=get_state)
+        leader.set_model_version(1)
+        joiner = cluster.accumulator("join", virtual_batch_size=2,
+                                     set_state=set_state)
+        cluster.pump(lambda: joiner.connected()
+                     and joiner.get_gradient_stats()["synced"])
+    finally:
+        cluster.close()
+    got = held["joiner"]
+    assert got.step == 1
+    for (n, a), b in zip(lead.model.named_parameters(),
+                         got.model.parameters()):
+        assert b.device.type == "cuda" and torch.equal(a, b), n
+        nu = got.optimizer.state[b]["nu"]
+        assert nu.device.type == "cuda", n
+        assert torch.equal(lead.optimizer.state[a]["nu"], nu), n

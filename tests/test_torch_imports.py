@@ -19,13 +19,14 @@ _CHILD = r"""
 import importlib, json, pkgutil, sys
 import moolib_tpu_torch
 import bench_torch
+import bench_allreduce_torch
 mods = [m.name for m in pkgutil.walk_packages(
     moolib_tpu_torch.__path__, "moolib_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "optax")
-             or m.startswith(("jax.", "flax.", "optax."))
+             if m in ("jax", "flax", "optax", "ml_dtypes")
+             or m.startswith(("jax.", "flax.", "optax.", "ml_dtypes."))
              or m == "moolib_tpu" or m.startswith("moolib_tpu."))
 print(json.dumps({"modules": mods, "bad": bad}))
 """
@@ -53,7 +54,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "bench.harness", "rpc", "rpc.rpc", "rpc.serial",
                 "rpc.shmring", "rpc.faults", "rpc.broker", "native",
                 "broker", "serving.router", "serving.health",
-                "utils.timer"):
+                "utils.timer", "rpc.group", "parallel",
+                "parallel.accumulator", "parallel.stats", "utils.stats",
+                "utils.staging", "utils.diskio", "utils.checkpoint"):
         assert f"moolib_tpu_torch.{mod}" in got["modules"], mod
     assert got["bad"] == [], got["bad"]
 
@@ -81,6 +84,15 @@ def test_bench_torch_imports_no_jax_and_no_reference_package():
     assert any(n.startswith("moolib_tpu_torch") for n in names), names
     bad = [n for n in names
            if n.split(".")[0] in ("jax", "flax", "optax", "moolib_tpu")]
+    assert bad == [], bad
+
+
+def test_bench_allreduce_torch_imports_no_jax_and_no_reference_package():
+    names = list(_imported_roots(REPO_ROOT / "bench_allreduce_torch.py"))
+    assert any(n.startswith("moolib_tpu_torch") for n in names), names
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "flax", "optax", "moolib_tpu",
+                                  "ml_dtypes")]
     assert bad == [], bad
 
 

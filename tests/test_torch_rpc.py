@@ -422,10 +422,14 @@ def test_executor_reads_the_ports_max_threads(monkeypatch):
 
 
 def test_group_and_allreduce_are_not_ported():
+    # They are now: the package exports the port's own Group and
+    # AllReduce (tests/test_torch_group.py drives them).
     assert port_rpc.Broker.__module__ == "moolib_tpu_torch.rpc.broker"
     for name in ("Group", "AllReduce"):
-        with pytest.raises(AttributeError):
-            getattr(port_rpc, name)
+        assert getattr(port_rpc, name).__module__ == \
+            "moolib_tpu_torch.rpc.group"
+    with pytest.raises(AttributeError):
+        port_rpc.NotAThing
 
 
 # -- cross-package pairs ------------------------------------------------------

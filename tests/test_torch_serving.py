@@ -796,6 +796,36 @@ def _scale_fleet(n=2, **kw):
     return rpcs, reps, client, router
 
 
+def test_publish_from_accumulator_takes_the_accumulators_version():
+    """A Router over a replica on the CPU: publish_from_accumulator swaps
+    in the trainer's params under the accumulator's model_version."""
+    from moolib_tpu_torch.parallel import Accumulator
+    from moolib_tpu_torch.serving import publish_from_accumulator
+
+    rpcs, reps, client, router = _scale_fleet(n=1)
+    trainer = Rpc("pubtrainer")
+    acc = Accumulator(trainer, virtual_batch_size=1)
+    try:
+        acc.set_model_version(42)
+        acks = publish_from_accumulator(router, acc, 3.0, timeout_s=RPC_WAIT)
+        assert acks == {"screp0": True}
+        assert reps[0].version == 42
+        health = client.async_("screp0", "serve.health").result(
+            timeout=RPC_WAIT)
+        assert health["model_version"] == 42
+        x = np.ones(3, np.float32)
+        np.testing.assert_array_equal(router.infer(x, budget_s=RPC_WAIT),
+                                      3 * x)
+    finally:
+        acc.close()
+        trainer.close()
+        router.close()
+        client.close()
+        for rep, rpc in zip(reps, rpcs):
+            rep.close()
+            rpc.close()
+
+
 def test_rpc_fleet_failover_zero_accepted_dropped():
     """The reference's failover case on port peers: one of two replicas
     dies mid-load; every accepted request completes on the survivor or
