@@ -124,15 +124,45 @@ Phases, in order; any failure exits non-zero before the result line:
    build/flightrec/; each must load and validate, record only MOOLIB,
    TORCH, PYTORCH, CUDA and NCCL environment keys, and (train and
    impala) carry a step_phases event of every scoped loop.
-11. The kernels line (with the ledgers, the bundles' summaries and the
-    RPC and accumulate phases' readings; launches_by_path includes "rpc
-    act" and "rpc context", the child's launches, and "acc", both
-    processes' launches in the accumulate phase's transformer runs),
-    the card line, and the result line.
+11. E2E: the acting plane and experiment.py's loop. (a) A port EnvPool
+   of 2 workers x 16 SyntheticAtari envs (episodes of 7 steps, seeded
+   by index) stepped with a fixed action script through two
+   EnvBatchStates and a learn Batcher(32, dim=1, dims={"core_state":
+   0}) up to two learn batches [21, 32], each equal bit for bit to the
+   same envs stepped here by a plain loop; the first batch through
+   stage_batch onto the card, the full-width TransformerNet's grad step
+   on it held against the same step on the CPU at phase 6's
+   tolerances; a pool with device="cuda" whose staged step equals the
+   plain loop's. (b) train() of experiment.py, model=transformer, for
+   45 s with its defaults (32 envs, 2 workers, T=20, learn batch 32,
+   ClippedRMSprop, bf16), checkpointing at every chance into
+   build/e2e/, then a 10 s resume from it, then the same loop for 20 s
+   without a savedir, its updates [10, 13) traced by profile_dir
+   (torch.profiler). Checks: at least 10 updates, finite losses, global
+   env steps counted, model_version carried over, flash_fwd and
+   flash_bwd_tile launched ("e2e transformer" in launches_by_path, over
+   the three runs), no env worker died (train() would retry the step).
+   Readings: env-steps/s and updates/s from the first logged row to the
+   last, skips and dropped unrolls, the vtrace_learner ledger (median
+   and mean ms per phase, other, the host-blocked share), the windows'
+   mean episode return beside a uniform policy's 200/6; for the run
+   without a savedir, its rates and ledger, the device's busy time and
+   idle share in the traced window, and the
+   host's heaviest CUDA runtime calls and operators there. (c)
+   bench_e2e_torch.py (the bf16 ImpalaNet loop at B=64, 60 s) in a
+   process of its own: its JSON line, its ledger and its env worker
+   deaths (none allowed) from the JSON line it prints on stderr, and its
+   rate beside phase 8's bench_torch.py learner-only rate. [e2e] lines.
+12. The kernels line (with the ledgers, the bundles' summaries and the
+    RPC, accumulate and e2e phases' readings; launches_by_path includes
+    "rpc act" and "rpc context", the child's launches, "acc", both
+    processes' launches in the accumulate phase's transformer runs, and
+    "e2e transformer", the transformer loop's), the card line, and the
+    result line.
 
 Lines tagged [telemetry], [stepscope] and [flightrec] carry the
 observability checks and readings, [rpc] lines the RPC phase's, [acc]
-lines the accumulate phase's.
+lines the accumulate phase's, [e2e] lines the e2e phase's.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -3300,6 +3330,463 @@ def phase_acc() -> dict:
                 launches={"acc": launches})
 
 
+# The e2e phase: the acting plane and the experiment loop on the card.
+E2E_ENVS, E2E_WORKERS = 32, 2   # the data path's pool: 2 workers x 16 envs
+# The data path's episode length: odd, so that the resets fall in both
+# buffers (the two buffers step the same envs in turn).
+E2E_EPISODE = 7
+E2E_SECONDS = 45.0   # the transformer loop's run
+E2E_RESUME_SECONDS = 10.0
+E2E_PLAIN_SECONDS = 20.0  # the same loop without a savedir, profiled
+E2E_PROFILE_DIR = os.path.join("build", "e2e_profile")
+E2E_BENCH_SECONDS = 60.0
+E2E_BENCH_TIMEOUT_S = 300.0
+E2E_SAVEDIR = os.path.join("build", "e2e")
+# A uniform policy's episode return on the synthetic env: 200 steps, one
+# rewarded action in 6.
+E2E_UNIFORM_RETURN = 200 / 6
+
+
+def _e2e_actions(b: int, j: int) -> np.ndarray:
+    """The data path's action script: buffer ``b``'s ``j``-th step."""
+    return (7 * j + 3 * np.arange(E2E_ENVS) + b) % 6
+
+
+def _e2e_logits(b: int, j: int) -> np.ndarray:
+    """The behaviour logits recorded with ``_e2e_actions(b, j)``."""
+    return np.random.default_rng(1000 * b + j).standard_normal(
+        (E2E_ENVS, 6)).astype(np.float32)
+
+
+def _e2e_env_fn():
+    import functools
+
+    from moolib_tpu_torch.examples.envs import create_synthetic_atari
+
+    return functools.partial(create_synthetic_atari, num_actions=6,
+                             episode_length=E2E_EPISODE)
+
+
+def _plain_frames(n: int) -> dict:
+    """The same envs stepped in this process by a plain loop, in the
+    pool's dispatch order (buffer 0's step j, then buffer 1's): per
+    buffer, the n step results with the worker's auto-reset and episode
+    stats."""
+    env_fn = _e2e_env_fn()
+    envs = [env_fn(i) for i in range(E2E_ENVS)]
+    for env in envs:
+        env.reset()
+    ep_step = np.zeros(E2E_ENVS, np.int64)
+    ep_ret = np.zeros(E2E_ENVS, np.float64)
+    frames = {0: [], 1: []}
+    for j in range(n):
+        for b in (0, 1):
+            obs, rew, done, steps, rets = [], [], [], [], []
+            for i, (env, a) in enumerate(zip(envs, _e2e_actions(b, j))):
+                o, r, term, trunc, _ = env.step(int(a))
+                d = bool(term or trunc)
+                ep_step[i] += 1
+                ep_ret[i] += float(r)
+                if d:
+                    o, _ = env.reset()
+                obs.append(o)
+                rew.append(r)
+                done.append(d)
+                steps.append(ep_step[i])
+                rets.append(ep_ret[i])
+                if d:
+                    ep_step[i], ep_ret[i] = 0, 0.0
+            frames[b].append(dict(
+                obs=np.stack(obs), reward=np.array(rew, np.float32),
+                done=np.array(done), episode_step=np.array(steps, np.int64),
+                episode_return=np.array(rets, np.float64)))
+    return frames
+
+
+def _plain_unroll(frames, b: int) -> dict:
+    """Buffer ``b``'s first learn unroll, built from the plain frames."""
+    f = frames[b][:UNROLL + 1]
+    return {
+        "obs": np.stack([x["obs"] for x in f]),
+        "done": np.stack([x["done"] for x in f]),
+        "rewards": np.stack([x["reward"] for x in f]),
+        "actions": np.stack([_e2e_actions(b, j + 1)
+                             for j in range(UNROLL)]).astype(np.int32),
+        "behavior_logits": np.stack([_e2e_logits(b, j + 1)
+                                     for j in range(UNROLL)]),
+        "core_state": (),
+    }
+
+
+def _same_bits(got, want, what: str) -> None:
+    for k in want:
+        g, w = got[k], want[k]
+        if isinstance(w, tuple):
+            if g != w:
+                raise RuntimeError(f"{what}: {k} is {g!r}, want {w!r}")
+            continue
+        g = g.cpu().numpy() if torch.is_tensor(g) else np.asarray(g)
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(
+                g.view(np.uint8), w.view(np.uint8)):
+            raise RuntimeError(f"{what}: {k} differs ({g.dtype} {g.shape} "
+                               f"vs {w.dtype} {w.shape})")
+
+
+def _e2e_data_path() -> dict:
+    """(a) EnvPool -> two EnvBatchStates -> the learn Batcher, against
+    the plain loop bit for bit; the batch's grad step on the card against
+    the CPU's; a device="cuda" pool's staged step against the host."""
+    from moolib_tpu_torch import (Batcher, EnvPool, ImpalaConfig,
+                                  make_grad_step, stage_batch)
+    from moolib_tpu_torch.examples.common import EnvBatchState
+
+    t0 = time.perf_counter()
+    frames = _plain_frames(UNROLL + 1)
+    want = [_plain_unroll(frames, b) for b in (0, 1)]
+    with EnvPool(_e2e_env_fn(), num_processes=E2E_WORKERS,
+                 batch_size=E2E_ENVS, num_batches=2) as pool:
+        states = [EnvBatchState(UNROLL, ()) for _ in (0, 1)]
+        batcher = Batcher(LEARN_B, dim=1, dims={"core_state": 0})
+        futs = [pool.step(b, _e2e_actions(b, 0)) for b in (0, 1)]
+        for j in range(UNROLL + 1):
+            for b in (0, 1):
+                # A worker death raises here: the smoke retries nothing.
+                unroll = states[b].observe(futs[b].result(timeout=60))
+                if unroll is not None:
+                    batcher.cat(unroll)
+                if j < UNROLL:
+                    states[b].record_action(_e2e_actions(b, j + 1),
+                                            _e2e_logits(b, j + 1))
+                    futs[b] = pool.step(b, _e2e_actions(b, j + 1))
+        got = [batcher.get(timeout=10) for _ in (0, 1)]
+        batcher.close()
+    for b in (0, 1):
+        _same_bits(got[b], want[b], f"learn batch {b}")
+    resets = [int(w["done"].sum()) for w in want]
+    if not all(resets):
+        raise RuntimeError(f"the data path's batches hold {resets} resets")
+    log(f"[e2e] data path: EnvPool {E2E_WORKERS} workers x "
+        f"{E2E_ENVS // E2E_WORKERS} SyntheticAtari envs (episodes of "
+        f"{E2E_EPISODE} steps), 2 EnvBatchStates, Batcher({LEARN_B}, "
+        f"dim=1): learn batches obs {want[0]['obs'].shape} equal the plain "
+        f"loop's bit for bit on every key ({resets} resets); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # The first learn batch's grad step on the card vs the CPU's.
+    cfg = ImpalaConfig(discounting=0.99, baseline_cost=0.5,
+                       entropy_cost=0.0006, reward_clip=1.0)
+    net = _serve_net(3).train()
+    cpu = _dense_copy(net.state_dict()).train()
+    g_card, m_card = make_grad_step(config=cfg)(net, stage_batch(got[0],
+                                                                 "cuda"))
+    g_cpu, m_cpu = make_grad_step(config=cfg)(cpu, stage_batch(got[0],
+                                                               "cpu"))
+    errs = {n: float((g_card[n].cpu() - g_cpu[n]).abs().max())
+            / max(float(g_cpu[n].abs().max()), 1e-30) for n in g_cpu}
+    worst = max((n for n in errs if n not in BF16_GRAD_TOL), key=errs.get)
+    merrs = {k: abs(float(m_card[k]) - float(m_cpu[k]))
+             / max(abs(float(m_cpu[k])), 1e-30) for k in METRICS}
+    log(f"[e2e] grad step on the loop's batch, card vs CPU: gradients max "
+        f"relative error {errs[worst]:.3e} at {worst} (tol "
+        f"{TRAIN_GRAD_TOL}); metrics max relative error "
+        f"{max(merrs.values()):.3e} (tol {TRAIN_METRIC_TOL})")
+    bad = [n for n, e in errs.items()
+           if not e <= BF16_GRAD_TOL.get(n, TRAIN_GRAD_TOL)]
+    if bad or not max(merrs.values()) <= TRAIN_METRIC_TOL:
+        raise RuntimeError(f"the grad step on the loop's batch differs "
+                           f"from the CPU's: gradients {bad}, metrics "
+                           f"{merrs}")
+
+    # A pool that stages to the card: its first step equals the host's.
+    with EnvPool(_e2e_env_fn(), num_processes=E2E_WORKERS,
+                 batch_size=E2E_ENVS, device="cuda") as pool:
+        out = pool.step(0, _e2e_actions(0, 0)).result(timeout=60)
+        torch.cuda.synchronize()
+    if any(v.device.type != "cuda" for v in out.values()):
+        raise RuntimeError("EnvPool(device='cuda') returned host tensors")
+    _same_bits(out, frames[0][0], "EnvPool(device='cuda') step")
+    log(f"[e2e] EnvPool(device='cuda'): a staged step equals the host's "
+        f"bit for bit ({sorted(out)})")
+    return dict(grad_err=errs[worst], metric_err=max(merrs.values()),
+                resets=resets)
+
+
+class _KeptStats:
+    """Stand-in for the experiment's ``Stats`` that keeps each instance,
+    so the smoke can read the loop's dropped-unroll count, which its
+    logged rows do not carry."""
+
+    made: list = []
+
+    def __new__(cls, **stats):
+        from moolib_tpu_torch.utils import Stats
+
+        inst = Stats(**stats)
+        if "dropped_unrolls" in stats:  # the cumulative one, not the window
+            cls.made.append(inst)
+        return inst
+
+
+def _recording_scope_class():
+    """A StepScope that also keeps every step's ledger (wall, phases),
+    for the per-phase medians of the loop's run."""
+    from moolib_tpu_torch.telemetry import StepScope
+
+    class RecordingScope(StepScope):
+        made: list = []
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.ledgers = []
+            RecordingScope.made.append(self)
+
+        def _finish_step(self, wall, ledger, ts_us):
+            super()._finish_step(wall, ledger, ts_us)
+            self.ledgers.append((wall, dict(ledger)))
+
+    return RecordingScope
+
+
+def _median_ledger(scope) -> dict:
+    """Median ms per phase (``other`` the step's unattributed rest) over
+    the scope's recorded steps, the median step, and the host-blocked
+    share of the whole run."""
+    rows = []
+    for wall, led in scope.ledgers:
+        row = {k: 1e3 * v for k, v in led.items()}
+        row["other"] = 1e3 * max(wall - sum(led.values()), 0.0)
+        row["wall"] = 1e3 * wall
+        rows.append(row)
+    names = sorted({k for r in rows for k in r} - {"other", "wall"})
+    summary = scope.summary()
+    return dict(
+        steps=len(rows),
+        median_ms={k: float(np.median([r.get(k, 0.0) for r in rows]))
+                   for k in names + ["other", "wall"]},
+        total_s=summary["phases"], wall_s=summary["wall_s"],
+        host_blocked=summary["fractions"]["host_blocked"])
+
+
+def _log_e2e_ledger(tag: str, led: dict) -> None:
+    """Median and mean ms a loop step per phase (a phase that runs once an
+    update, as fwd_bwd does, has a median of 0 and shows in the mean)."""
+    m, n = led["median_ms"], led["steps"]
+    log(f"[e2e] {tag} vtrace_learner ledger: {n} steps, median ms "
+        + ", ".join(f"{k} {m[k]:.3f}" for k in m if k != "wall")
+        + f" | step {m['wall']:.3f} | mean ms "
+        + ", ".join(f"{k} {1e3 * v / n:.3f}"
+                    for k, v in led["total_s"].items())
+        + f" | step {1e3 * led['wall_s'] / n:.3f} | host-blocked share "
+        f"{led['host_blocked']:.3f}")
+
+
+def _rates(rows) -> dict:
+    """Env steps and updates a second from the first logged row to the
+    last (the warm-up before the first row excluded), as bench_e2e.py
+    counts them."""
+    span = rows[-1]["time"] - rows[0]["time"]
+    return dict(
+        env_steps_per_s=(rows[-1]["env_steps"] - rows[0]["env_steps"]) / span,
+        updates_per_s=(rows[-1]["updates"] - rows[0]["updates"]) / span)
+
+
+def _trace_summary(path: str) -> dict:
+    """The profiled window of a train() run (its Chrome trace): the span
+    from the first recorded event to the last, the device's busy time (the
+    union of its kernels' intervals) and idle share, and the host's
+    heaviest CUDA runtime calls and operators by total time (operators
+    inclusive of those they call)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "kernel")
+    busy, end = 0.0, float("-inf")
+    for a, b in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    t0 = min(e["ts"] for e in events)
+    span = max(e["ts"] + e["dur"] for e in events) - t0
+
+    def top(cat, n):
+        tot = {}
+        for e in events:
+            if e.get("cat") == cat:
+                tot[e["name"]] = tot.get(e["name"], 0.0) + e["dur"]
+        return {k: v / 1e3 for k, v in
+                sorted(tot.items(), key=lambda kv: -kv[1])[:n]}
+
+    return dict(window_ms=span / 1e3, device_busy_ms=busy / 1e3,
+                device_idle_share=1.0 - busy / span,
+                kernels=len(kernels), runtime_ms=top("cuda_runtime", 6),
+                ops_ms=top("cpu_op", 8))
+
+
+def _e2e_transformer() -> dict:
+    """(b) train() of experiment.py with model=transformer on the card for
+    E2E_SECONDS, then a resume of E2E_RESUME_SECONDS from its checkpoint."""
+    from bench_e2e_torch import _worker_deaths
+    from moolib_tpu_torch.examples.vtrace import experiment
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.telemetry import global_telemetry
+
+    shutil.rmtree(E2E_SAVEDIR, ignore_errors=True)
+    scope_cls = _recording_scope_class()
+    saved = experiment.StepScope, experiment.Stats
+    experiment.StepScope, experiment.Stats = scope_cls, _KeptStats
+    for kern in KERNELS:
+        kern.launches = 0
+    lines = []
+    try:
+        cfg = experiment.VtraceConfig(
+            env="synthetic", model="transformer", seed=0,
+            max_seconds=E2E_SECONDS, log_interval_steps=2000,
+            savedir=E2E_SAVEDIR, checkpoint_interval=0.0,
+            stats_interval=2.0)
+        t0 = time.perf_counter()
+        rows = experiment.train(cfg, log_fn=lines.append)
+        wall = time.perf_counter() - t0
+        launches = {kern.name: kern.launches for kern in KERNELS}
+        stats = _KeptStats.made[-1]
+        led = _median_ledger(scope_cls.made[-1])
+        resume_cfg = experiment.VtraceConfig(**{
+            **cfg.__dict__, "max_seconds": E2E_RESUME_SECONDS,
+            "log_interval_steps": 640})
+        rows2 = experiment.train(resume_cfg, log_fn=lines.append)
+        # The same loop without a savedir (no checkpoint at every chance),
+        # updates [10, 13) traced into E2E_PROFILE_DIR.
+        shutil.rmtree(E2E_PROFILE_DIR, ignore_errors=True)
+        plain_cfg = experiment.VtraceConfig(**{
+            **cfg.__dict__, "savedir": None, "max_seconds": E2E_PLAIN_SECONDS,
+            "profile_dir": E2E_PROFILE_DIR})
+        rows3 = experiment.train(plain_cfg, log_fn=lines.append)
+        led3 = _median_ledger(scope_cls.made[-1])
+        launches = {kern.name: kern.launches for kern in KERNELS}
+    finally:
+        experiment.StepScope, experiment.Stats = saved
+    for line in lines:
+        log(f"[e2e] transformer: {line}")
+    if len(rows) < 2:
+        raise RuntimeError(f"the transformer loop logged {len(rows)} rows")
+    rates = _rates(rows)
+    updates = rows[-1]["updates"]
+    losses = [r["total_loss"] for r in rows]
+    returns = [r["episode_returns"] for r in rows
+               if np.isfinite(r["episode_returns"])]
+    ckpt = os.path.join(E2E_SAVEDIR, "checkpoint.ckpt")
+    log(f"[e2e] transformer loop ({E2E_SECONDS:g} s, 32 envs, 2 workers, "
+        f"T={UNROLL}, learn batch {LEARN_B}, bf16): {len(rows)} rows in "
+        f"{wall:.1f} s; {rates['env_steps_per_s']:.1f} env-steps/s, "
+        f"{rates['updates_per_s']:.2f} updates/s (first to last row); "
+        f"{updates:g} updates, skips {stats['skips'].result():g}, dropped "
+        f"unrolls {stats['dropped_unrolls'].result():g}; global env steps "
+        f"{rows[-1]['global_env_steps']:g}")
+    _log_e2e_ledger("transformer", led)
+    log(f"[e2e] transformer: the windows' mean episode return "
+        f"{float(np.mean(returns)) if returns else float('nan'):.2f} beside "
+        f"a uniform policy's {E2E_UNIFORM_RETURN:.1f} (a reading, not a "
+        f"gate); per window {[round(r, 2) for r in returns]}")
+    log(f"[e2e] transformer: resume from {ckpt}: first row's model_version "
+        f"{rows2[0]['model_version'] if rows2 else None} vs the run's last "
+        f"{rows[-1]['model_version']}; flash launches of the three runs "
+        f"{launches}")
+    rates3 = _rates(rows3)
+    trace = _trace_summary(os.path.join(E2E_PROFILE_DIR, "trace.json"))
+    log(f"[e2e] transformer loop without a savedir ({E2E_PLAIN_SECONDS:g} "
+        f"s): {rates3['env_steps_per_s']:.1f} env-steps/s, "
+        f"{rates3['updates_per_s']:.2f} updates/s; "
+        f"{rows3[-1]['updates']:g} updates")
+    _log_e2e_ledger("transformer without a savedir", led3)
+    log(f"[e2e] transformer without a savedir, updates [10, 13) profiled: "
+        f"window {trace['window_ms']:.1f} ms, device busy "
+        f"{trace['device_busy_ms']:.1f} ms ({trace['kernels']} kernels), "
+        f"idle share {trace['device_idle_share']:.3f}; CUDA runtime ms "
+        f"{ {k: round(v, 2) for k, v in trace['runtime_ms'].items()} }; "
+        f"host operators ms (inclusive) "
+        f"{ {k: round(v, 2) for k, v in trace['ops_ms'].items()} }")
+    if updates < 10 or not all(np.isfinite(losses)):
+        raise RuntimeError(f"the transformer loop made {updates} updates, "
+                           f"losses {losses}")
+    if not rows[-1]["global_env_steps"] > 0:
+        raise RuntimeError("the stats allreduce never counted env steps")
+    if not os.path.exists(ckpt) or not rows2:
+        raise RuntimeError(f"no checkpoint at {ckpt} or no row resumed")
+    if rows2[0]["model_version"] < rows[-1]["model_version"]:
+        raise RuntimeError("the resumed run did not carry model_version "
+                           "over")
+    if not (launches["flash_fwd"] and launches["flash_bwd_tile"]):
+        raise RuntimeError(f"the transformer loop did not launch the "
+                           f"flash kernels: {launches}")
+    deaths = _worker_deaths(global_telemetry().snapshot())
+    if deaths:  # train() retries a step that lost its worker; here, fail
+        raise RuntimeError(f"the transformer loop lost {deaths:g} env "
+                           f"workers")
+    return dict(rows=len(rows), wall_s=wall, updates=updates, **rates,
+                skips=stats["skips"].result(),
+                dropped_unrolls=stats["dropped_unrolls"].result(),
+                mean_return=float(np.mean(returns)) if returns else None,
+                ledger=led, resumed_version=rows2[0]["model_version"],
+                without_savedir=dict(**rates3, updates=rows3[-1]["updates"],
+                                     ledger=led3, trace=trace),
+                launches=launches)
+
+
+def _e2e_bench(learner_only: float) -> dict:
+    """(c) bench_e2e_torch.py in a process of its own: its JSON line, and
+    its loop's ledger from the JSON line it prints on stderr."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "bench_e2e_torch.py"),
+         f"{E2E_BENCH_SECONDS:g}"], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=E2E_BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"bench_e2e_torch.py did not finish in "
+                           f"{E2E_BENCH_TIMEOUT_S} s") from None
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench_e2e_torch.py exited with "
+                           f"{proc.returncode}: {stderr[-2000:]}")
+    line = json.loads(stdout.strip().splitlines()[-1])
+    child = [json.loads(s) for s in stderr.splitlines()
+             if s.startswith('{"vtrace_learner"')][-1]
+    ledger = child["vtrace_learner"]
+    if child["envpool_worker_deaths"]:
+        raise RuntimeError(f"bench_e2e_torch.py's loop lost "
+                           f"{child['envpool_worker_deaths']:g} env workers")
+    log(f"[e2e] bench_e2e_torch.py: {json.dumps(line)}")
+    steps = ledger["steps"]
+    log(f"[e2e] ImpalaNet loop ledger (bench_e2e_torch.py's stderr; mean "
+        f"ms a step over its {steps} steps): "
+        + ", ".join(f"{k} {1e3 * v / steps:.3f}"
+                    for k, v in ledger["phases"].items())
+        + f" | step {1e3 * ledger['wall_s'] / steps:.3f} | host-blocked "
+        f"share {ledger['fractions']['host_blocked']:.3f}")
+    log(f"[e2e] ImpalaNet: end to end {line['value']:.1f} env-steps/s "
+        f"(B=64, bf16) against bench_torch.py's learner-only "
+        f"{learner_only:.1f} at B={BENCH_B} in this run: the gap "
+        f"learner_only_gap_note names, {learner_only / line['value']:.1f}x")
+    if not line["value"] > 0 or not line["total_env_steps"] > 0:
+        raise RuntimeError(f"bench_e2e_torch.py measured nothing: {line}")
+    return dict(line=line, ledger=ledger, learner_only=learner_only)
+
+
+def phase_e2e(learner_only: float) -> dict:
+    """Phase 11: the acting plane and the experiment loop (see the module
+    docstring)."""
+    data = _e2e_data_path()
+    transformer = _e2e_transformer()
+    bench = _e2e_bench(learner_only)
+    launches = transformer.pop("launches")
+    return dict(data=data, transformer=transformer, bench=bench,
+                launches={"e2e transformer": launches})
+
+
 BUNDLE_DIR = os.path.join("build", "flightrec")
 # The environment prefixes the port's bundles record (the reference's
 # MOOLIB, and the card's in place of JAX and XLA).
@@ -3368,14 +3855,18 @@ def main() -> int:
         raise RuntimeError(f"the impala path launched a flash kernel: "
                            f"{impala_launches}")
     acc = phase_acc()
+    # Before the e2e phase: the loops it runs record into the global
+    # flight recorder, which every bundle merges in.
     bundles = phase_bundles(tels)
+    e2e = phase_e2e(impala["bench"]["line"]["value"])
 
     launches_by_path = {
         path: counts for path, counts in
         [*serve_launches.items(), *rpc["launches"].items(),
          ("train", train["launches"]),
          ("context backward", context_backward),
-         ("impala", impala_launches), *acc["launches"].items()]
+         ("impala", impala_launches), *acc["launches"].items(),
+         *e2e["launches"].items()]
     }
     never = [kname for kname in train["launches"]
              if not any(c[kname] for c in launches_by_path.values())]
@@ -3446,7 +3937,8 @@ def main() -> int:
                                  "split_err", "ledgers")},
                       "impala": impala, "bundles": bundles,
                       "rpc": {k: rpc[k] for k in rpc if k != "launches"},
-                      "acc": {k: acc[k] for k in acc if k != "launches"}}),
+                      "acc": {k: acc[k] for k in acc if k != "launches"},
+                      "e2e": {k: e2e[k] for k in e2e if k != "launches"}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,130 +26,73 @@ reference each ported part is tested against. The slices so far:
 - the elastic gradient plane: ``Group`` and its tree allreduce, the
   ``Accumulator`` (leader election, virtual batches, state hand-off to
   joiners), the ``GlobalStatsAccumulator`` and ``Stats``, and the
-  ``Checkpointer``.
+  ``Checkpointer``;
+- the acting plane and the experiment loop: the ``EnvPool`` and its
+  remote stepper, the ``Batcher``, the examples' envs and rollout
+  bookkeeping, the ``A2CNet``, and the elastic V-trace experiment
+  (``examples/vtrace/experiment.py``) with its ``bench_e2e_torch.py``
+  twin.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
+import importlib
 import secrets
 
-from .flightrec import FlightRecorder, capture_incident, enable_auto_capture
-from .learner import (
-    ImpalaConfig,
-    TrainState,
-    impala_loss,
-    make_act_step,
-    make_apply_step,
-    make_grad_step,
-    make_impala_train_step,
-    make_train_state,
-)
-from .models import (
-    ImpalaNet,
-    LSTMCore,
-    TransformerNet,
-    impala_params_from_flax,
-    space_to_depth,
-    transformer_params_from_flax,
-    widen_impala_params,
-)
-from .ops import attention, stage_batch, vtrace
-from .optim import ClippedAdam, ClippedRMSprop, global_norm
-from .parallel import Accumulator, GlobalStatsAccumulator
-from .rpc import (
-    AllReduce,
-    Broker,
-    Future,
-    Group,
-    Queue,
-    Rpc,
-    RpcDeferredReturn,
-    RpcError,
-)
-from .serving import (
-    AdmissionQueue,
-    CircuitBreaker,
-    DeadlineExceeded,
-    Overloaded,
-    Replica,
-    ReplicaHealth,
-    Router,
-    ServingError,
-    error_kind,
-)
-from .telemetry import Telemetry, global_telemetry, publish_metrics
-from .utils import (
-    Checkpointer,
-    StatMax,
-    StatMean,
-    Stats,
-    StatSum,
-    nest,
-    resolve_device,
-    set_log_level,
-    set_logging,
-)
+# Exported name -> the module that defines it. Imports are lazy, as the
+# reference's are: a process that needs only part of the package (an env
+# worker of the EnvPool, which must not pay for torch) imports only that.
+_EXPORTS = {
+    **dict.fromkeys(("FlightRecorder", "capture_incident",
+                     "enable_auto_capture"), "moolib_tpu_torch.flightrec"),
+    **dict.fromkeys(("ImpalaConfig", "TrainState", "impala_loss",
+                     "make_act_step", "make_apply_step", "make_grad_step",
+                     "make_impala_train_step", "make_train_state"),
+                    "moolib_tpu_torch.learner"),
+    **dict.fromkeys(("A2CNet", "ImpalaNet", "LSTMCore", "TransformerNet",
+                     "a2c_params_from_flax", "impala_params_from_flax",
+                     "space_to_depth", "transformer_params_from_flax",
+                     "widen_impala_params"), "moolib_tpu_torch.models"),
+    **dict.fromkeys(("Batcher", "attention", "stage_batch", "vtrace"),
+                    "moolib_tpu_torch.ops"),
+    **dict.fromkeys(("ClippedAdam", "ClippedRMSprop", "global_norm"),
+                    "moolib_tpu_torch.optim"),
+    **dict.fromkeys(("Accumulator", "GlobalStatsAccumulator"),
+                    "moolib_tpu_torch.parallel"),
+    **dict.fromkeys(("AllReduce", "Broker", "Future", "Group", "Queue",
+                     "Rpc", "RpcDeferredReturn", "RpcError"),
+                    "moolib_tpu_torch.rpc"),
+    **dict.fromkeys(("EnvPool", "EnvPoolServer", "EnvRunner", "EnvStepper",
+                     "EnvStepperFuture", "RemoteEnvStepper", "WorkerDied",
+                     "step_with_retry"), "moolib_tpu_torch.envpool"),
+    **dict.fromkeys(("AdmissionQueue", "CircuitBreaker", "DeadlineExceeded",
+                     "Overloaded", "Replica", "ReplicaHealth", "Router",
+                     "ServingError", "error_kind"),
+                    "moolib_tpu_torch.serving"),
+    **dict.fromkeys(("Telemetry", "global_telemetry", "publish_metrics"),
+                    "moolib_tpu_torch.telemetry"),
+    **dict.fromkeys(("Checkpointer", "StatMax", "StatMean", "Stats",
+                     "StatSum", "nest", "resolve_device", "set_log_level",
+                     "set_logging"), "moolib_tpu_torch.utils"),
+}
 
-__all__ = [
-    "Accumulator",
-    "AdmissionQueue",
-    "AllReduce",
-    "Broker",
-    "Checkpointer",
-    "CircuitBreaker",
-    "ClippedAdam",
-    "ClippedRMSprop",
-    "DeadlineExceeded",
-    "FlightRecorder",
-    "Future",
-    "GlobalStatsAccumulator",
-    "Group",
-    "ImpalaConfig",
-    "ImpalaNet",
-    "LSTMCore",
-    "Overloaded",
-    "Queue",
-    "Replica",
-    "ReplicaHealth",
-    "Router",
-    "Rpc",
-    "RpcDeferredReturn",
-    "RpcError",
-    "ServingError",
-    "StatMax",
-    "StatMean",
-    "StatSum",
-    "Stats",
-    "Telemetry",
-    "TrainState",
-    "TransformerNet",
-    "attention",
-    "capture_incident",
-    "create_uid",
-    "enable_auto_capture",
-    "error_kind",
-    "get_max_threads",
-    "global_norm",
-    "global_telemetry",
-    "impala_loss",
-    "impala_params_from_flax",
-    "make_act_step",
-    "make_apply_step",
-    "make_grad_step",
-    "make_impala_train_step",
-    "make_train_state",
-    "nest",
-    "publish_metrics",
-    "resolve_device",
-    "set_log_level",
-    "set_logging",
-    "set_max_threads",
-    "space_to_depth",
-    "stage_batch",
-    "transformer_params_from_flax",
-    "vtrace",
-    "widen_impala_params",
-]
+__all__ = sorted([*_EXPORTS, "create_uid", "get_max_threads",
+                  "set_max_threads"])
+
+
+def __getattr__(name: str):
+    mod = _EXPORTS.get(name)
+    if name.startswith("__"):
+        raise AttributeError(name)
+    if mod is not None:
+        return getattr(importlib.import_module(mod), name)
+    try:  # a subpackage not imported yet: moolib_tpu_torch.rpc, ...
+        return importlib.import_module(f"{__name__}.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"{__name__}.{name}":
+            raise
+    raise AttributeError(
+        f"module 'moolib_tpu_torch' has no attribute {name!r}")
 
 
 def create_uid() -> str:

@@ -1,0 +1,1950 @@
+"""EnvPool: batched environment execution in worker processes over shared
+memory; the counterpart of :mod:`moolib_tpu.envpool.pool`, a careful copy
+with the same segment layout, wire of worker messages and supervision.
+
+Design decisions:
+- Workers are ``spawn``-started processes (never fork): the parent
+  typically holds a CUDA context, which must never be forked. A worker
+  imports this module, the port's native semaphores, its telemetry and
+  the env factory, and never torch: the package's imports are lazy, and
+  this module imports torch only in the parent, and only for
+  ``device=`` staging. (A script that builds a pool must guard its entry
+  point with ``if __name__ == "__main__":``: spawn runs the parent's main
+  module again in every worker.)
+- One ``multiprocessing.shared_memory`` segment holds all ``num_batches``
+  buffers (obs/action/reward/done/episode stats) with a computed offset
+  layout — the analogue of the reference's single shm segment + bump
+  allocator (src/shm.h:30-94).
+- ``step(batch_index, action)`` writes actions into the segment, signals each
+  worker, and returns an ``EnvStepperFuture``; ``result()`` waits for the
+  workers and returns zero-copy numpy views over the segment — or, when
+  ``device=`` is given, tensors on that device: every field is first
+  copied out of the segment into pinned host memory, then uploaded with
+  ``non_blocking=True``. The upload never reads the segment itself: its
+  views are overwritten by this buffer's next ``step()`` as soon as the
+  result is collected, and the segment is never registered with the CUDA
+  host allocator.
+- Double/triple buffering via ``num_batches`` (busy flag per buffer) exactly
+  mirrors the reference contract: step buffer 0, then step buffer 1 while the
+  learner consumes buffer 0's arrays.
+
+Survivability (the env-tier counterpart of the survivable-training layer,
+the reference's docs/reliability.md):
+
+- **Worker supervision** (``supervise=True``, the default): a supervisor
+  thread detects a dead worker (exit, SIGKILL, crashed interpreter), fails
+  only the batches that were still waiting on it — fast, with a typed
+  :class:`WorkerDied` — respawns a replacement that re-creates its env slice
+  and re-attaches to the segment, and resumes serving. A retried step after
+  a :class:`WorkerDied` re-dispatches ONLY the slices that never completed
+  (surviving workers' already-written results are served as-is, never
+  re-stepped), so the retry is exactly-once per env — it must carry the
+  same action.
+- **Restart budget**: respawns back off capped-exponentially per worker
+  slot; more than ``restart_limit`` deaths inside ``restart_window`` seconds
+  degrade the slot to *permanently down* — its slice is masked out of every
+  batch with terminal transitions (``done=True``, zero reward/stats)
+  instead of crash-looping.
+- **Hung-step watchdog**: workers bump a per-worker heartbeat word in the
+  segment per env step (and per idle poll); a worker with dispatched work
+  whose heartbeat stalls past ``watchdog_timeout`` (SIGSTOP, an env stuck
+  in an infinite loop) is killed and respawned — a *slow* worker keeps
+  beating per env step and is left alone.
+- **Poison-env quarantine**: an env whose ``step``/``reset`` raises
+  ``poison_threshold`` consecutive times is quarantined *inside its
+  worker* — masked out of the batch with a terminal transition and
+  reported per env index (:meth:`EnvPool.quarantined`) — instead of
+  crash-looping the worker through respawns.
+
+Worker env API is gymnasium-style: ``reset() -> (obs, info)`` and
+``step(a) -> (obs, reward, terminated, truncated, info)``; classic
+``(obs, reward, done, info)`` 4-tuples are also accepted. Episodes auto-reset
+in the worker: on done, the returned obs is the first obs of the next episode
+(reference: src/env.h:295-338).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import concurrent.futures
+import math
+import pickle
+import signal
+import threading
+import time
+import weakref
+from collections import deque
+from dataclasses import dataclass
+from multiprocessing import get_context
+from multiprocessing import shared_memory as mp_shm
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+
+from ..utils.logging import get_logger
+
+log = get_logger("envpool")
+
+__all__ = ["EnvPool", "EnvStepper", "EnvStepperFuture", "WorkerDied",
+           "step_with_retry"]
+
+_ALIGN = 64  # align every array slab to cache lines, like the reference's
+# 64-byte aligned tensor allocations (src/transports/ipc.cc read path).
+
+_RING = 16  # command-ring slots per worker (>= num_batches suffices)
+_CMD_CLOSE = 0xFFFFFFFF
+_M32 = 0xFFFFFFFF
+
+
+def _align(n: int) -> int:
+    return (n + _ALIGN - 1) // _ALIGN * _ALIGN
+
+
+def _check_wait_timeout(timeout, what: str):
+    """Validate a *wait* timeout (the ``Future`` contract, mirrored
+    from ``rpc.rpc`` so the worker-side import of this module stays
+    light): ``None`` waits forever, ``0`` is the documented non-blocking
+    poll, anything negative or non-finite is a programming error."""
+    if timeout is None:
+        return None
+    t = float(timeout)
+    if t < 0 or not math.isfinite(t):
+        raise ValueError(
+            f"{what}: timeout must be None (wait forever), 0 (poll), or a "
+            f"positive finite number of seconds, got {timeout!r}"
+        )
+    return t
+
+
+class WorkerDied(RuntimeError):
+    """Typed, retry-safe death of one env worker's batch slice.
+
+    Raised when a worker process died (exit, SIGKILL, crashed env
+    constructor) or was killed by the hung-step watchdog while a batch
+    still needed it, and by :meth:`EnvPool.step` while the replacement is
+    respawning. On the RPC wire the message travels prefixed with the
+    exception type name (``WorkerDied: ...``), which
+    :func:`moolib_tpu_torch.serving.error_kind` classifies as ``worker_died`` —
+    always safe to retry against the same pool: the retried step (same
+    action) re-dispatches only the slices that never completed, so no env
+    is ever stepped twice for one logical batch step.
+    """
+
+    def __init__(self, msg: str, worker: Optional[int] = None,
+                 permanent: bool = False, respawning: bool = False):
+        super().__init__(msg)
+        self.worker = worker
+        self.permanent = permanent
+        self.respawning = respawning
+
+
+def _get_native():
+    """Native semaphore ops for the shm data plane, or None (pipe fallback).
+
+    With the native module, step dispatch and completion ride process-shared
+    POSIX semaphores + SPSC command rings inside the segment — the
+    reference's design (src/shm.h:96-232 SharedSemaphore, src/env.cc:323-345
+    queue+semaphore dispatch) — instead of pickling pipe messages per step.
+    """
+    try:
+        from ..native import get_native
+
+        return get_native()
+    except (asyncio.CancelledError, concurrent.futures.CancelledError):
+        raise  # never swallow task cancellation
+    except Exception:
+        return None
+
+
+class _Ctrl:
+    """Control-block layout inside the shared segment (native mode)."""
+
+    def __init__(self, base: int, n_workers: int, num_batches: int):
+        from ..native import get_native
+
+        sem = get_native().sem_size()
+        self.cmd_sems = [base + w * sem for w in range(n_workers)]
+        done_base = base + n_workers * sem
+        self.done_sems = [done_base + b * sem for b in range(num_batches)]
+        # One any-buffer-progressed semaphore: lets a single parent thread
+        # block for completion across ALL buffers (callback dispatch) instead
+        # of polling per-buffer sems. Workers post it ONLY while notify_flag
+        # is set (the parent sets it when it starts draining): a pool used
+        # purely via blocking result() would otherwise accumulate posts
+        # until sem_post hits SEM_VALUE_MAX and crashes the worker.
+        self.notify_sem = done_base + num_batches * sem
+        self.notify_flag = self.notify_sem + sem  # u32
+        ring_base = _align(self.notify_flag + 4)
+        self.rings = [
+            ring_base + w * (_RING + 1) * 4 for w in range(n_workers)
+        ]
+        self.end = ring_base + n_workers * (_RING + 1) * 4
+
+    def flag_view(self, buf) -> np.ndarray:
+        return np.ndarray((1,), np.uint32, buffer=buf,
+                          offset=self.notify_flag)
+
+    def ring_views(self, buf, w: int):
+        """(slots u32[_RING], tail u32[1]) views for worker w.
+
+        SPSC protocol: the producer keeps its head privately (the semaphore
+        count is the real hand-off), the consumer's tail lives in shm."""
+        slots = np.ndarray((_RING,), np.uint32, buffer=buf,
+                           offset=self.rings[w])
+        tail = np.ndarray((1,), np.uint32, buffer=buf,
+                          offset=self.rings[w] + _RING * 4)
+        return slots, tail
+
+
+class _Sup:
+    """Supervision-block layout inside the shared segment (BOTH data-plane
+    modes — it is plain memory):
+
+    - one u64 *heartbeat* per worker, bumped per env step and per idle
+      poll — the hung-step watchdog's stall signal;
+    - one u32 *completion mark* per (worker, batch), incremented by the
+      worker when it finishes its slice of that buffer (before the done
+      post/message) — how the parent attributes completion per worker, so
+      a failed batch knows exactly which slices finished and a retry
+      never re-steps them.
+    """
+
+    def __init__(self, base: int, n_workers: int, num_batches: int):
+        self.num_batches = num_batches
+        self.hb = [base + w * 8 for w in range(n_workers)]
+        marks_base = base + n_workers * 8
+        self.marks = [
+            marks_base + w * num_batches * 4 for w in range(n_workers)
+        ]
+        self.end = marks_base + n_workers * num_batches * 4
+
+    def hb_view(self, buf, w: int) -> np.ndarray:
+        return np.ndarray((1,), np.uint64, buffer=buf, offset=self.hb[w])
+
+    def marks_view(self, buf, w: int) -> np.ndarray:
+        return np.ndarray((self.num_batches,), np.uint32, buffer=buf,
+                          offset=self.marks[w])
+
+
+@dataclass
+class _Slab:
+    offset: int
+    shape: tuple
+    dtype: str
+
+    def view(self, buf) -> np.ndarray:
+        arr = np.ndarray(
+            self.shape, dtype=np.dtype(self.dtype), buffer=buf, offset=self.offset
+        )
+        return arr
+
+
+def _normalize_obs(obs) -> Dict[str, np.ndarray]:
+    if isinstance(obs, dict):
+        return {k: np.asarray(v) for k, v in obs.items()}
+    return {"obs": np.asarray(obs)}
+
+
+def _call_env_fn(env_fn, index: int):
+    try:
+        return env_fn(index)
+    except TypeError:
+        return env_fn()
+
+
+def _step_env(env, action):
+    """Step a gymnasium-style or classic-4-tuple env; returns (obs, r, done)."""
+    out = env.step(action)
+    if len(out) == 5:
+        obs, reward, terminated, truncated, _ = out
+        return obs, reward, bool(terminated or truncated)
+    obs, reward, done, _ = out
+    return obs, reward, bool(done)
+
+
+def _reset_env(env):
+    out = env.reset()
+    if isinstance(out, tuple) and len(out) == 2:
+        return out[0]
+    return out
+
+
+class _InjectedCrash(BaseException):
+    """Raised by the chaos SIGUSR1 handler (the reference's
+    ``testing.chaos.ProcChaos`` sends it).
+
+    Deliberately a ``BaseException``: it must escape every per-env
+    ``except Exception`` guard so an injected crash always lands in the
+    supervised worker-death class, never masquerades as a poison env."""
+
+
+def _chaos_signal_handler(signum, frame):
+    raise _InjectedCrash("chaos: injected exception (SIGUSR1)")
+
+
+def _send_quiet(conn, msg):
+    try:
+        conn.send(msg)
+    except (asyncio.CancelledError, concurrent.futures.CancelledError):
+        raise  # cancellation outranks best-effort reporting
+    except Exception:
+        pass  # parent gone: nothing to report to
+
+
+def _worker_main(conn, env_fn_bytes: bytes, first: int, count: int, rank: int):
+    """Worker process entry (spawn target; must stay module-level picklable).
+
+    Mirrors EnvRunner::run (reference: src/env.h:407-453): attach to the
+    shared segment, then loop on step commands for this worker's env slice.
+    """
+    try:
+        # Chaos seam: the reference's ProcChaos injects an in-process
+        # exception via SIGUSR1
+        # (process-level fault class: the worker dies and is respawned).
+        signal.signal(signal.SIGUSR1, _chaos_signal_handler)
+    except (ValueError, OSError):
+        pass  # exotic platform: exception injection unavailable
+    envs = []
+    try:
+        env_fn = pickle.loads(env_fn_bytes)
+        envs = [_call_env_fn(env_fn, first + i) for i in range(count)]
+        first_obs = [_normalize_obs(_reset_env(e)) for e in envs]
+        spec = {
+            k: (v.shape, v.dtype.str) for k, v in first_obs[0].items()
+        }
+        conn.send(("spec", spec))
+        msg = conn.recv()
+        if msg[0] != "init":
+            raise RuntimeError(f"expected init, got {msg[0]!r}")
+        _, shm_name, layout, num_batches, ctrl, sup, opts = msg
+        sup_on = bool(opts.get("heartbeats", True))
+        poison_threshold = int(opts.get("poison_threshold", 3))
+        respawn = bool(opts.get("respawn", False))
+        native = None
+        if ctrl is not None:
+            from ..native import get_native
+
+            native = get_native()
+            if native is None:
+                raise RuntimeError(
+                    "parent uses the native data plane but this worker "
+                    "could not load moolib_tpu_torch.native"
+                )
+        shm = mp_shm.SharedMemory(name=shm_name)
+        try:
+            buffers = [
+                {k: slab.view(shm.buf) for k, slab in layout[b].items()}
+                for b in range(num_batches)
+            ]
+            hb = sup.hb_view(shm.buf, rank)
+            marks = sup.marks_view(shm.buf, rank)
+            episode_step = np.zeros(count, np.int64)
+            episode_return = np.zeros(count, np.float64)
+            fails = [0] * count        # consecutive step/reset failures
+            quarantined = [False] * count
+            if not respawn:
+                # Publish the initial reset obs into buffer rows so the
+                # first result() after step() is well defined even
+                # pre-step. A RESPAWNED worker must NOT: another buffer
+                # may hold a completed-but-uncollected batch whose rows
+                # are still owed to a future.
+                for b in range(num_batches):
+                    for i, obs in enumerate(first_obs):
+                        for k, v in obs.items():
+                            buffers[b][k][first + i] = v
+            conn.send(("ready", rank))
+
+            def beat():
+                if sup_on:
+                    hb[0] += 1  # u64: wraps modularly, never overflows
+
+            def terminal_row(buf, gi: int, i: int):
+                buf["done"][gi] = True
+                buf["reward"][gi] = 0.0
+                buf["episode_step"][gi] = 0
+                buf["episode_return"][gi] = 0.0
+
+            def env_failed(b: int, i: int, gi: int, why: str):
+                """An env's step (or the recovery reset) raised: emit a
+                terminal transition for its row; after poison_threshold
+                consecutive failures quarantine the env — masked out of
+                every future batch instead of crash-looping the worker."""
+                episode_step[i] = 0
+                episode_return[i] = 0.0
+                terminal_row(buffers[b], gi, i)
+                if fails[i] >= poison_threshold:
+                    if not quarantined[i]:
+                        quarantined[i] = True
+                        _send_quiet(conn, ("quarantine", gi, why))
+                    return
+                _send_quiet(conn, ("env_error", gi, why))
+                # Not (yet) poison: start a fresh episode so the next
+                # step has a sane starting state.
+                try:
+                    obs = _normalize_obs(_reset_env(envs[i]))
+                    for k, v in obs.items():
+                        buffers[b][k][gi] = v
+                except (asyncio.CancelledError,
+                        concurrent.futures.CancelledError):
+                    raise  # never swallow cancellation
+                except Exception as e:
+                    fails[i] += 1
+                    if fails[i] >= poison_threshold and not quarantined[i]:
+                        quarantined[i] = True
+                        _send_quiet(conn, (
+                            "quarantine", gi,
+                            f"reset: {type(e).__name__}: {e}",
+                        ))
+
+            def step_slice(b: int):
+                buf = buffers[b]
+                actions = buf["action"]
+                for i, env in enumerate(envs):
+                    gi = first + i
+                    if quarantined[i]:
+                        terminal_row(buf, gi, i)
+                        continue
+                    if (i & 7) == 0:
+                        # Heartbeat every 8th env (plus the idle-loop
+                        # beat): a slow-but-progressing worker keeps
+                        # beating, a wedged one stalls. Amortized so the
+                        # healthy-path cost stays <5% even on µs-scale
+                        # envs; the stall-detection granularity is
+                        # therefore 8 env steps — watchdog_timeout must
+                        # exceed 8x the slowest legitimate env step.
+                        beat()
+                    try:
+                        obs, reward, done = _step_env(env, actions[gi])
+                        fails[i] = 0
+                    except (asyncio.CancelledError,
+                            concurrent.futures.CancelledError):
+                        raise  # never swallow cancellation
+                    except Exception as e:
+                        fails[i] += 1
+                        env_failed(b, i, gi,
+                                   f"step: {type(e).__name__}: {e}")
+                        continue
+                    episode_step[i] += 1
+                    episode_return[i] += float(reward)
+                    if done:
+                        obs = _reset_env(env)
+                    obs = _normalize_obs(obs)
+                    for k, v in obs.items():
+                        buf[k][gi] = v
+                    buf["reward"][gi] = reward
+                    buf["done"][gi] = done
+                    buf["episode_step"][gi] = episode_step[i]
+                    buf["episode_return"][gi] = episode_return[i]
+                    if done:
+                        episode_step[i] = 0
+                        episode_return[i] = 0.0
+                # Completion mark LAST — written before the done post /
+                # message, so a mark the parent observes means the whole
+                # slice (including every row write above) is in place.
+                marks[b] = (int(marks[b]) + 1) & _M32
+
+            if native is not None:
+                # Native loop (reference: EnvRunner::run, src/env.h:407-453):
+                # sem_wait for a command, pop the SPSC ring, step, post the
+                # buffer's done semaphore.
+                cmd_off = ctrl.cmd_sems[rank]
+                slots, tail_w = ctrl.ring_views(shm.buf, rank)
+                notify_flag = ctrl.flag_view(shm.buf)
+                while True:
+                    # Periodic timeout so a vanished parent (no CLOSE ever
+                    # arriving) doesn't strand the worker forever: the still-
+                    # open pipe reports EOF when the parent dies, regardless
+                    # of who reaps orphans (subreaper-safe, unlike getppid).
+                    if not native.sem_wait(shm.buf, cmd_off, 1.0):
+                        beat()  # idle liveness: the watchdog sees progress
+                        try:
+                            if conn.poll(0):
+                                conn.recv()
+                        except (EOFError, OSError):
+                            return  # parent is gone
+                        continue
+                    tail = int(tail_w[0])
+                    b = int(slots[tail % _RING])
+                    # Explicit u32 wrap: numpy 2.x raises OverflowError on
+                    # out-of-range int assignment instead of wrapping.
+                    tail_w[0] = (tail + 1) & _M32
+                    if b == _CMD_CLOSE:
+                        return
+                    step_slice(b)
+                    native.sem_post(shm.buf, ctrl.done_sems[b])
+                    if notify_flag[0]:
+                        native.sem_post(shm.buf, ctrl.notify_sem)
+            else:
+                while True:
+                    try:
+                        msg = conn.recv()
+                    except EOFError:
+                        return  # parent died/closed (keepalive semantics)
+                    if msg[0] == "close":
+                        return
+                    assert msg[0] == "step"
+                    step_slice(msg[1])
+                    conn.send(("done", msg[1]))
+        finally:
+            shm.close()
+    except KeyboardInterrupt:
+        pass
+    except Exception as e:  # report, then die; parent surfaces it
+        try:
+            conn.send(("error", f"{type(e).__name__}: {e}"))
+        except (asyncio.CancelledError, concurrent.futures.CancelledError):
+            raise  # cancellation outranks best-effort error reporting
+        except Exception:
+            pass
+        raise
+    finally:
+        for e in envs:
+            try:
+                e.close()
+            except (asyncio.CancelledError,
+                    concurrent.futures.CancelledError):
+                raise  # never swallow cancellation, even in teardown
+            except Exception:
+                pass
+
+
+def _stage(views: Dict[str, np.ndarray], device) -> Dict[str, Any]:
+    """The batch's fields as tensors on ``device``. Each field is copied
+    out of the segment first (into pinned memory for a card, whose
+    upload then runs asynchronously on the current stream; the caching
+    host allocator keeps the pinned block until the copy has run), so
+    nothing asynchronous ever reads the segment."""
+    import torch
+
+    out = {}
+    for k, v in views.items():
+        t = torch.from_numpy(v)
+        if device.type == "cuda":
+            out[k] = t.pin_memory().to(device, non_blocking=True)
+        else:
+            out[k] = t.to(device, copy=True)
+    return out
+
+
+def _drain_entry(wref):
+    """Pipe-mode drain thread body (completion collection in
+    ``EnvPool._drain_once``). Holds the pool only through a WEAKREF
+    between ticks — a bound-method target would strongly pin the pool,
+    so an abandoned pool (dropped without close()) could never be
+    collected and its ``__del__`` close() backstop would never run (same
+    contract as ``_supervise_entry``)."""
+    while True:
+        pool = wref()
+        if pool is None:
+            return  # pool collected: __del__ -> close() already cleaned up
+        try:
+            if pool._closed or not pool._drain_once():
+                return
+        except (asyncio.CancelledError, concurrent.futures.CancelledError):
+            # Cancellation of the drain thread: wake every waiter (their
+            # result() sees the recorded error), then PROPAGATE — the
+            # invoker decides what cancellation means.
+            pool._fatal = pool._fatal or "drain loop cancelled"
+            pool._fail_all_waiters()
+            raise
+        except Exception as e:
+            pool._fatal = f"{type(e).__name__}: {e}"
+            pool._fail_all_waiters()
+            return
+        finally:
+            del pool  # never hold the strong ref across the next deref
+
+
+def _notify_entry(wref):
+    """Native-mode notify thread body (semaphore-driven completion scan
+    in ``EnvPool._notify_once``), under the same weakref contract as
+    ``_supervise_entry``/``_drain_entry``: the pool is held strongly only
+    for one bounded tick, so abandonment still collects it."""
+    while True:
+        pool = wref()
+        if pool is None:
+            return  # pool collected: __del__ -> close() already cleaned up
+        try:
+            if pool._closed or not pool._notify_once():
+                return
+        except (asyncio.CancelledError, concurrent.futures.CancelledError):
+            # Same contract as the drain thread: restore waiter liveness,
+            # then propagate the cancellation instead of eating it.
+            pool._fatal = pool._fatal or "notify loop cancelled"
+            pool._fail_all_waiters()
+            raise
+        except Exception as e:
+            pool._fatal = f"{type(e).__name__}: {e}"
+            pool._fail_all_waiters()
+            return
+        finally:
+            del pool  # never hold the strong ref across the next deref
+
+
+def _supervise_entry(wref, interval: float):
+    """Supervisor thread body: death detection, the hung-step watchdog,
+    and the respawn schedule (all in ``EnvPool._sup_tick``). Holds the
+    pool only through a WEAKREF between ticks, so an abandoned pool is
+    still collectable — its ``__del__`` runs ``close()``, which this loop
+    observes and exits. A tick failure is fatal for the pool: an
+    unsupervised supervised-pool would hang its waiters silently."""
+    while True:
+        time.sleep(interval)
+        pool = wref()
+        if pool is None:
+            return  # pool collected: __del__ -> close() already cleaned up
+        try:
+            if pool._closed:
+                return
+            pool._sup_tick()
+        except (asyncio.CancelledError, concurrent.futures.CancelledError):
+            pool._fatal = pool._fatal or "supervisor cancelled"
+            pool._fail_all_waiters()
+            raise
+        except Exception as e:
+            pool._fatal = f"supervisor failed: {type(e).__name__}: {e}"
+            pool._fail_all_waiters()
+            return
+        finally:
+            del pool  # never hold the strong ref across the sleep
+
+
+class EnvStepperFuture:
+    """Future for one in-flight batched step (reference: src/env.cc:351-412).
+
+    The first ``result()`` collects from the shared buffer and CACHES the
+    outcome on this future: later calls (including from callbacks
+    registered after collection) return the step this future belongs to,
+    never a re-read of buffer state a newer step may have overwritten —
+    ``step()`` refuses to reuse a busy buffer, so by the time a newer step
+    exists this future has necessarily been collected.
+
+    Timeout semantics follow the ``Future`` contract: ``None`` waits
+    forever, ``0`` is a non-blocking poll, and negative / non-finite
+    timeouts raise ``ValueError``.
+    """
+
+    def __init__(self, pool: "EnvPool", batch_index: int, event: threading.Event):
+        self._pool = pool
+        self._batch_index = batch_index
+        self._event = event
+        self._has_callback = False
+        self._outcome = None  # ("ok", value) | ("error", exception)
+
+    def result(self, timeout: Optional[float] = None):
+        timeout = _check_wait_timeout(timeout, "EnvStepperFuture.result")
+        if self._outcome is not None:
+            kind, value = self._outcome
+            if kind == "ok":
+                return value
+            raise value
+        pool = self._pool
+        # One gate check, then stamp the blocked wait for the phase
+        # ledger: time spent HERE is the caller's env_wait.
+        t_wait = time.monotonic() if pool._tel.on else 0.0
+        if pool._ctrl is not None and not self._has_callback:
+            pool._wait_native(self._batch_index, timeout)
+        elif not self._event.wait(timeout):
+            raise TimeoutError("EnvStepperFuture.result timed out")
+        wait_s = (time.monotonic() - t_wait) if t_wait else 0.0
+        if self._outcome is not None:
+            # Resolved while we waited (supervisor failed the batch).
+            kind, value = self._outcome
+            if kind == "ok":
+                return value
+            raise value
+        try:
+            out = pool._collect(self._batch_index, wait_s)
+        except Exception as e:
+            self._outcome = ("error", e)
+            raise
+        self._outcome = ("ok", out)
+        return out
+
+    def exception(self, timeout: Optional[float] = None):
+        """The step's exception (``WorkerDied``, pool-closed, ...) or
+        ``None`` on success; raises ``TimeoutError`` when the step is not
+        done within ``timeout`` (``0`` = non-blocking poll). Same timeout
+        validation as :meth:`result`."""
+        timeout = _check_wait_timeout(timeout, "EnvStepperFuture.exception")
+        try:
+            self.result(timeout)
+            return None
+        except (asyncio.CancelledError, concurrent.futures.CancelledError):
+            raise  # never swallow task cancellation
+        except TimeoutError:
+            if self._outcome is not None and self._outcome[0] == "error":
+                return self._outcome[1]  # the step FAILED with a timeout
+            raise  # the WAIT timed out: the step is simply not done yet
+        except Exception as e:
+            return e
+
+    def done(self) -> bool:
+        return self._outcome is not None or self._event.is_set()
+
+    def add_done_callback(self, fn) -> None:
+        """Invoke ``fn(self)`` from the pool's completion thread once this
+        step finishes (or the pool dies — ``result()`` then raises).
+
+        The event-driven alternative to blocking a thread in ``result()``:
+        N concurrent steps need ONE completion thread, not N waiters
+        (reference serves 256 clients on semaphores, src/env.h:46).
+        """
+        self._has_callback = True
+        self._pool._add_done_callback(self._batch_index, fn, self)
+
+
+class EnvPool:
+    """Batched multi-process env execution with double-buffered stepping.
+
+    Also exported as ``EnvStepper``: in this design the pool object itself is
+    the stepper client (the reference splits EnvPool construction from
+    EnvStepper clients connected via spawn(); multi-client sharing is handled
+    at the RPC layer instead).
+
+    With ``supervise=True`` (default) the pool survives its failure
+    classes — worker death, hung steps, poison envs — per the module
+    docstring; ``supervise=False`` restores the legacy fail-the-pool
+    behavior (and skips worker heartbeat writes), which exists for the
+    supervision-overhead A/B of the reference's ``bench/suite.py``.
+    ``device`` (None: numpy views over the segment) is where
+    :meth:`EnvStepperFuture.result` puts the batch.
+    """
+
+    def __init__(
+        self,
+        create_env: Callable,
+        num_processes: int,
+        batch_size: int,
+        num_batches: int = 2,
+        action_shape: tuple = (),
+        action_dtype: Any = np.int64,
+        device: Optional[Any] = None,
+        *,
+        name: str = "pool0",
+        supervise: bool = True,
+        watchdog_timeout: float = 10.0,
+        restart_limit: int = 5,
+        restart_window: float = 60.0,
+        restart_backoff: float = 0.05,
+        restart_backoff_cap: float = 2.0,
+        poison_threshold: int = 3,
+        close_timeout: float = 5.0,
+        spawn_timeout: float = 60.0,
+    ):
+        if num_processes < 1 or batch_size < 1 or num_batches < 1:
+            raise ValueError(
+                "num_processes, batch_size and num_batches must be >= 1"
+            )
+        if num_batches > _RING:
+            # The per-worker command ring must hold one command per
+            # in-flight buffer plus a CLOSE.
+            raise ValueError(
+                f"num_batches ({num_batches}) must be <= {_RING}"
+            )
+        if batch_size % num_processes != 0:
+            raise ValueError(
+                f"batch_size ({batch_size}) must be divisible by "
+                f"num_processes ({num_processes})"
+            )
+        if watchdog_timeout <= 0 or restart_backoff <= 0 or close_timeout <= 0:
+            raise ValueError(
+                "watchdog_timeout, restart_backoff and close_timeout must "
+                "be positive"
+            )
+        if device is not None:
+            import torch
+
+            device = torch.device(device)
+            if device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device is available; pass device='cpu' (or "
+                    "None, for numpy views) to stage on the host"
+                )
+        self.batch_size = batch_size
+        self.num_batches = num_batches
+        self.num_processes = num_processes
+        self.device = device
+        self.name = name
+        self.watchdog_timeout = float(watchdog_timeout)
+        self._supervise = bool(supervise)
+        self._restart_limit = int(restart_limit)
+        self._restart_window = float(restart_window)
+        self._backoff = float(restart_backoff)
+        self._backoff_cap = float(restart_backoff_cap)
+        self._poison_threshold = int(poison_threshold)
+        self._close_timeout = float(close_timeout)
+        self._spawn_timeout = float(spawn_timeout)
+        self._sup_interval = 0.05
+        self._closed = False
+        self._fatal: Optional[str] = None
+        self._lock = threading.Lock()
+
+        self._ctx = get_context("spawn")
+        self._env_fn_bytes = pickle.dumps(create_env)
+        self._per = batch_size // num_processes
+        per = self._per
+        self._conns = []
+        self._procs = []
+        for w in range(num_processes):
+            parent_conn, child_conn = self._ctx.Pipe()
+            p = self._ctx.Process(
+                target=_worker_main,
+                args=(child_conn, self._env_fn_bytes, w * per, per, w),
+                daemon=True,
+            )
+            p.start()
+            child_conn.close()
+            self._conns.append(parent_conn)
+            self._procs.append(p)
+
+        # Handshake 1: collect obs spec (identical across workers by contract).
+        spec = None
+        for conn in self._conns:
+            try:
+                kind, payload = conn.recv()
+            except (EOFError, OSError):
+                self._kill_workers()
+                raise RuntimeError(
+                    "env worker died during startup without reporting an "
+                    "error (crashed interpreter or hard exit?)"
+                ) from None
+            if kind == "error":
+                self._kill_workers()
+                raise RuntimeError(f"env worker failed during startup: {payload}")
+            assert kind == "spec"
+            spec = payload
+        obs_spec = {
+            k: (tuple(shape), np.dtype(dt)) for k, (shape, dt) in spec.items()
+        }
+        for k in ("action", "reward", "done", "episode_step", "episode_return"):
+            if k in obs_spec:
+                raise ValueError(f"observation key {k!r} is reserved")
+
+        # Layout: per buffer, slabs for action/reward/done/stats + obs fields.
+        fields: Dict[str, tuple] = {
+            "action": ((batch_size,) + tuple(action_shape), np.dtype(action_dtype)),
+            "reward": ((batch_size,), np.dtype(np.float32)),
+            "done": ((batch_size,), np.dtype(np.bool_)),
+            "episode_step": ((batch_size,), np.dtype(np.int64)),
+            "episode_return": ((batch_size,), np.dtype(np.float64)),
+        }
+        for k, (shape, dt) in obs_spec.items():
+            fields[k] = ((batch_size,) + shape, dt)
+
+        offset = 0
+        self._layout: list = []
+        for _ in range(num_batches):
+            slabs = {}
+            for k, (shape, dt) in fields.items():
+                size = int(np.prod(shape)) * dt.itemsize
+                slabs[k] = _Slab(offset, tuple(shape), dt.str)
+                offset = _align(offset + size)
+            self._layout.append(slabs)
+
+        # Supervision block (heartbeats + completion marks) lives in the
+        # segment in BOTH data-plane modes; the native control block
+        # (semaphores + command rings) is appended after it.
+        self._sup = _Sup(_align(offset), num_processes, num_batches)
+        self._native = _get_native()
+        self._ctrl: Optional[_Ctrl] = None
+        total = self._sup.end
+        if self._native is not None:
+            self._ctrl = _Ctrl(_align(self._sup.end), num_processes,
+                               num_batches)
+            total = self._ctrl.end
+        self._shm = mp_shm.SharedMemory(create=True, size=max(total, 1))
+        self._views = [
+            {k: slab.view(self._shm.buf) for k, slab in slabs.items()}
+            for slabs in self._layout
+        ]
+        self._hb_views = [
+            self._sup.hb_view(self._shm.buf, w) for w in range(num_processes)
+        ]
+        self._mark_views = [
+            self._sup.marks_view(self._shm.buf, w)
+            for w in range(num_processes)
+        ]
+        if self._ctrl is not None:
+            for off in (self._ctrl.cmd_sems + self._ctrl.done_sems
+                        + [self._ctrl.notify_sem]):
+                self._native.sem_init(self._shm.buf, off)
+            self._rings = []  # cached (slots, tail) views per worker
+            for w in range(num_processes):
+                slots, tail = self._ctrl.ring_views(self._shm.buf, w)
+                slots[:] = 0
+                tail[:] = 0
+                self._rings.append((slots, tail))
+            self._ring_heads = [0] * num_processes
+
+        # Handshake 2: ship the layout; wait for all workers ready.
+        try:
+            for conn in self._conns:
+                conn.send(self._init_msg(respawn=False))
+            for conn in self._conns:
+                try:
+                    kind, payload = conn.recv()
+                except (EOFError, OSError):
+                    raise RuntimeError(
+                        "env worker died during init without reporting an error"
+                    ) from None
+                if kind == "error":
+                    raise RuntimeError(
+                        f"env worker failed during init: {payload}"
+                    )
+                assert kind == "ready"
+        except Exception:
+            self._kill_workers()
+            self._shm.close()
+            self._shm.unlink()
+            raise
+
+        self._busy = [False] * num_batches
+        self._events: list = [threading.Event() for _ in range(num_batches)]
+        # Per-batch awaited workers: rank -> (expected mark, worker gen).
+        self._await: list = [{} for _ in range(num_batches)]
+        self._repair: list = [None] * num_batches
+        self._batch_error: list = [None] * num_batches
+        self._futs: list = [None] * num_batches  # weakrefs to live futures
+        # Worker lifecycle state (all guarded by self._lock).
+        now = time.monotonic()
+        self._alive = [True] * num_processes
+        self._gen = [0] * num_processes   # bumped on every death
+        self._down: set = set()           # permanently-down slots
+        self._quarantined: set = set()    # poisoned env indices
+        self._worker_errmsg: Dict[int, str] = {}
+        self._death_times = [deque() for _ in range(num_processes)]
+        self._respawn_at = [0.0] * num_processes
+        self._last_dispatch = [now] * num_processes
+        self._last_beat = [0] * num_processes
+        self._beat_t = [now] * num_processes
+
+        # Telemetry (process-global registry: a pool has no peer
+        # identity): dispatch→collect latency per batched step, plus the
+        # ``pool``-labelled supervision family.
+        from ..telemetry import global_telemetry
+
+        self._tel = global_telemetry()
+        # Flight recorder (moolib_tpu_torch/flightrec): worker death/respawn,
+        # permanent-down degradation, and poison-env quarantine are typed
+        # black-box events; restart-budget exhaustion is an incident
+        # auto-capture trigger.
+        self._fr = self._tel.flight
+        reg = self._tel.registry
+        self._m_steps = reg.counter("envpool_steps_total")
+        self._m_step_dur = reg.histogram("envpool_step_seconds")
+        # Step-phase attribution: each collected batch is one "step" of
+        # the envpool loop, its wall time split into env_wait (caller
+        # blocked in result()), staging (the host copy and upload in
+        # _collect), and batch_fill (the remainder — the
+        # workers filling the slab while the caller was elsewhere).
+        # observe_step is the overlap-safe path: double-buffered batches
+        # overlap in wall time, so each carries its own stamps.
+        from ..telemetry.stepscope import StepScope
+
+        self._scope = StepScope("envpool", telemetry=self._tel)
+        self._m_deaths: Dict[str, Any] = {}
+        self._m_respawns = reg.counter("envpool_respawns_total", pool=name)
+        self._m_respawn_fail = reg.counter(
+            "envpool_respawn_failures_total", pool=name
+        )
+        self._m_env_errors = reg.counter(
+            "envpool_env_errors_total", pool=name
+        )
+        self._m_quarantined = reg.counter(
+            "envpool_quarantined_total", pool=name
+        )
+        # Weakref gauges (the Group/Accumulator/Rpc contract): a global
+        # registry must never pin a closed pool's shm slabs; close()
+        # unregisters the series. ``pool``-labelled so two live pools
+        # never replace (or cross-unregister) each other's gauges.
+        wself = weakref.ref(self)
+        reg.gauge_fn("envpool_workers_down",
+                     lambda: len(wself()._down), pool=name)
+        reg.gauge_fn("envpool_quarantined_envs",
+                     lambda: len(wself()._quarantined), pool=name)
+        self._step_t0 = [0.0] * num_batches
+        self._callbacks: Dict[int, list] = {}
+        self._notify_thread = None
+        self._waiter = None
+        self._supervisor = None
+        if self._ctrl is None:
+            # Pipe mode: background thread collects per-worker completions.
+            # Weakref target, like _supervisor below: the drain thread
+            # must never pin an abandoned pool against GC.
+            self._waiter = threading.Thread(
+                target=_drain_entry, args=(weakref.ref(self),),
+                daemon=True, name="envpool-drain",
+            )
+            self._waiter.start()
+        if self._supervise:
+            # Weakref target (the gauge contract): a bound-method target
+            # would strongly pin the pool, so an abandoned pool (dropped
+            # without close()) could never be collected — __del__ would
+            # never run and the workers + shm segment would leak forever.
+            self._supervisor = threading.Thread(
+                target=_supervise_entry,
+                args=(weakref.ref(self), self._sup_interval),
+                daemon=True, name="envpool-supervisor",
+            )
+            self._supervisor.start()
+
+    def _init_msg(self, respawn: bool):
+        return (
+            "init", self._shm.name, self._layout, self.num_batches,
+            self._ctrl, self._sup,
+            {
+                "heartbeats": self._supervise,
+                "poison_threshold": self._poison_threshold,
+                "respawn": respawn,
+            },
+        )
+
+    # -- stepping ------------------------------------------------------------
+
+    def step(self, batch_index: int, action) -> EnvStepperFuture:
+        """Dispatch a batched step into buffer ``batch_index``.
+
+        Returns a future; the buffer is busy until ``result()`` is called
+        (reference: bufferBusy flags, src/env.cc:273-349).
+
+        After a :class:`WorkerDied` failure the SAME buffer must be
+        re-stepped with the SAME action: the retry re-dispatches only the
+        slices that never completed (the respawned worker's, served from
+        the action already in the segment) and serves every other slice
+        from its already-written result — exactly-once per env. While the
+        replacement worker is still respawning the retry raises
+        :class:`WorkerDied` immediately (fail fast; the restart budget
+        bounds how long that phase can last).
+        """
+        if self._closed:
+            raise RuntimeError("EnvPool is closed")
+        if self._fatal:
+            raise RuntimeError(f"env worker died: {self._fatal}")
+        if not 0 <= batch_index < self.num_batches:
+            raise IndexError(
+                f"batch_index {batch_index} out of range "
+                f"[0, {self.num_batches})"
+            )
+        action = np.asarray(action)
+        slab = self._views[batch_index]["action"]
+        if action.shape != slab.shape:
+            raise ValueError(
+                f"action shape {action.shape} != expected {slab.shape}"
+            )
+        event = self._events[batch_index]
+        fut = EnvStepperFuture(self, batch_index, event)
+        with self._lock:
+            if self._busy[batch_index]:
+                raise RuntimeError(f"batch {batch_index} is already in flight")
+            repair = self._repair[batch_index]
+            marks = self._mark_views
+            targets = []  # (rank, expected mark, push command?)
+            fill = []     # permanently-down ranks: mask with terminal rows
+            if repair is None:
+                for w in range(self.num_processes):
+                    if w in self._down:
+                        fill.append(w)
+                        continue
+                    if not self._alive[w]:
+                        raise WorkerDied(
+                            f"worker {w} died and its replacement is still "
+                            "respawning; retry this step",
+                            worker=w, respawning=True,
+                        )
+                    targets.append(
+                        (w, (int(marks[w][batch_index]) + 1) & _M32, True)
+                    )
+            else:
+                # Retry of a failed batch: serve completed slices from
+                # their in-segment results; await the slices still being
+                # stepped by surviving workers (their command outlived the
+                # failure); re-push only to respawned workers (the dead
+                # process took its command with it). The action slab is
+                # NOT rewritten — the retry contract is same-action.
+                for w, (exp, gen) in repair.items():
+                    if self._gen[w] == gen:
+                        if int(marks[w][batch_index]) == exp:
+                            continue  # completed after the failure
+                        # Still working on the original dispatch (a death
+                        # would have bumped the gen): await, don't re-push.
+                        targets.append((w, exp, False))
+                    elif w in self._down:
+                        fill.append(w)
+                    elif not self._alive[w]:
+                        raise WorkerDied(
+                            f"worker {w} died and its replacement is still "
+                            "respawning; retry this step",
+                            worker=w, respawning=True,
+                        )
+                    else:
+                        targets.append(
+                            (w, (int(marks[w][batch_index]) + 1) & _M32,
+                             True)
+                        )
+            self._busy[batch_index] = True
+            event.clear()
+            self._batch_error[batch_index] = None
+            self._repair[batch_index] = None
+            self._futs[batch_index] = weakref.ref(fut)
+            if repair is None:
+                np.copyto(slab, action)
+            for w in fill:
+                self._fill_terminal_locked(batch_index, w)
+            now = time.monotonic()
+            aw: Dict[int, tuple] = {}
+            send_failed = []
+            for w, exp, push in targets:
+                aw[w] = (exp, self._gen[w])
+                self._last_dispatch[w] = now
+                if not push:
+                    continue
+                if self._ctrl is not None:
+                    # Native dispatch: ring push + semaphore post
+                    # (reference: src/env.cc:323-345).
+                    self._push_cmd(w, batch_index)
+                else:
+                    try:
+                        self._conns[w].send(("step", batch_index))
+                    except (BrokenPipeError, OSError):
+                        send_failed.append(w)
+            self._await[batch_index] = aw
+            if not aw:
+                # Every slice is already served (all down / completed):
+                # the step is complete at dispatch.
+                event.set()
+        # Telemetry OUTSIDE the pool lock (registry counters have their own
+        # lock; nesting pool._lock -> registry._lock would close a cycle
+        # with the GC-time registry._lock -> pool._lock edge — locktrace
+        # caught exactly that). Stamped after dispatch, microseconds late;
+        # the caller cannot collect before step() returns the future.
+        if self._tel.on:
+            self._m_steps.inc()
+            self._step_t0[batch_index] = time.monotonic()
+        for w in send_failed:
+            # The worker died under the dispatch: run the death path now
+            # (fails this batch fast with the typed error on the future).
+            self._on_worker_death(w, "exit", "pipe closed at dispatch")
+        return fut
+
+    def busy(self, batch_index: int) -> bool:
+        """Whether a step on this buffer is still in flight (result not yet
+        collected)."""
+        with self._lock:
+            return bool(self._busy[batch_index])
+
+    def reset_batch(self, batch_index: int) -> bool:
+        """Forget a FAILED step's repair state so the next ``step`` on
+        this buffer is a fresh dispatch — new-owner semantics: the
+        same-action retry contract belongs to one logical client, and a
+        buffer re-leased to a different client must never serve results
+        computed for the previous owner's action. Returns False while
+        the buffer is busy or a slice of the failed batch is still being
+        stepped by its original worker (a fresh dispatch would tear that
+        worker's completion marks) — retry shortly."""
+        with self._lock:
+            if self._busy[batch_index]:
+                return False
+            rep = self._repair[batch_index]
+            if rep:
+                for w, (exp, gen) in rep.items():
+                    if (self._gen[w] == gen and self._alive[w]
+                            and int(self._mark_views[w][batch_index]) != exp):
+                        return False  # still stepping the failed batch
+            self._repair[batch_index] = None
+            self._batch_error[batch_index] = None
+            return True
+
+    def quarantined(self) -> tuple:
+        """Sorted global env indices currently quarantined as poison
+        (their batch rows are terminal transitions until their worker is
+        respawned with a fresh env slice)."""
+        with self._lock:
+            return tuple(sorted(self._quarantined))
+
+    def workers_down(self) -> tuple:
+        """Sorted worker slots that exhausted their restart budget and are
+        permanently down (their slices are masked with terminal rows)."""
+        with self._lock:
+            return tuple(sorted(self._down))
+
+    def supervisor_stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "alive": sum(self._alive),
+                "down": tuple(sorted(self._down)),
+                "respawning": tuple(
+                    w for w in range(self.num_processes)
+                    if not self._alive[w] and w not in self._down
+                ),
+                "quarantined": tuple(sorted(self._quarantined)),
+            }
+
+    def _fill_terminal_locked(self, b: int, w: int):
+        """Mask a permanently-down worker's slice out of batch ``b`` with
+        terminal transitions (``done=True``, zero reward/stats; the obs
+        rows keep their last values)."""
+        views = self._views[b]
+        lo, hi = w * self._per, (w + 1) * self._per
+        views["done"][lo:hi] = True
+        views["reward"][lo:hi] = 0.0
+        views["episode_step"][lo:hi] = 0
+        views["episode_return"][lo:hi] = 0.0
+
+    def _push_cmd(self, w: int, cmd: int):
+        slots, tail = self._rings[w]
+        head = self._ring_heads[w]
+        # The worker's tail lives in shm as u32 and wraps at 2^32; keep the
+        # head in the same modular space so the occupancy test stays correct
+        # past 2^32 dispatches (_RING divides 2^32, so slot indexing agrees).
+        if (head - int(tail[0])) & _M32 >= _RING:
+            raise RuntimeError("command ring overflow (worker stuck?)")
+        slots[head % _RING] = cmd
+        self._ring_heads[w] = (head + 1) & _M32
+        self._native.sem_post(self._shm.buf, self._ctrl.cmd_sems[w])
+
+    def _scan_locked(self, b: int) -> bool:
+        """Drop awaited workers whose completion mark landed; True when the
+        batch is fully complete. Marks are written before the done post /
+        message, so an observed mark means the slice's rows are in place."""
+        aw = self._await[b]
+        if aw:
+            for w in list(aw):
+                exp, _gen = aw[w]
+                if int(self._mark_views[w][b]) == exp:
+                    del aw[w]
+        return not aw
+
+    def _wait_native(self, batch_index: int, timeout: Optional[float]):
+        """Wait for this buffer's completion (all awaited workers' marks),
+        with the per-buffer done semaphore as the wakeup.
+
+        Shares the awaited-worker set (under the lock) with
+        ``_notify_once``: when a callback registers mid-wait, the notify
+        loop starts consuming the same done semaphores, so this waiter
+        falls back to the completion event once the callback path owns the
+        drain. Completion is decided by the marks, never by post counts —
+        a stale post from an abandoned (failed) batch is just a spurious
+        wakeup."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        off = self._ctrl.done_sems[batch_index]
+        event = self._events[batch_index]
+        while True:
+            if self._closed:
+                # Checked BEFORE touching the segment: a closed pool's shm
+                # may already be unmapped (scanning it would segfault).
+                raise RuntimeError(
+                    "EnvPool was closed with this step in flight"
+                )
+            with self._lock:
+                if self._busy[batch_index] and self._scan_locked(batch_index):
+                    event.set()
+                    return
+                cb_owned = batch_index in self._callbacks
+            if event.is_set():
+                return  # completed/failed elsewhere (or pool closed)
+            slice_t = 0.5
+            if deadline is not None:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError("EnvStepperFuture.result timed out")
+                slice_t = min(slice_t, left)
+            if cb_owned:
+                if event.wait(slice_t):
+                    return
+            elif self._native.sem_wait(self._shm.buf, off, slice_t):
+                continue  # a completion post landed: rescan the marks
+            if not self._supervise:
+                self._check_workers_alive()
+            if self._closed:
+                raise RuntimeError(
+                    "EnvPool was closed with this step in flight"
+                )
+
+    def _check_workers_alive(self):
+        """Legacy (``supervise=False``) liveness check: any dead worker is
+        fatal for the whole pool."""
+        for w, p in enumerate(self._procs):  # racelint: unguarded -- supervise=False: no respawn ever swaps _procs, the construction-time list is immutable
+            if not p.is_alive():
+                msg = f"env worker {w} died (exitcode {p.exitcode})"
+                # Pick up a worker's own error report if it sent one.
+                try:
+                    if self._conns[w].poll(0):  # racelint: unguarded -- same: _conns is never swapped without a supervisor
+                        kind, payload = self._conns[w].recv()
+                        if kind == "error":
+                            msg = f"env worker {w} failed: {payload}"
+                except (EOFError, OSError):
+                    pass
+                self._fatal = msg
+                raise RuntimeError(f"env worker died: {msg}")
+
+    # -- worker messages ------------------------------------------------------
+
+    def _on_worker_msg(self, w: int, msg):
+        kind = msg[0]
+        if kind == "done":
+            b = msg[1]
+            fired = None
+            with self._lock:
+                aw = self._await[b]
+                if w in aw:  # attribution by conn identity (pipe mode)
+                    del aw[w]
+                    if not aw and self._busy[b]:
+                        self._events[b].set()
+                        fired = self._callbacks.pop(b, None)
+            if fired:
+                self._run_callbacks(fired)
+        elif kind == "quarantine":
+            self._note_quarantine(msg[1], msg[2])
+        elif kind == "env_error":
+            self._m_env_errors.inc()
+            log.warning("env %d step failed (will reset): %s",
+                        msg[1], msg[2])
+        elif kind == "error":
+            with self._lock:
+                self._worker_errmsg[w] = msg[1]
+
+    def _note_quarantine(self, gi: int, why: str):
+        with self._lock:
+            if gi in self._quarantined:
+                return
+            self._quarantined.add(gi)
+        self._m_quarantined.inc()
+        self._m_env_errors.inc()
+        if self._fr.on:
+            self._fr.record("env_quarantine", pool=self.name, env=int(gi),
+                            why=str(why)[:200])
+        log.error("env %d quarantined as poison: %s", gi, why)
+
+    def _drain_once(self) -> bool:
+        """One pipe-mode drain tick (bounded by the 0.25s pipe wait):
+        collects worker completions (and quarantine/error reports) for
+        all buffers; with supervision on, routes a dead worker into the
+        respawn path instead of failing the pool. Returns False when the
+        drain thread should exit; driven by :func:`_drain_entry` (the
+        weakref thread contract — failures are handled there)."""
+        import multiprocessing.connection as mpc
+
+        with self._lock:
+            conns = {
+                self._conns[w]: w
+                for w in range(self.num_processes)
+                if self._alive[w] and self._conns[w] is not None
+            }
+        if not conns:
+            time.sleep(0.05)
+            return True
+        try:
+            ready = mpc.wait(list(conns), timeout=0.25)
+        except (OSError, ValueError):
+            return True  # a conn was swapped/closed under the wait
+        for conn in ready:
+            w = conns[conn]
+            try:
+                msg = conn.recv()
+            except (EOFError, OSError):
+                if self._closed:
+                    return False
+                if self._supervise:
+                    self._on_worker_death(
+                        w, "exit", "worker pipe closed", conn=conn
+                    )
+                    continue
+                self._fatal = "worker pipe closed"
+                self._fail_all_waiters()
+                return False
+            self._on_worker_msg(w, msg)
+        return True
+
+    # -- supervision ----------------------------------------------------------
+
+    def _sup_tick(self):
+        now = time.monotonic()
+        with self._lock:
+            live = [
+                (w, self._procs[w], self._conns[w])
+                for w in range(self.num_processes) if self._alive[w]
+            ]
+        for w, p, conn in live:
+            if not p.is_alive():
+                self._on_worker_death(
+                    w, "exit", f"exitcode {p.exitcode}", proc=p
+                )
+                continue
+            if self._ctrl is not None and conn is not None:
+                # Native mode: the data plane never touches the pipe, so
+                # quarantine/error reports are drained here.
+                try:
+                    while conn.poll(0):
+                        self._on_worker_msg(w, conn.recv())
+                except (EOFError, OSError):
+                    continue  # exit path catches it next tick
+            # _last_beat/_beat_t are supervisor-thread-private (written
+            # only here and in _try_respawn, same thread).
+            beat = int(self._hb_views[w][0])
+            if beat != self._last_beat[w]:  # racelint: unguarded -- supervisor-thread-private bookkeeping
+                self._last_beat[w] = beat  # racelint: unguarded -- supervisor-thread-private bookkeeping
+                self._beat_t[w] = now  # racelint: unguarded -- supervisor-thread-private bookkeeping
+                continue
+            with self._lock:
+                pending = any(
+                    w in self._await[b] for b in range(self.num_batches)
+                )
+                armed = self._last_dispatch[w]
+            if pending and now - max(self._beat_t[w], armed) > self.watchdog_timeout:
+                # Wedged (SIGSTOP, infinite env loop): the heartbeat
+                # stalled past the deadline WITH work dispatched. SIGKILL
+                # works on stopped processes; a slow-but-progressing
+                # worker beats per env step and never lands here.
+                log.error(
+                    "env worker %d wedged (no heartbeat for %.1fs with a "
+                    "step dispatched); killing for respawn", w,
+                    now - max(self._beat_t[w], armed),
+                )
+                p.kill()
+                p.join(timeout=1.0)
+                self._on_worker_death(
+                    w, "wedge", "hung-step watchdog", proc=p
+                )
+        for w in range(self.num_processes):
+            with self._lock:
+                want = (
+                    not self._closed and not self._alive[w]
+                    and w not in self._down
+                    and time.monotonic() >= self._respawn_at[w]
+                )
+            if want:
+                self._try_respawn(w)
+
+    def _death_counter(self, kind: str):
+        c = self._m_deaths.get(kind)
+        if c is None:
+            c = self._tel.registry.counter(
+                "envpool_worker_deaths_total", pool=self.name, kind=kind
+            )
+            self._m_deaths[kind] = c
+        return c
+
+    def _on_worker_death(self, w: int, kind: str, reason: str,
+                         proc=None, conn=None):
+        """A worker is gone: fail (fast, typed) every batch still awaiting
+        it, bump the restart bookkeeping, and schedule the respawn (or the
+        permanent-down degradation when the budget is spent)."""
+        fired = []
+        with self._lock:
+            if not self._alive[w]:
+                return  # already handled
+            if proc is not None and self._procs[w] is not proc:
+                return  # stale signal about a replaced process
+            if conn is not None and self._conns[w] is not conn:
+                return  # stale signal about a replaced pipe
+            self._alive[w] = False
+            self._gen[w] += 1
+            detail = reason
+            if self._ctrl is not None:
+                # Native mode: the supervisor thread is this conn's only
+                # reader, so picking up the worker's own error report here
+                # is safe. In pipe mode the drain loop owns the conn and
+                # already parked any report in _worker_errmsg.
+                try:
+                    c = self._conns[w]
+                    while c is not None and c.poll(0):
+                        m = c.recv()
+                        if m[0] == "error":
+                            detail = m[1]
+                except (EOFError, OSError):
+                    pass
+            detail = self._worker_errmsg.pop(w, None) or detail
+            lo, hi = w * self._per, (w + 1) * self._per
+            verb = ("was killed by the hung-step watchdog"
+                    if kind == "wedge" else "died")
+            for b in range(self.num_batches):
+                if not self._busy[b]:
+                    continue
+                aw = self._await[b]
+                if w not in aw:
+                    continue
+                self._scan_locked(b)  # pick up marks that landed late
+                if w not in aw:
+                    if not aw:
+                        self._events[b].set()
+                        cbs = self._callbacks.pop(b, None)
+                        if cbs:
+                            fired.extend(cbs)
+                    continue
+                exc = WorkerDied(
+                    f"env worker {w} (envs [{lo}, {hi})) {verb} with batch "
+                    f"{b} in flight: {detail}; retry-safe — re-step this "
+                    "buffer with the same action",
+                    worker=w,
+                )
+                self._batch_error[b] = exc
+                self._repair[b] = dict(aw)
+                self._await[b] = {}
+                self._busy[b] = False
+                ref = self._futs[b]
+                fut = ref() if ref is not None else None
+                if fut is not None and fut._outcome is None:
+                    fut._outcome = ("error", exc)
+                self._events[b].set()
+                cbs = self._callbacks.pop(b, None)
+                if cbs:
+                    fired.extend(cbs)
+            self._charge_restart_budget_locked(w, f"{verb}: {detail}")
+            went_down = w in self._down
+            strikes = len(self._death_times[w])
+        log.error("env worker %d %s: %s", w, verb, detail)
+        self._death_counter(kind).inc()
+        if self._fr.on:
+            self._fr.record("worker_death", pool=self.name, slot=int(w),
+                            kind=kind, reason=str(detail)[:200])
+        if went_down:
+            self._report_budget_exhaustion(w, strikes, f"{verb}: {detail}")
+        self._run_callbacks(fired)
+
+    def _report_budget_exhaustion(self, w: int, strikes: int, why: str):
+        """Worker_down flight event + incident capture for a slot that
+        degraded to permanently down — the ONE reporting path for both
+        ways a budget can run out (death, failed respawn). Called
+        OUTSIDE self._lock: capture writes a bundle and dumps every
+        thread's stack."""
+        if self._fr.on:
+            self._fr.record("worker_down", pool=self.name, slot=int(w),
+                            strikes=int(strikes))
+        from ..flightrec.capture import maybe_capture
+
+        maybe_capture(
+            "worker_budget_exhausted",
+            f"env worker {w} of pool {self.name!r} permanently down "
+            f"after {strikes} strikes ({why})",
+        )
+
+    def _charge_restart_budget_locked(self, w: int, why: str):
+        """One death / failed respawn attempt against slot ``w``'s restart
+        budget: deaths inside the window, capped-exponential backoff; past
+        the limit the slot degrades to permanent-down (its slice is
+        masked) instead of crash-looping."""
+        times = self._death_times[w]
+        now = time.monotonic()
+        times.append(now)
+        while times and now - times[0] > self._restart_window:
+            times.popleft()
+        attempts = len(times)
+        if attempts > self._restart_limit:
+            self._down.add(w)
+            log.error(
+                "env worker %d exhausted its restart budget (%d strikes in "
+                "%.0fs; last: %s); slot permanently down, envs [%d, %d) "
+                "masked as terminal", w, attempts, self._restart_window,
+                why, w * self._per, (w + 1) * self._per,
+            )
+        else:
+            self._respawn_at[w] = now + min(
+                self._backoff_cap,
+                self._backoff * (2 ** (attempts - 1)),
+            )
+
+    def _poll_handshake(self, conn, what: str):
+        """Bounded, close-aware wait for one handshake message from a
+        respawning worker."""
+        deadline = time.monotonic() + self._spawn_timeout
+        while not conn.poll(0.1):
+            if self._closed:  # racelint: unguarded -- close latch: read each 0.1s slice exactly so close() stays bounded
+                raise RuntimeError("pool closed during respawn")
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"respawn {what} timed out")
+        return conn.recv()
+
+    def _try_respawn(self, w: int):
+        """One respawn attempt for slot ``w``: spawn, handshake, reset the
+        slot's shm state (heartbeat, marks, ring, cmd semaphore), and swap
+        the process/pipe in. A failed attempt counts against the restart
+        budget like a death."""
+        with self._lock:
+            old_p, old_conn = self._procs[w], self._conns[w]
+        try:
+            old_p.join(timeout=0.2)
+            if old_p.is_alive():
+                old_p.kill()
+                old_p.join(timeout=1.0)
+        except (asyncio.CancelledError, concurrent.futures.CancelledError):
+            raise  # never swallow cancellation
+        except Exception:
+            pass  # reaping is best-effort; the new process is what matters
+        per = self._per
+        parent_conn, child_conn = self._ctx.Pipe()
+        p = self._ctx.Process(
+            target=_worker_main,
+            args=(child_conn, self._env_fn_bytes, w * per, per, w),
+            daemon=True,
+        )
+        try:
+            p.start()
+            child_conn.close()
+            kind, payload = self._poll_handshake(parent_conn, "spec")
+            if kind == "error":
+                raise RuntimeError(f"respawned worker failed: {payload}")
+            # Reset the slot's supervision + dispatch state BEFORE init:
+            # the fresh worker starts from mark/heartbeat zero and an
+            # empty command ring (its predecessor's commands died with it).
+            self._hb_views[w][0] = 0
+            self._mark_views[w][:] = 0
+            with self._lock:
+                if self._ctrl is not None:
+                    slots, tail = self._rings[w]
+                    slots[:] = 0
+                    tail[:] = 0
+                    self._ring_heads[w] = 0
+                    self._native.sem_init(
+                        self._shm.buf, self._ctrl.cmd_sems[w]
+                    )
+            parent_conn.send(self._init_msg(respawn=True))
+            kind, payload = self._poll_handshake(parent_conn, "ready")
+            if kind == "error":
+                raise RuntimeError(f"respawned worker failed: {payload}")
+            assert kind == "ready"
+        except (asyncio.CancelledError, concurrent.futures.CancelledError):
+            raise  # never swallow cancellation
+        except Exception as e:
+            try:
+                if p.is_alive():
+                    p.kill()
+                parent_conn.close()
+            except Exception:  # moolint: disable=swallow-cancelled
+                pass  # sync teardown of a failed spawn: nothing cancellable
+            self._m_respawn_fail.inc()
+            with self._lock:
+                self._charge_restart_budget_locked(
+                    w, f"respawn failed: {e}"
+                )
+                went_down = w in self._down
+                strikes = len(self._death_times[w])
+            if went_down:
+                self._report_budget_exhaustion(
+                    w, strikes, f"respawn failed: {e}"
+                )
+            log.error("env worker %d respawn failed: %s", w, e)
+            return
+        now = time.monotonic()
+        # Supervisor-thread-private watchdog bookkeeping (no lock needed).
+        self._last_beat[w] = 0
+        self._beat_t[w] = now
+        with self._lock:
+            self._procs[w] = p
+            self._conns[w] = parent_conn
+            self._alive[w] = True
+            self._last_dispatch[w] = now
+            # The fresh env slice gets a fresh chance: a deterministic
+            # poison env will re-quarantine itself in the new worker.
+            self._quarantined -= set(range(w * per, (w + 1) * per))
+        try:
+            old_conn.close()
+        except Exception:  # moolint: disable=swallow-cancelled
+            pass  # sync fd close of the dead worker's pipe
+        self._m_respawns.inc()
+        if self._fr.on:
+            self._fr.record("worker_respawn", pool=self.name, slot=int(w))
+        log.warning(
+            "env worker %d respawned (envs [%d, %d) re-created; their "
+            "episodes restart)", w, w * per, (w + 1) * per,
+        )
+
+    # -- async completion (callback path) ------------------------------------
+
+    def _add_done_callback(self, batch_index: int, fn, fut):
+        fire_now = False
+        with self._lock:
+            if fut._outcome is not None:
+                # Already collected: fire with the CACHED outcome. Must be
+                # checked before the busy flag — a newer step may be in
+                # flight on this buffer, and registering there would fire
+                # this callback at the wrong time (with result() only safe
+                # because of the cache).
+                fire_now = True
+            elif self._fatal or self._closed:
+                fire_now = True
+            elif not self._busy[batch_index]:
+                fire_now = True  # collected — or failed (error is cached)
+            elif self._ctrl is None and self._events[batch_index].is_set():
+                fire_now = True  # pipe mode: completed, not yet collected
+            else:
+                self._callbacks.setdefault(batch_index, []).append((fn, fut))
+                if self._ctrl is not None and self._notify_thread is None:
+                    # Open the workers' notify gate BEFORE draining starts:
+                    # in-flight steps dispatched before this post their
+                    # done-sems regardless, and the registration-race post
+                    # below forces a first scan.
+                    self._ctrl.flag_view(self._shm.buf)[0] = 1
+                    self._notify_thread = threading.Thread(
+                        target=_notify_entry, args=(weakref.ref(self),),
+                        daemon=True, name="envpool-notify",
+                    )
+                    self._notify_thread.start()
+        if fire_now:
+            self._run_callbacks([(fn, fut)])
+        elif self._ctrl is not None:
+            # Completion may have raced registration (all done-sems consumed
+            # by an earlier scan): force one fresh scan.
+            self._native.sem_post(self._shm.buf, self._ctrl.notify_sem)
+
+    def _notify_once(self) -> bool:
+        """One tick of the single event-driven completion thread for ALL
+        buffers: blocks (up to 0.5s) on the control block's notify
+        semaphore (posted by every worker after every step slice),
+        attributes completions via the per-worker marks (non-blocking
+        drains of the per-buffer done semaphores are just wakeup
+        bookkeeping), and fires callbacks (reference: one
+        semaphore-driven server serves 256 clients, src/env.h:46).
+        Returns False when the notify thread should exit; driven by
+        :func:`_notify_entry` (the weakref thread contract — failures
+        are handled there)."""
+        native, ctrl = self._native, self._ctrl
+        woke = native.sem_wait(self._shm.buf, ctrl.notify_sem, 0.5)
+        fired = []
+        with self._lock:
+            for b in list(self._callbacks):
+                while self._await[b] and native.sem_wait(
+                    self._shm.buf, ctrl.done_sems[b], 0.0
+                ):
+                    pass  # posts are wakeups; marks decide
+                if self._busy[b] and self._scan_locked(b):
+                    self._events[b].set()
+                    fired.extend(self._callbacks.pop(b))
+        if fired:
+            self._run_callbacks(fired)
+        elif not woke and not self._closed and not self._supervise:
+            try:
+                self._check_workers_alive()
+            except RuntimeError:
+                self._fail_all_waiters()
+                return False
+        return True
+
+    def _run_callbacks(self, items):
+        for fn, fut in items:
+            try:
+                fn(fut)
+            except (asyncio.CancelledError,
+                    concurrent.futures.CancelledError):
+                raise  # a cancelled callback cancels the dispatch loop
+            except Exception as e:
+                log.error("env step callback failed: %s", e)
+
+    def _fail_all_waiters(self):
+        """Pool-fatal failure / close: wake every blocked result() and fire
+        every registered callback (whose result() will raise the recorded
+        error)."""
+        for ev in self._events:
+            ev.set()
+        with self._lock:
+            pending = [cb for cbs in self._callbacks.values() for cb in cbs]
+            self._callbacks.clear()
+        self._run_callbacks(pending)
+
+    def _collect(self, batch_index: int, wait_s: float = 0.0):
+        with self._lock:
+            err = self._batch_error[batch_index]
+        if err is not None:
+            raise err
+        if self._fatal:
+            raise RuntimeError(f"env worker died: {self._fatal}")
+        if self._closed:
+            raise RuntimeError("EnvPool was closed with this step in flight")
+        views = self._views[batch_index]
+        out = {
+            k: v for k, v in views.items() if k != "action"
+        }
+        # Read t0 BEFORE releasing the busy flag: once busy is False a
+        # racing next step() of this buffer restamps _step_t0 and the
+        # observed duration would be ~0 or negative.
+        t0 = self._step_t0[batch_index] if self._tel.on else 0.0
+        with self._lock:
+            self._busy[batch_index] = False
+        if t0:
+            self._m_step_dur.observe(time.monotonic() - t0)
+        stage_s = 0.0
+        if self.device is not None:
+            # Copies, so the shm views are free to be overwritten by the
+            # next step of this buffer immediately.
+            t_stage = time.monotonic() if t0 else 0.0
+            out = _stage(out, self.device)
+            if t_stage:
+                stage_s = time.monotonic() - t_stage
+        # else: zero-copy numpy views over the shared segment. Valid until
+        # this buffer's next step() (same contract as the reference's
+        # from_blob tensors, src/env.cc:387-401).
+        if t0:
+            # Telemetry OUTSIDE pool._lock (the registry-lock/GC cycle
+            # note above); per-batch stamps make this overlap-safe.
+            wall = time.monotonic() - t0
+            wait_s = min(wait_s, wall)
+            self._scope.observe_step(wall, {
+                "env_wait": wait_s,
+                "staging": stage_s,
+                "batch_fill": max(wall - wait_s - stage_s, 0.0),
+            })
+        return out
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def close(self):
+        """Idempotent, bounded-time teardown: total wall time is capped
+        near ``close_timeout`` even with a wedged (e.g. SIGSTOP'd) worker
+        and a step in flight — polite join, then SIGTERM, then SIGKILL
+        (which terminates stopped processes too)."""
+        if self._closed:
+            # Lock-free fast path: a GC-time __del__ of an already-closed
+            # pool must not take ANY lock (GC can fire while an arbitrary
+            # lock — e.g. the telemetry registry's — is held; taking
+            # pool._lock there would record a registry->pool lock-order
+            # edge). _closed is a monotone latch, so the stale-read risk
+            # is only a redundant pass into the locked check below.
+            return
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        deadline = time.monotonic() + self._close_timeout
+        # Unblock any future whose step was in flight: its result() will see
+        # the closed pool and raise instead of hanging forever. Registered
+        # callbacks fire now for the same reason.
+        self._fail_all_waiters()
+        self._scope.close()
+        if self._ctrl is not None:
+            # Wake the notify loop so it observes _closed and exits.
+            if self._notify_thread is not None:
+                try:
+                    self._native.sem_post(
+                        self._shm.buf, self._ctrl.notify_sem
+                    )
+                except (asyncio.CancelledError,
+                        concurrent.futures.CancelledError):
+                    raise  # never swallow cancellation, even in teardown
+                except Exception:
+                    pass
+            with self._lock:
+                alive = [w for w in range(self.num_processes)
+                         if self._alive[w]]
+                for w in alive:
+                    try:
+                        self._push_cmd(w, _CMD_CLOSE)
+                    except RuntimeError:
+                        pass  # ring full: worker is stuck; escalate below
+        else:
+            for conn in self._conns:
+                try:
+                    conn.send(("close",))
+                except (BrokenPipeError, OSError):
+                    pass
+        # Escalation ladder on a SHARED deadline (never per-process sums):
+        # polite join -> SIGTERM -> SIGKILL -> final reap.
+        grace = min(1.0, self._close_timeout / 3.0)
+        polite_by = time.monotonic() + grace
+        for p in self._procs:
+            p.join(timeout=max(0.0, polite_by - time.monotonic()))
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+        term_by = time.monotonic() + grace
+        for p in self._procs:
+            if p.is_alive():
+                p.join(timeout=max(0.0, term_by - time.monotonic()))
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()  # a SIGSTOP'd worker dies to this, not to SIGTERM
+        for p in self._procs:
+            if p.is_alive():
+                p.join(timeout=max(0.05, deadline - time.monotonic()))
+        for conn in self._conns:
+            try:
+                conn.close()
+            except OSError:
+                pass
+        if self._supervisor is not None:
+            self._supervisor.join(timeout=2.0)
+        # The notify loop's native sem_wait exports a Py_buffer over
+        # shm.buf for up to its 0.5s slice; releasing the segment with the
+        # export live raises BufferError — join the thread first.
+        if self._notify_thread is not None:
+            self._notify_thread.join(timeout=2.0)
+        if self._waiter is not None:
+            self._waiter.join(timeout=1.0)
+        from ..telemetry import global_telemetry
+
+        reg = global_telemetry().registry
+        for gname in ("envpool_workers_down", "envpool_quarantined_envs"):
+            reg.unregister(gname, pool=self.name)
+        try:
+            self._shm.close()
+            self._shm.unlink()
+        except FileNotFoundError:
+            pass
+        except BufferError:
+            # A wedged callback kept the notify loop's buffer export alive
+            # past the join timeout; leak the mapping rather than crash
+            # teardown (the process exit reclaims it).
+            log.warning("shm release deferred: notify loop still active")
+            try:
+                self._shm.unlink()
+            except FileNotFoundError:
+                pass
+
+    def _kill_workers(self):
+        """Construction-failure teardown (pre-supervision): hard-stop every
+        worker and close the pipes."""
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()
+        for p in self._procs:
+            p.join(timeout=2.0)
+        for conn in self._conns:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):  # lifelint: intentional -- documented abandoned-pool backstop; close() is latched idempotent and the weakref'd worker threads guarantee this can actually run
+        try:
+            self.close()
+        except (asyncio.CancelledError, concurrent.futures.CancelledError):
+            raise  # surfaced as an unraisable warning, never silently eaten
+        except Exception:
+            pass
+
+
+def step_with_retry(pool: "EnvPool", batch_index: int, action, *,
+                    timeout: float = 300.0, attempts: int = 10,
+                    backoff: float = 0.05, backoff_cap: float = 1.0):
+    """Dispatch + collect one batched step, absorbing the typed retry-safe
+    env-tier failure: on :class:`WorkerDied` (a worker died mid-batch, or
+    its replacement is still respawning) the step is retried with the
+    SAME action under capped-exponential backoff — the local-pool
+    counterpart of ``RemoteEnvStepper``'s retrying future, used by the
+    examples' training loops so an env-worker death mid-run degrades to a
+    brief stall instead of a crashed experiment. The pool guarantees the
+    retry is exactly-once per env (completed slices are served from their
+    written results). Non-retryable failures (pool closed/fatal) raise
+    through."""
+    last: Optional[WorkerDied] = None
+    fut = None
+    attempts = max(1, attempts)
+    for attempt in range(attempts):
+        try:
+            if fut is None:
+                fut = pool.step(batch_index, action)
+            return fut.result(timeout)
+        except WorkerDied as e:
+            last = e
+            fut = None
+            if attempt < attempts - 1:  # no dead wait before the raise
+                time.sleep(min(backoff_cap, backoff * (2 ** attempt)))
+    raise last
+
+
+EnvStepper = EnvPool

@@ -13,7 +13,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["impala_params_from_flax", "transformer_params_from_flax"]
+__all__ = ["a2c_params_from_flax", "impala_params_from_flax",
+           "transformer_params_from_flax"]
 
 
 def _t(x) -> torch.Tensor:
@@ -77,6 +78,45 @@ def transformer_params_from_flax(params: Mapping[str, Any]
     return sd
 
 
+def _lstm_cell(cell: Mapping[str, Any], prefix: str
+               ) -> Dict[str, torch.Tensor]:
+    """A flax ``OptimizedLSTMCell``'s kernels (gates i, f, g, o) ->
+    :class:`~moolib_tpu_torch.models.LSTMCore`'s ``weight_ih`` (``ii``..
+    ``io``, no bias), ``weight_hh`` and ``bias_hh`` (``hi``..``ho``)."""
+
+    def stacked(side: str, leaf: str) -> torch.Tensor:
+        return torch.cat([_t(cell[side + g][leaf]) for g in "ifgo"], dim=-1)
+
+    return {f"{prefix}.weight_ih": stacked("i", "kernel").T.contiguous(),
+            f"{prefix}.weight_hh": stacked("h", "kernel").T.contiguous(),
+            f"{prefix}.bias_hh": stacked("h", "bias")}
+
+
+def a2c_params_from_flax(params: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """Map an ``A2CNet`` parameter tree (``{"params": ...}`` or its
+    inside) onto :class:`moolib_tpu_torch.models.A2CNet`'s ``state_dict``
+    keys: the hidden ``Dense_i`` -> ``hidden.i``, the last two Dense
+    layers -> ``policy`` and ``baseline``, and ``LSTMCore_0``'s cell ->
+    ``core``. Raises ``KeyError`` on a tree of another model."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+    dense = sorted((k for k in p if k.startswith("Dense_")),
+                   key=lambda k: int(k.split("_")[1]))
+    *hidden, policy, baseline = dense
+    for i, k in enumerate(hidden):
+        for leaf, v in _dense(p[k]).items():
+            sd[f"hidden.{i}.{leaf}"] = v
+    for name, k in (("policy", policy), ("baseline", baseline)):
+        for leaf, v in _dense(p[k]).items():
+            sd[f"{name}.{leaf}"] = v
+    if "LSTMCore_0" in p:
+        sd.update(_lstm_cell(
+            p["LSTMCore_0"]["Scan_MaskedLSTMStep_0"]["OptimizedLSTMCell_0"],
+            "core"))
+    return sd
+
+
 def impala_params_from_flax(params: Mapping[str, Any]
                             ) -> Dict[str, torch.Tensor]:
     """Map an ``ImpalaNet`` parameter tree (``{"params": ...}`` or its
@@ -108,13 +148,7 @@ def impala_params_from_flax(params: Mapping[str, Any]
     put("policy", _dense(p["Dense_1"]))
     put("baseline", _dense(p["Dense_2"]))
     if "LSTMCore_0" in p:
-        cell = p["LSTMCore_0"]["Scan_MaskedLSTMStep_0"]["OptimizedLSTMCell_0"]
-
-        def stacked(side: str, leaf: str) -> torch.Tensor:
-            return torch.cat([_t(cell[side + g][leaf]) for g in "ifgo"],
-                             dim=-1)
-
-        sd["core.weight_ih"] = stacked("i", "kernel").T.contiguous()
-        sd["core.weight_hh"] = stacked("h", "kernel").T.contiguous()
-        sd["core.bias_hh"] = stacked("h", "bias")
+        sd.update(_lstm_cell(
+            p["LSTMCore_0"]["Scan_MaskedLSTMStep_0"]["OptimizedLSTMCell_0"],
+            "core"))
     return sd

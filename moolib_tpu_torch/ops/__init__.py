@@ -1,6 +1,6 @@
-"""Ops of the port: attention, V-trace and batch staging."""
+"""Ops of the port: attention, V-trace, the Batcher and batch staging."""
 
 from . import attention, vtrace
-from .batcher import stage_batch
+from .batcher import Batcher, stage_batch
 
-__all__ = ["attention", "stage_batch", "vtrace"]
+__all__ = ["Batcher", "attention", "stage_batch", "vtrace"]

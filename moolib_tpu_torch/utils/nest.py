@@ -18,8 +18,12 @@ __all__ = [
     "map_structure",
     "flatten",
     "unflatten_as",
+    "zip_structures",
     "stack_fields",
     "unstack_fields",
+    "cat_fields",
+    "squeeze_fields",
+    "unsqueeze_fields",
     "slice_fields",
 ]
 
@@ -90,6 +94,11 @@ def unflatten_as(structure: Any, leaves: Iterable) -> Any:
 _END = object()
 
 
+def zip_structures(*trees: Any) -> Any:
+    """Zip N same-shaped trees into one tree whose leaves are tuples."""
+    return map_structure(lambda *xs: tuple(xs), *trees)
+
+
 def stack_fields(trees: Iterable[Any], axis: int = 0) -> Any:
     """Stack a sequence of same-structure trees into one tree of batched
     leaves (torch leaves with :func:`torch.stack`, others with numpy)."""
@@ -103,6 +112,24 @@ def stack_fields(trees: Iterable[Any], axis: int = 0) -> Any:
         return np.stack(xs, axis=axis)
 
     return map_structure(_stack, *trees)
+
+
+def cat_fields(trees: Iterable[Any], axis: int = 0) -> Any:
+    """Concatenate same-structure trees leaf-wise along ``axis`` (torch
+    leaves with :func:`torch.cat`, on their own device and without a
+    host sync; others with numpy). A tree may mix the two kinds, as a
+    learn unroll does (host frames, the LSTM state on the card); each
+    leaf position must hold one kind across the trees."""
+    trees = list(trees)
+    if not trees:
+        raise ValueError("cat_fields requires at least one tree")
+
+    def _cat(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.cat(xs, dim=axis)
+        return np.concatenate(xs, axis=axis)
+
+    return map_structure(_cat, *trees)
 
 
 def unstack_fields(tree: Any, batch_size: int | None = None,
@@ -128,6 +155,18 @@ def unstack_fields(tree: Any, batch_size: int | None = None,
     return [
         map_structure(lambda x, i=i: _pick(x, i), tree) for i in range(n)
     ]
+
+
+def squeeze_fields(tree: Any, axis: int = 0) -> Any:
+    return map_structure(
+        lambda x: x.squeeze(axis) if isinstance(x, torch.Tensor)
+        else np.squeeze(x, axis=axis), tree)
+
+
+def unsqueeze_fields(tree: Any, axis: int = 0) -> Any:
+    return map_structure(
+        lambda x: x.unsqueeze(axis) if isinstance(x, torch.Tensor)
+        else np.expand_dims(x, axis=axis), tree)
 
 
 def slice_fields(tree: Any, start: int, stop: int, axis: int = 0) -> Any:

@@ -83,3 +83,28 @@ def test_bench_allreduce_at_two_peers_prints_the_reference_keys(capsys):
     assert row["plane"] == "dcn_rpc_tree" and row["peers"] == 2
     assert row["mb"] == round(2**10 * 4 / 1e6, 2)
     assert row["ms"] > 0 and row["gbps"] > 0
+
+
+def test_bench_e2e_prints_one_line_of_the_references_keys(capsys):
+    """bench_e2e_torch.py's loop on the CPU, at a small batch: one JSON
+    line of bench_e2e.py's keys on stdout (the rate is the CPU's), and
+    the loop's phase ledger on stderr."""
+    import bench_e2e_torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the test processes run side by side
+    try:
+        line = bench_e2e_torch.main(duration=20.0, device="cpu", batch=4)
+    finally:
+        torch.set_num_threads(threads)
+    captured = capsys.readouterr()
+    out = captured.out.strip().splitlines()
+    assert len(out) == 1 and json.loads(out[0]) == line
+    assert set(line) == {"metric", "value", "unit", "total_env_steps",
+                         "wall_s", "learner_only_gap_note"}
+    assert line["metric"] == "impala_e2e_env_steps_per_sec"
+    assert line["value"] > 0 and line["total_env_steps"] > 0
+    child = json.loads(captured.err.strip().splitlines()[-1])
+    phases = child["vtrace_learner"]["phases"]
+    assert {"env_wait", "act", "host_sync", "fwd_bwd"} <= set(phases)
+    assert child["envpool_worker_deaths"] == 0

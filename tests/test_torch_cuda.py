@@ -687,3 +687,59 @@ def test_train_state_round_trips_through_get_state_and_set_state(card):
         nu = got.optimizer.state[b]["nu"]
         assert nu.device.type == "cuda", n
         assert torch.equal(lead.optimizer.state[a]["nu"], nu), n
+
+
+def _synthetic_env_fn(episode_length):
+    import functools
+
+    from moolib_tpu_torch.examples.envs import create_synthetic_atari
+
+    return functools.partial(create_synthetic_atari, num_actions=6,
+                             episode_length=episode_length)
+
+
+def test_envpool_stages_steps_onto_the_card(card):
+    """EnvPool(device="cuda"): every field of every step on the card,
+    equal bit for bit to a host pool's numpy views of the same envs."""
+    import numpy as np
+
+    from moolib_tpu_torch import EnvPool
+
+    env_fn = _synthetic_env_fn(3)  # a reset every third step
+    with EnvPool(env_fn, num_processes=2, batch_size=8) as host, \
+            EnvPool(env_fn, num_processes=2, batch_size=8,
+                    device="cuda") as dev:
+        for step in range(5):
+            actions = (np.arange(8) + step) % 6
+            want = {k: np.array(v) for k, v in
+                    host.step(step % 2, actions).result(60).items()}
+            got = dev.step(step % 2, actions).result(60)
+            assert sorted(got) == sorted(want)
+            for k, v in got.items():
+                assert v.device.type == "cuda", k
+                assert np.array_equal(v.cpu().numpy(), want[k]), (step, k)
+
+
+def test_experiment_loop_trains_the_transformer_through_the_kernels(card):
+    """train() of the experiment with model=transformer on the card, at a
+    small size: updates with finite losses, and the act and grad steps
+    went through the flash forward and the fused backward."""
+    import math
+
+    from moolib_tpu_torch.examples.vtrace.experiment import (VtraceConfig,
+                                                             train)
+
+    for kern in _kernels.KERNELS:
+        kern.launches = 0
+    cfg = VtraceConfig(env="synthetic", model="transformer", num_actions=4,
+                       episode_length=40, total_steps=640,
+                       actor_batch_size=4, learn_batch_size=4,
+                       virtual_batch_size=4, num_actor_processes=2,
+                       unroll_length=4, log_interval_steps=320,
+                       stats_interval=1e9, seed=0)
+    logs = train(cfg, log_fn=lambda *_: None)
+    launches = {kern.name: kern.launches for kern in _kernels.KERNELS}
+    assert logs and logs[-1]["updates"] >= 1
+    assert math.isfinite(logs[-1]["total_loss"])
+    assert launches["flash_fwd"] > 0 and launches["flash_bwd_tile"] > 0, \
+        launches
