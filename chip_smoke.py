@@ -153,16 +153,53 @@ Phases, in order; any failure exits non-zero before the result line:
    process of its own: its JSON line, its ledger and its env worker
    deaths (none allowed) from the JSON line it prints on stderr, and its
    rate beside phase 8's bench_torch.py learner-only rate. [e2e] lines.
-12. The kernels line (with the ledgers, the bundles' summaries and the
-    RPC, accumulate and e2e phases' readings; launches_by_path includes
-    "rpc act" and "rpc context", the child's launches, "acc", both
-    processes' launches in the accumulate phase's transformer runs, and
-    "e2e transformer", the transformer loop's), the card line, and the
-    result line.
+12. Zoo: the remaining model families and example entry points. (a)
+   The MoE TransformerNet (phase 5's width, transformer_mlp=moe: 8
+   experts, top-2, capacity factor 1.25) behind an act and a context
+   Replica: the checked batches' stacked inputs, padding included (an
+   MoE reply depends on its batch: capacity is over the call's tokens),
+   go through the same model with dense attention on the CPU, first
+   holding the router probabilities against the card's (the tokens
+   whose top-2 set differs counted with their margins), then seating
+   with the card's probabilities, outputs at SERVE_TOL; flash_fwd
+   launches in both services; steady requests a second and latency,
+   the drop fraction, peak device memory at the context shape. (b)
+   Three V-trace steps of it with the aux folded in on [21, 32] against
+   the CPU on the card's routing (phase 6's tolerances); two flash_fwd
+   and two flash_bwd_tile launches a step, dQ and dK/dV none; the step's
+   time and one profiled step. (c) experiment.py's train() with
+   transformer_mlp=moe, no savedir, 20 s: at least 10 updates, finite
+   losses, moe_drop_fraction logged. (d) NetHackNet's f32 grad step on
+   a learn batch of config_nethack.yaml's shape against an f64 step
+   (each tensor within the larger of 1e-3 and 3x the CPU f32 step's own
+   distance), the same bounds failed by a trunk with TF32 convolutions
+   and by a bf16 trunk; then
+   train() at config_nethack.yaml's settings for 30 s (4 actor
+   processes, not 8): updates, finite losses, no env worker death, the
+   LSTM state carried into the unrolls. (e) examples/a2c.py on CartPole
+   at LEARNING_r04.json's settings (80,000 steps): return > 100 in at
+   least 10 of the last 20 windows and the last 10 windows' entropy in
+   (0.05, 0.69); its curve; then the pixel A2C smoke (bf16 ImpalaNet).
+   (f) examples/remote_actors.py: run_learner on the card (synthetic
+   env, the f32 ImpalaNet; then CartPole) fed by three run_actor child
+   processes for 20 s: updates, and an infer forward stacking more than
+   one actor call (the learner Rpc's rpc_batch_fill_fraction); then the
+   synthetic learner fed by two (each with one call in flight, they may
+   convoy and never stack): updates. No flash
+   kernel may launch on the nethack, a2c and remote actors paths. [zoo]
+   lines; readings carry the card's name and power limit.
+13. The kernels line (with the ledgers, the bundles' summaries and the
+    RPC, accumulate, e2e and zoo phases' readings; launches_by_path
+    includes "rpc act" and "rpc context", the child's launches, "acc",
+    both processes' launches in the accumulate phase's transformer
+    runs, "e2e transformer", the transformer loop's, and the zoo's
+    "moe act", "moe context", "moe train", "e2e moe", "nethack", "a2c"
+    and "remote actors"), the card line, and the result line.
 
 Lines tagged [telemetry], [stepscope] and [flightrec] carry the
 observability checks and readings, [rpc] lines the RPC phase's, [acc]
-lines the accumulate phase's, [e2e] lines the e2e phase's.
+lines the accumulate phase's, [e2e] lines the e2e phase's, [zoo] lines
+the zoo phase's.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -246,8 +283,9 @@ def device_ms(fn, kernel, iters: int = 20):
     fn()
     torch.cuda.synchronize()
     # A trace now and then comes back without the kernels' records; such a
-    # trace is taken again (three tries).
-    for _ in range(3):
+    # trace is taken again (eight tries: three in a row came back empty
+    # once on an H100 80GB HBM3).
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -3787,6 +3825,681 @@ def phase_e2e(learner_only: float) -> dict:
                 launches={"e2e transformer": launches})
 
 
+# Phase 12, the remaining model families and example entry points. The
+# MoE transformer at experiment.py's width with transformer_mlp=moe (8
+# experts, top-2, capacity factor 1.25: TransformerNet's defaults).
+MOE_KW = dict(mlp="moe", num_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
+# Route check: the card's router probabilities against the CPU's (f32,
+# summation order only), then the CPU forward on the card's routing at
+# SERVE_TOL (replies) or phase 6's tolerances (train steps).
+ROUTE_PROB_TOL = 1e-5
+ZOO_ACT_WAVES = [[0, 1, 2, 3], [4, 5, 6, 0]]   # checked act batches
+ZOO_CONTEXT_WAVES = [[0, 1, 2, 3]]             # the checked context batch
+ZOO_STEADY_WAVES = {"act": 16, "context": 4}   # unchecked, for the rates
+ZOO_E2E_SECONDS = 20.0
+NETHACK_SECONDS = 30.0
+NETHACK_COND = 3.0  # the card's f32 gradients against the f64 step's
+# config_nethack.yaml asks for 8 actor processes; the card machine has 8
+# cores for them, the learner and the actor loop: 4.
+NETHACK_ACTOR_PROCESSES = 4
+REMOTE_SECONDS = 20.0  # the learner's; its actors stop 8 s before it, since
+# an actor whose call is in flight when the learner closes waits out the
+# RPC timeout
+# (env, num_actions, actor processes, whether a forward must stack two
+# calls). Each actor has one call in flight, so two convoy against the
+# infer forward (the server pops one while the other's reply is on its
+# way back) and no forward need stack two calls (one chip run: 1.00 calls
+# a forward over 1186 forwards); three must stack.
+REMOTE_RUNS = (("synthetic", 6, 3, True), ("cartpole", 2, 3, True),
+               ("synthetic", 6, 2, False))
+REMOTE_CHILD_TIMEOUT_S = 120.0
+
+
+def zlog(msg: str, smi: str) -> None:
+    """A [zoo] line, with the card's name and power limit."""
+    log(f"[zoo] {msg} | card: {smi}")
+
+
+def _routes():
+    """A RouteReplay of the MoE calls' routes on the card, to replay into
+    the CPU's calls of the same batch."""
+    from moolib_tpu_torch.parallel.moe import RouteReplay
+
+    return RouteReplay()
+
+
+def _routes_summary(routes) -> str:
+    return (f"router probabilities max|card-CPU| {routes.prob_err:.3e} "
+            f"(tol {ROUTE_PROB_TOL}); top-2 sets differ on "
+            f"{routes.flipped} of {routes.tokens} tokens, CPU margins "
+            f"{[f'{m:.2e}' for m in routes.margins[:8]]}")
+
+
+def _routes_check(routes, what: str) -> None:
+    if routes.recorded:
+        raise RuntimeError(f"{what}: {len(routes.recorded)} recorded MoE "
+                           "calls were not replayed")
+    if not routes.prob_err <= ROUTE_PROB_TOL:
+        raise RuntimeError(f"{what}: router probabilities differ from "
+                           f"the CPU's by {routes.prob_err:.3e}")
+
+
+def _moe_net(device, backend, generator=None):
+    """experiment.py's transformer at full width (phase 5's) with
+    transformer_mlp=moe."""
+    from moolib_tpu_torch import TransformerNet
+
+    return TransformerNet(6, (84, 84, 4), compute_dtype=torch.bfloat16,
+                          attention_backend=backend, device=device,
+                          generator=generator, **MOE_KW)
+
+
+def _zoo_moe_serve(tel, smi) -> dict:
+    """(a) The MoE transformer behind an act and a context Replica. The
+    checked batches' stacked inputs (padding included) go through the CPU
+    forward on the card's routing; their outputs, the batch as served,
+    must agree at SERVE_TOL."""
+    from moolib_tpu_torch import Replica
+    from moolib_tpu_torch.ops._kernels import FLASH_FWD, KERNELS
+
+    net = _moe_net("cuda", "auto",
+                   torch.Generator(device="cuda").manual_seed(3)).eval()
+    cpu = _moe_net("cpu", "dense").eval()
+    cpu.load_state_dict(net.state_dict())
+    batch_ms = {"act": [], "context": []}
+    fns = _service_fns(batch_ms)
+    reqs_by_kind = _serve_requests()
+    out, launches = {}, {}
+    for kind, waves in (("act", ZOO_ACT_WAVES),
+                        ("context", ZOO_CONTEXT_WAVES)):
+        routes, seen, checking = _routes(), [], [True]
+
+        def fn(model, batch, kind=kind, routes=routes, seen=seen,
+               checking=checking):
+            if not checking[0]:
+                return fns[kind](model, batch)
+            with routes.record():
+                res = fns[kind](model, batch)
+            seen.append(({k: v.cpu() for k, v in batch.items()},
+                         {k: v.float().cpu() for k, v in res.items()
+                          if k != "action"}))
+            return res
+
+        reqs = reqs_by_kind[kind]
+        rep = Replica(None, fn, net, service=f"moe_{kind}",
+                      batch_size=BATCH, pad=True, linger_s=0.05,
+                      device="cuda", telemetry=tel)
+        order = [j % len(reqs)
+                 for j in range(ZOO_STEADY_WAVES[kind] * BATCH)]
+        try:
+            for kern in KERNELS:
+                kern.launches = 0
+            if kind == "context":
+                torch.cuda.reset_peak_memory_stats()
+            _serve(rep, reqs, waves)
+            launches[f"moe {kind}"] = {k.name: k.launches for k in KERNELS}
+            checking[0] = False
+            _, steady_ms, rate = _serve_steady(rep.submit, reqs, order)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            rep.close()
+        errs = []
+        for batch, res in seen:
+            n = batch["done"].shape[0]
+            with torch.no_grad(), routes.replay():
+                if kind == "act":
+                    (logits, _), _ = cpu(
+                        batch["obs"].reshape(1, n * ACT_ENVS, 84, 84, 4),
+                        batch["done"].reshape(1, n * ACT_ENVS))
+                    want = {"logits": logits[0].reshape(n, ACT_ENVS, 6)}
+                else:
+                    (logits, baseline), _ = cpu(batch["obs"].transpose(0, 1),
+                                                batch["done"].transpose(0, 1))
+                    want = {"logits": logits.transpose(0, 1),
+                            "baseline": baseline.transpose(0, 1)}
+            for k, w in want.items():
+                if not torch.isfinite(res[k]).all():
+                    raise RuntimeError(f"moe {kind}: non-finite {k}")
+                errs.append(float((res[k] - w).abs().max()))
+        _routes_check(routes, f"moe {kind}")
+        fwd = batch_ms[kind][-ZOO_STEADY_WAVES[kind]:]
+        out[kind] = dict(
+            batches_checked=len(seen), max_err=max(errs), rate=rate,
+            median_ms=float(np.median(steady_ms)),
+            batch_forward_ms=float(np.median(fwd)),
+            drop_fraction=float(np.mean(routes.drops)),
+            route_flips=routes.flipped, route_tokens=routes.tokens,
+            flip_margins=routes.margins, prob_err=routes.prob_err,
+            launches=launches[f"moe {kind}"])
+        zlog(f"(a) moe {kind}: {len(seen)} stacked batches of {BATCH} "
+             f"checked | {_routes_summary(routes)} | max|batch output - CPU "
+             f"on the card's routing| {max(errs):.3e} (tol {SERVE_TOL}) | "
+             f"launches {launches[f'moe {kind}']}", smi)
+        zlog(f"(a) moe {kind} steady ({len(order)} requests, two waves in "
+             f"flight): {rate:.3f} requests/s, request latency ms median "
+             f"{np.median(steady_ms):.3f}, p90 "
+             f"{np.percentile(steady_ms, 90):.3f}; batch forward ms (CUDA "
+             f"events) median {np.median(fwd):.3f}; the checked batches' "
+             f"drop_fraction {out[kind]['drop_fraction']:.4f}"
+             + (f"; peak device memory {peak:.2f} GiB"
+                if kind == "context" else ""), smi)
+        if kind == "context":
+            out[kind]["peak_gib"] = peak
+        if max(errs) > SERVE_TOL:
+            raise RuntimeError(f"moe {kind} replies differ from the CPU "
+                               f"forward by {max(errs):.3e}")
+        if launches[f"moe {kind}"][FLASH_FWD.name] == 0:
+            raise RuntimeError(f"moe {kind}: flash_fwd never launched")
+    return out
+
+
+def _zoo_moe_train(smi) -> dict:
+    """(b) Three V-trace steps of the MoE transformer with the aux folded
+    in, on [T+1=21, B=32], against the CPU (dense attention) on the
+    card's routing: metrics, the step-1 gradients and the parameters
+    after the last step at phase 6's tolerances; two flash_fwd and two
+    flash_bwd_tile launches a step, dQ and dK/dV none."""
+    from moolib_tpu_torch import (
+        ClippedRMSprop,
+        ImpalaConfig,
+        make_grad_step,
+        make_impala_train_step,
+        make_train_state,
+    )
+    from moolib_tpu_torch.ops._kernels import KERNELS
+
+    def apply(model, obs, done, core_state):
+        return model(obs, done, core_state, return_aux=True)
+
+    def optimizer(net):
+        return ClippedRMSprop(net.parameters(), 6e-4, decay=0.99, eps=0.01,
+                              max_norm=40.0)
+
+    cfg = ImpalaConfig(discounting=0.99, baseline_cost=0.5,
+                       entropy_cost=0.0006, reward_clip=1.0)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    net = _moe_net("cuda", "auto", gen)
+    cpu = _moe_net("cpu", "dense")
+    cpu.load_state_dict(net.state_dict())
+    batches = _learn_batches(gen, TRAIN_STEPS)
+    names = METRICS + ("moe_lb_loss", "moe_z_loss", "moe_drop_fraction")
+
+    routes = _routes()
+    with routes.record():
+        g_card, _ = make_grad_step(apply, config=cfg)(net, batches[0])
+    with routes.replay():
+        g_cpu, _ = make_grad_step(apply, config=cfg)(cpu,
+                                                     _to_cpu(batches[0]))
+    errs = {n: float((g_card[n].cpu() - g_cpu[n]).abs().max())
+            / float(g_cpu[n].abs().max()) for n in g_cpu}
+    worst = max(errs, key=errs.get)
+    bad = [n for n, e in errs.items()
+           if not e <= BF16_GRAD_TOL.get(n, TRAIN_GRAD_TOL)]
+    zlog(f"(b) moe train, step-1 gradients vs the CPU on the card's "
+         f"routing: max relative error {errs[worst]:.3e} at {worst} (tol "
+         f"{TRAIN_GRAD_TOL}; pos_emb {BF16_GRAD_TOL['pos_emb.weight']:.3e}); "
+         f"router {max(errs[n] for n in errs if n.endswith('router')):.3e} "
+         f"| {_routes_summary(routes)}", smi)
+    _routes_check(routes, "moe train gradients")
+    if bad:
+        raise RuntimeError(f"moe step-1 gradients differ at {bad}")
+    del g_card, g_cpu
+
+    step = make_impala_train_step(apply, config=cfg)
+    state = make_train_state(net, optimizer(net))
+    ref_state = make_train_state(cpu, optimizer(cpu))
+    routes, per_step, metric_err = _routes(), [], 0.0
+    for kern in KERNELS:
+        kern.launches = 0
+    for batch in batches:
+        before = {k.name: k.launches for k in KERNELS}
+        with routes.record():
+            state, m = step(state, batch)
+            m = {k: float(m[k]) for k in names}
+        per_step.append({k.name: k.launches - before[k.name]
+                         for k in KERNELS})
+        with routes.replay():
+            ref_state, rm = step(ref_state, _to_cpu(batch))
+        if not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"moe train: non-finite metrics {m}")
+        metric_err = max(metric_err, max(
+            abs(m[k] - float(rm[k])) / max(abs(float(rm[k])), 1.0)
+            for k in names))
+    launches = {k.name: k.launches for k in KERNELS}
+    param_err = max(float((p.cpu() - cpu.state_dict()[n]).abs().max())
+                    for n, p in net.state_dict().items())
+    _routes_check(routes, "moe train steps")
+    zlog(f"(b) moe train: {TRAIN_STEPS} steps, metrics {m} | max relative "
+         f"metric error vs the CPU {metric_err:.3e} (tol "
+         f"{TRAIN_METRIC_TOL}) | params after the last step max|card-CPU| "
+         f"{param_err:.3e} (tol {TRAIN_PARAM_TOL}) | "
+         f"{_routes_summary(routes)} | launches per step {per_step}", smi)
+    if metric_err > TRAIN_METRIC_TOL or param_err > TRAIN_PARAM_TOL:
+        raise RuntimeError("moe train steps differ from the CPU's")
+    for counts in per_step:
+        if (counts["flash_fwd"], counts["flash_bwd_tile"],
+                counts["flash_bwd_dq"], counts["flash_bwd_dkdv"]) \
+                != (2, 2, 0, 0):
+            raise RuntimeError(f"moe train step launches {counts}; want "
+                               "flash_fwd 2, flash_bwd_tile 2, dq/dkdv 0")
+    # Steady step time (CUDA events) and one profiled step.
+    step_ms = cuda_ms(lambda: step(state, batches[0]), iters=5)
+    prof = _profile_step(lambda: step(state, batches[0]),
+                         tag=f"zoo | card: {smi}")
+    zlog(f"(b) moe train step: {step_ms:.3f} ms (CUDA events, mean of 5) | "
+         f"profiled: wall {prof['wall_ms']:.3f} ms, {prof['device_items']} "
+         f"device items, busy {prof['device_busy_ms']:.3f} ms; by class "
+         f"{ {k: round(v, 3) for k, v in prof['by_class_ms'].items()} }",
+         smi)
+    return dict(step_ms=step_ms, grad_err=errs[worst], metric_err=metric_err,
+                param_err=param_err, route_flips=routes.flipped,
+                route_tokens=routes.tokens, flip_margins=routes.margins,
+                launches_per_step=per_step, launches=launches,
+                profile={k: prof[k] for k in ("wall_ms", "device_items",
+                                              "device_busy_ms",
+                                              "by_class_ms")})
+
+
+def _zoo_moe_e2e(smi) -> dict:
+    """(c) experiment.py's train() with model=transformer and
+    transformer_mlp=moe, without a savedir, for ZOO_E2E_SECONDS."""
+    from bench_e2e_torch import _worker_deaths
+    from moolib_tpu_torch.examples.vtrace import experiment
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.telemetry import global_telemetry
+
+    deaths0 = _worker_deaths(global_telemetry().snapshot())
+    for kern in KERNELS:
+        kern.launches = 0
+    cfg = experiment.VtraceConfig(
+        env="synthetic", model="transformer", transformer_mlp="moe", seed=0,
+        max_seconds=ZOO_E2E_SECONDS, log_interval_steps=2000,
+        stats_interval=2.0)
+    t0 = time.perf_counter()
+    rows = experiment.train(cfg, log_fn=lambda *a: None)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    deaths = _worker_deaths(global_telemetry().snapshot()) - deaths0
+    if len(rows) < 2:
+        raise RuntimeError(f"the moe loop logged {len(rows)} rows")
+    rates = _rates(rows)
+    drops = [r["moe_drop_fraction"] for r in rows
+             if np.isfinite(r["moe_drop_fraction"])]
+    losses = [r["total_loss"] for r in rows if np.isfinite(r["total_loss"])]
+    zlog(f"(c) moe e2e ({ZOO_E2E_SECONDS:g} s, experiment.py's defaults, "
+         f"no savedir): {len(rows)} rows in {wall:.1f} s; "
+         f"{rates['env_steps_per_s']:.1f} env-steps/s, "
+         f"{rates['updates_per_s']:.2f} updates/s (first to last row); "
+         f"{rows[-1]['updates']:g} updates; moe_drop_fraction per window "
+         f"{[round(d, 4) for d in drops]}; launches {launches}", smi)
+    if rows[-1]["updates"] < 10 or not losses \
+            or not all(np.isfinite(r["total_loss"]) for r in rows[1:]):
+        raise RuntimeError(f"the moe loop: {rows[-1]['updates']} updates, "
+                           f"losses {[r['total_loss'] for r in rows]}")
+    if not drops:
+        raise RuntimeError("the moe loop never logged moe_drop_fraction")
+    if not (launches["flash_fwd"] and launches["flash_bwd_tile"]):
+        raise RuntimeError(f"the moe loop launched {launches}")
+    if deaths:
+        raise RuntimeError(f"the moe loop lost {deaths:g} env workers")
+    return dict(rows=len(rows), wall_s=wall, updates=rows[-1]["updates"],
+                drop_fraction=float(np.mean(drops)), launches=launches,
+                **rates)
+
+
+def _nethack_config():
+    """config_nethack.yaml's settings, read as experiment.py's --config."""
+    from moolib_tpu_torch.examples.vtrace import experiment
+
+    return experiment._load_config(os.path.join(
+        os.path.dirname(experiment.__file__), "config_nethack.yaml"))
+
+
+def _nethack_wrong_trunks(net, batch, state_dict, ratios) -> dict:
+    """NetHackNet's grad step on the card with a deliberately wrong trunk:
+    its convolutions in TF32 (the f32 lock lifted in the learner and the
+    model), then a bf16 trunk (compute_dtype) with the same weights.
+    ``ratios`` maps a gradient dict to each tensor's error over its tol;
+    returns {what: (the worst tensor, its ratio)}."""
+    import moolib_tpu_torch.learner as learner_mod
+    import moolib_tpu_torch.models.nethack as nethack_mod
+    from moolib_tpu_torch import NetHackNet, make_grad_step
+
+    @contextlib.contextmanager
+    def tf32_convolutions():
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+
+    saved = learner_mod.f32_convolutions, nethack_mod.f32_convolutions
+    learner_mod.f32_convolutions = tf32_convolutions
+    nethack_mod.f32_convolutions = tf32_convolutions
+    try:
+        g_tf32, _ = make_grad_step()(net, batch)
+    finally:
+        learner_mod.f32_convolutions, nethack_mod.f32_convolutions = saved
+    bf16 = NetHackNet(net.num_actions, compute_dtype=torch.bfloat16,
+                      device="cuda")
+    bf16.load_state_dict(state_dict)
+    g_bf16, _ = make_grad_step()(bf16, batch)
+    out = {}
+    for what, g in (("tf32 convolutions", g_tf32), ("bf16 trunk", g_bf16)):
+        r = ratios(g)
+        worst = max(r, key=r.get)
+        out[what] = (worst, r[worst])
+    return out
+
+
+def _zoo_nethack(smi) -> dict:
+    """(d) NetHackNet's grad step on one learn batch of config_nethack's
+    shape (f32, LSTM state at frame 0 random), card against CPU; then
+    train() at config_nethack.yaml's settings for NETHACK_SECONDS."""
+    from bench_e2e_torch import _worker_deaths
+    from moolib_tpu_torch import NetHackNet, make_grad_step
+    from moolib_tpu_torch.examples.vtrace import experiment
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.telemetry import global_telemetry
+
+    cfg = _nethack_config()
+    T, B, A = cfg.unroll_length, cfg.learn_batch_size, cfg.num_actions
+    gen = torch.Generator().manual_seed(5)
+    cpu = NetHackNet(A, device="cpu", generator=gen)
+    net = NetHackNet(A, device="cuda")
+    net.load_state_dict(cpu.state_dict())
+    phase = torch.randint(0, 400, (1, B), generator=gen)
+    batch = {
+        "obs": {"glyphs": torch.randint(0, 5976, (T + 1, B, 21, 79),
+                                        generator=gen).to(torch.int16),
+                "blstats": 50.0 * torch.randn((T + 1, B, 27),
+                                              generator=gen)},
+        "done": (torch.arange(T + 1)[:, None] + phase) % 400 == 0,
+        "rewards": torch.randn((T + 1, B), generator=gen),
+        "actions": torch.randint(0, A, (T, B), generator=gen),
+        "behavior_logits": torch.randn((T, B, A), generator=gen),
+        "core_state": tuple(torch.randn((B, 256), generator=gen)
+                            for _ in range(2)),
+    }
+
+    def to(x, device):
+        if torch.is_tensor(x):
+            return x.to(device)
+        if isinstance(x, dict):
+            return {k: to(v, device) for k, v in x.items()}
+        return tuple(to(v, device) for v in x)
+
+    def to_f64(x):
+        if torch.is_tensor(x):
+            return x.double() if x.is_floating_point() else x
+        if isinstance(x, dict):
+            return {k: to_f64(v) for k, v in x.items()}
+        return tuple(to_f64(v) for v in x)
+
+    for kern in KERNELS:
+        kern.launches = 0
+    g_card, m_card = make_grad_step()(net, to(batch, "cuda"))
+    g_cpu, m_cpu = make_grad_step()(cpu, batch)
+    # The trunk's gradients pass through thousands of relu gates whose
+    # inputs sit near zero; one rounding flips some, so they are no fixed
+    # point of f32 (the CPU's own f32 gradients are 7.7e-3 of glyph_embed's
+    # largest entry from f64's on this batch). Each tensor is held, as
+    # the f64 step's, to the larger of TRAIN_GRAD_TOL and NETHACK_COND
+    # times the CPU f32 step's own distance from it.
+    net64 = copy.deepcopy(cpu).double()
+    net64.compute_dtype = torch.float64
+    g64, _ = make_grad_step()(net64, {
+        k: v if k in ("actions", "done") else to_f64(v)
+        for k, v in batch.items()})
+
+    def rel(g, n):
+        return float((g.cpu().double() - g64[n]).abs().max()) \
+            / float(g64[n].abs().max())
+
+    card = {n: rel(g_card[n], n) for n in g64}
+    cond = {n: rel(g_cpu[n], n) for n in g64}
+    tol = {n: max(TRAIN_GRAD_TOL, NETHACK_COND * cond[n]) for n in g64}
+    worst = max(card, key=lambda n: card[n] / tol[n])
+    metric_err = max(abs(float(m_card[k]) - float(m_cpu[k]))
+                     / max(abs(float(m_cpu[k])), 1.0) for k in METRICS)
+    zlog(f"(d) nethack grad step, learn batch [T+1={T + 1}, B={B}] "
+         f"glyphs 21x79 int16 + blstats 27, f32, LSTM; relative gradient "
+         f"errors from the f64 step's, card (CPU f32): "
+         + ", ".join(f"{n} {card[n]:.2e} ({cond[n]:.2e})" for n in g64)
+         + f" | worst against its tol: {worst} {card[worst]:.3e} (tol "
+         f"{tol[worst]:.3e}) | metrics vs the CPU {metric_err:.3e} (tol "
+         f"{TRAIN_METRIC_TOL})", smi)
+    if card[worst] > tol[worst] or metric_err > TRAIN_METRIC_TOL:
+        raise RuntimeError("the nethack grad step differs from the CPU's")
+    wrong = _nethack_wrong_trunks(net, to(batch, "cuda"), cpu.state_dict(),
+                                  lambda g: {n: rel(g[n], n) / tol[n]
+                                             for n in g64})
+    zlog("(d) the same bounds on deliberately wrong card trunks (worst "
+         "tensor's error over its tol; over 1 fails): " + ", ".join(
+             f"{what} {n} {r:.2f}" for what, (n, r) in wrong.items()), smi)
+    passed = [what for what, (_, r) in wrong.items() if not r > 1.0]
+    if passed:
+        raise RuntimeError(f"the nethack gradient bounds pass {passed}")
+
+    unrolls = []
+
+    class KeptBatchState(experiment.EnvBatchState):
+        def observe(self, env_out):
+            unroll = super().observe(env_out)
+            if unroll is not None:
+                unrolls.append(unroll["core_state"])
+            return unroll
+
+    deaths0 = _worker_deaths(global_telemetry().snapshot())
+    run_cfg = experiment.VtraceConfig(**{
+        **cfg.__dict__, "total_steps": 10 ** 12,
+        "max_seconds": NETHACK_SECONDS,
+        "num_actor_processes": NETHACK_ACTOR_PROCESSES,
+        "log_interval_steps": 5_000, "stats_interval": 2.0})
+    saved = experiment.EnvBatchState
+    experiment.EnvBatchState = KeptBatchState
+    try:
+        t0 = time.perf_counter()
+        rows = experiment.train(run_cfg, log_fn=lambda *a: None)
+        wall = time.perf_counter() - t0
+    finally:
+        experiment.EnvBatchState = saved
+    launches = {k.name: k.launches for k in KERNELS}
+    deaths = _worker_deaths(global_telemetry().snapshot()) - deaths0
+    carried = [float(h.abs().sum()) for c, h in unrolls[2:]]
+    rates = _rates(rows) if len(rows) > 1 else dict(
+        env_steps_per_s=float("nan"), updates_per_s=float("nan"))
+    zlog(f"(d) nethack train() at config_nethack.yaml's settings (bf16, "
+         f"LSTM, T={cfg.unroll_length}, learn batch {B}, virtual batch "
+         f"{cfg.virtual_batch_size}, lr {cfg.learning_rate}) for "
+         f"{NETHACK_SECONDS:g} s; reduced: num_actor_processes "
+         f"{cfg.num_actor_processes} -> {NETHACK_ACTOR_PROCESSES} (the card "
+         f"machine's 8 cores), total_steps -> a {NETHACK_SECONDS:g} s run: "
+         f"{len(rows)} rows in {wall:.1f} s, {rows[-1]['updates']:g} "
+         f"updates, env-steps/s {rates['env_steps_per_s']:.1f}, updates/s "
+         f"{rates['updates_per_s']:.2f}; "
+         f"losses {[round(r['total_loss'], 4) for r in rows]}; {len(unrolls)} "
+         f"unrolls, the LSTM state at their first frame nonzero in "
+         f"{sum(c > 0 for c in carried)} of {len(carried)} (past the first "
+         f"two); env worker deaths {deaths:g}", smi)
+    if not rows or rows[-1]["updates"] < 1 \
+            or not np.isfinite(rows[-1]["total_loss"]):
+        raise RuntimeError(f"the nethack loop: {rows}")
+    if deaths:
+        raise RuntimeError(f"the nethack loop lost {deaths:g} env workers")
+    if not carried or not all(c > 0 for c in carried):
+        raise RuntimeError("the nethack loop did not carry the LSTM state")
+    if any(launches.values()):
+        raise RuntimeError(f"the nethack path launched {launches}")
+    return dict(grad_err=card[worst], grad_tol=tol[worst],
+                metric_err=metric_err, wrong_trunks=wrong, wall_s=wall,
+                updates=rows[-1]["updates"], rows=len(rows), **rates,
+                launches=launches)
+
+
+def _zoo_a2c(smi) -> dict:
+    """(e) A2C on CartPole at LEARNING_r04.json's settings (80,000 steps,
+    log windows of 4,000), gated on its bar (bench_a2c_torch.py's run at
+    seed 0); then the pixel A2C smoke."""
+    import bench_a2c_torch as bar_bench
+    from moolib_tpu_torch.examples import a2c
+    from moolib_tpu_torch.ops._kernels import KERNELS
+
+    for kern in KERNELS:
+        kern.launches = 0
+    res = bar_bench.run(0)
+    bar, need, _ = bar_bench.BAR
+    zlog(f"(e) a2c cartpole, {bar_bench.STEPS} steps: wall "
+         f"{res['wall_s']:.1f} s, {res['updates']:g} updates, dropped "
+         f"unrolls {res['dropped_unrolls']:g}; bar: return > {bar:g} in "
+         f"{res['hits']} of the last {res['windows']} windows (need "
+         f"{need}); entropy of the last 10 windows {res['entropy']} (inside "
+         f"{bar_bench.ENTROPY}); curve (env steps, return, entropy) "
+         f"{res['curve']}", smi)
+    pixel = a2c.train(a2c.A2CConfig(env="synthetic", num_actions=6,
+                                    total_steps=600, unroll_length=5,
+                                    batch_size=2, num_processes=2,
+                                    log_interval_steps=300, seed=0),
+                      log_fn=lambda *a: None)
+    launches = {k.name: k.launches for k in KERNELS}
+    zlog(f"(e) a2c pixel smoke (synthetic, bf16 ImpalaNet on the card): "
+         f"{pixel[-1]['updates']:g} updates, loss "
+         f"{pixel[-1]['total_loss']:.4f}; flash launches {launches}", smi)
+    if not res["met"]:
+        raise RuntimeError(f"a2c missed the learning bar: {res['hits']} of "
+                           f"{res['windows']} windows above {bar:g}")
+    if not res["entropy_ok"]:
+        raise RuntimeError(f"a2c entropy outside {bar_bench.ENTROPY}: "
+                           f"{res['entropy']}")
+    if pixel[-1]["updates"] < 1 or not np.isfinite(pixel[-1]["total_loss"]):
+        raise RuntimeError(f"the pixel a2c smoke: {pixel}")
+    if any(launches.values()):
+        raise RuntimeError(f"the a2c path launched {launches}")
+    return dict(wall_s=res["wall_s"], updates=res["updates"],
+                hits=res["hits"], windows=res["windows"],
+                entropy=res["entropy"], curve=res["curve"],
+                pixel_updates=pixel[-1]["updates"], launches=launches)
+
+
+def _zoo_remote(env: str, num_actions: int, actors: int, must_stack: bool,
+                smi) -> dict:
+    """(f) run_learner on the card with ``actors`` run_actor child
+    processes for REMOTE_SECONDS; the learner's Rpc telemetry says how
+    many actor calls each infer forward stacked (at least one forward
+    must stack two calls where ``must_stack``)."""
+    from moolib_tpu_torch.examples import remote_actors as ra
+
+    kept = []
+
+    class KeptRpc(ra.Rpc):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            kept.append(self)
+
+    cfg = ra.RemoteConfig(env=env, num_actions=num_actions,
+                          max_seconds=REMOTE_SECONDS, log_interval=2.0)
+    ready, box = threading.Event(), {}
+
+    def learner():
+        try:
+            box["rows"] = ra.run_learner(
+                cfg, log_fn=lambda *a: None,
+                ready_fn=lambda addr: (box.update(addr=addr), ready.set()))
+        finally:
+            box["end"] = time.perf_counter()
+            ready.set()
+
+    saved, ra.Rpc = ra.Rpc, KeptRpc
+    children = []
+    try:
+        t0 = time.perf_counter()
+        thread = threading.Thread(target=learner, daemon=True)
+        thread.start()
+        if not ready.wait(120) or "addr" not in box:
+            raise RuntimeError("the remote learner never listened")
+        ra.Rpc = saved
+        fill = kept[0].telemetry.registry.histogram(
+            "rpc_batch_fill_fraction", endpoint="infer")
+        for _ in range(actors):
+            children.append(subprocess.Popen(
+                [sys.executable, "-m", "moolib_tpu_torch.examples."
+                 "remote_actors", "--role", "actor", "--learner",
+                 box["addr"], "--env", env, "--num-actions",
+                 str(num_actions), "--max-seconds",
+                 str(REMOTE_SECONDS - 8.0)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True))
+        thread.join(REMOTE_SECONDS + 60)
+        if thread.is_alive():
+            raise RuntimeError("the remote learner did not stop")
+        errs = [c.communicate(timeout=REMOTE_CHILD_TIMEOUT_S)[1]
+                for c in children]
+    finally:
+        ra.Rpc = saved
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+    rows = box.get("rows") or []
+    wall = box["end"] - t0
+    updates = rows[-1]["updates"] if rows else 0
+    calls_per_batch = fill.sum * cfg.infer_batch_size / max(fill.count, 1)
+    zlog(f"(f) remote actors, {env}: learner on the card "
+         f"({'ImpalaNet f32' if env != 'cartpole' else 'A2CNet'}), "
+         f"{actors} actor processes x {cfg.actor_batch_size} envs "
+         f"for {REMOTE_SECONDS:g} s: {updates} updates logged, fps "
+         f"{rows[-1]['fps'] if rows else float('nan'):.1f}, updates/s "
+         f"{updates / wall:.2f} (over the learner's {wall:.1f} s); infer "
+         f"forwards {fill.count}, actor calls a forward {calls_per_batch:.2f} "
+         f"(mean, of {cfg.infer_batch_size}); actor exit codes "
+         f"{[c.returncode for c in children]}", smi)
+    if any(c.returncode for c in children):
+        raise RuntimeError(f"remote actor children failed: "
+                           f"{[e[-2000:] for e in errs]}")
+    if not updates or not np.isfinite(rows[-1]["total_loss"]):
+        raise RuntimeError(f"the remote learner: {rows}")
+    if must_stack and not fill.sum * cfg.infer_batch_size > fill.count:
+        raise RuntimeError("no infer forward stacked more than one call")
+    return dict(updates=updates, fps=rows[-1]["fps"],
+                updates_per_s=updates / wall, infer_forwards=fill.count,
+                calls_per_forward=calls_per_batch)
+
+
+def phase_zoo(smi) -> dict:
+    """Phase 12: the remaining model families and example entry points
+    (see the module docstring)."""
+    from moolib_tpu_torch.ops._kernels import KERNELS
+
+    t0 = time.perf_counter()
+    serve = _zoo_moe_serve(_telemetry("zoo"), smi)
+    train = _zoo_moe_train(smi)
+    e2e = _zoo_moe_e2e(smi)
+    nethack = _zoo_nethack(smi)
+    a2c = _zoo_a2c(smi)
+    for kern in KERNELS:
+        kern.launches = 0
+    remote = {f"{env} x{actors}": _zoo_remote(env, n, actors, stack, smi)
+              for env, n, actors, stack in REMOTE_RUNS}
+    remote_launches = {k.name: k.launches for k in KERNELS}
+    if any(remote_launches.values()):
+        raise RuntimeError(f"the remote actors path launched "
+                           f"{remote_launches}")
+    zlog(f"phase took {time.perf_counter() - t0:.1f} s", smi)
+    launches = {
+        "moe act": serve["act"].pop("launches"),
+        "moe context": serve["context"].pop("launches"),
+        "moe train": train.pop("launches"),
+        "e2e moe": e2e.pop("launches"),
+        "nethack": nethack.pop("launches"),
+        "a2c": a2c.pop("launches"),
+        "remote actors": remote_launches,
+    }
+    return dict(serve=serve, train=train, e2e=e2e, nethack=nethack, a2c=a2c,
+                remote=remote, seconds=time.perf_counter() - t0,
+                launches=launches)
+
+
 BUNDLE_DIR = os.path.join("build", "flightrec")
 # The environment prefixes the port's bundles record (the reference's
 # MOOLIB, and the card's in place of JAX and XLA).
@@ -3859,6 +4572,7 @@ def main() -> int:
     # flight recorder, which every bundle merges in.
     bundles = phase_bundles(tels)
     e2e = phase_e2e(impala["bench"]["line"]["value"])
+    zoo = phase_zoo(smi)
 
     launches_by_path = {
         path: counts for path, counts in
@@ -3866,7 +4580,7 @@ def main() -> int:
          ("train", train["launches"]),
          ("context backward", context_backward),
          ("impala", impala_launches), *acc["launches"].items(),
-         *e2e["launches"].items()]
+         *e2e["launches"].items(), *zoo["launches"].items()]
     }
     never = [kname for kname in train["launches"]
              if not any(c[kname] for c in launches_by_path.values())]
@@ -3938,7 +4652,8 @@ def main() -> int:
                       "impala": impala, "bundles": bundles,
                       "rpc": {k: rpc[k] for k in rpc if k != "launches"},
                       "acc": {k: acc[k] for k in acc if k != "launches"},
-                      "e2e": {k: e2e[k] for k in e2e if k != "launches"}}),
+                      "e2e": {k: e2e[k] for k in e2e if k != "launches"},
+                      "zoo": {k: zoo[k] for k in zoo if k != "launches"}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

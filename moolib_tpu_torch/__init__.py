@@ -31,7 +31,12 @@ reference each ported part is tested against. The slices so far:
   remote stepper, the ``Batcher``, the examples' envs and rollout
   bookkeeping, the ``A2CNet``, and the elastic V-trace experiment
   (``examples/vtrace/experiment.py``) with its ``bench_e2e_torch.py``
-  twin.
+  twin;
+- the remaining model families and example entry points: the
+  mixture-of-experts FFN (``parallel.moe``) and
+  ``TransformerNet(mlp="moe")``, the ``NetHackNet``, the A2C example
+  (``examples/a2c.py``) and the remote-actors example
+  (``examples/remote_actors.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -49,8 +54,9 @@ _EXPORTS = {
                      "make_act_step", "make_apply_step", "make_grad_step",
                      "make_impala_train_step", "make_train_state"),
                     "moolib_tpu_torch.learner"),
-    **dict.fromkeys(("A2CNet", "ImpalaNet", "LSTMCore", "TransformerNet",
-                     "a2c_params_from_flax", "impala_params_from_flax",
+    **dict.fromkeys(("A2CNet", "ImpalaNet", "LSTMCore", "NetHackNet",
+                     "TransformerNet", "a2c_params_from_flax",
+                     "impala_params_from_flax", "nethack_params_from_flax",
                      "space_to_depth", "transformer_params_from_flax",
                      "widen_impala_params"), "moolib_tpu_torch.models"),
     **dict.fromkeys(("Batcher", "attention", "stage_batch", "vtrace"),

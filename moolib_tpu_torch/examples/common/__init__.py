@@ -30,6 +30,7 @@ __all__ = [
     "StatSum",
     "StatMax",
     "Stats",
+    "host_result",
     "nest",
     "obs_from_env_out",
 ]
@@ -46,6 +47,15 @@ def obs_from_env_out(env_out):
     if obs_keys == ["obs"]:
         return env_out["obs"]
     return {k: env_out[k] for k in obs_keys}
+
+
+def host_result(x):
+    """A metric or action staged by :func:`~moolib_tpu_torch.utils.
+    stage_host_async` as a host tensor (waits for its copy); anything
+    else as it is."""
+    from ...utils import HostStaged
+
+    return x.result() if isinstance(x, HostStaged) else x
 
 
 def _broker_pump_entry(wref, stop, interval):

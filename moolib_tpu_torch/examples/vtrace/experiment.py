@@ -55,10 +55,10 @@ import torch
 from ... import create_uid
 from ...envpool import EnvPool, WorkerDied, step_with_retry
 from ...telemetry import StepScope, publish_metrics
-from ...utils import HostStaged, resolve_device, stage_host_async
+from ...utils import resolve_device, stage_host_async
 from .. import common
 from .. import envs as env_factories
-from ..common import EnvBatchState, StatMean, StatSum, Stats
+from ..common import EnvBatchState, StatMean, StatSum, Stats, host_result
 from ..common.record import TsvLogger, write_metadata
 
 __all__ = ["VtraceConfig", "train"]
@@ -94,8 +94,8 @@ class VtraceConfig:
     entropy_cost: float = 0.0006
     reward_clip: float = 1.0
     use_lstm: bool = False
-    model: str = "auto"  # auto | mlp | resnet | transformer
-    transformer_mlp: str = "dense"  # dense (moe is not ported yet)
+    model: str = "auto"  # auto | mlp | resnet | transformer | nethack
+    transformer_mlp: str = "dense"  # dense | moe
     num_experts: int = 8
     total_steps: int = 500_000
     max_seconds: Optional[float] = None  # wall-clock stop (benchmarks)
@@ -144,7 +144,7 @@ def _make_model(cfg: VtraceConfig, device=None,
                 generator: Optional[torch.Generator] = None):
     """The agent ``cfg`` names, on ``device``, its weights drawn from
     ``generator``."""
-    from ...models import A2CNet, ImpalaNet, TransformerNet
+    from ...models import A2CNet, ImpalaNet, NetHackNet, TransformerNet
 
     num_actions = 2 if cfg.env == "cartpole" else cfg.num_actions
     dtype = (
@@ -159,10 +159,9 @@ def _make_model(cfg: VtraceConfig, device=None,
         else:
             model = "resnet"
     if model == "nethack":
-        raise NotImplementedError(
-            "model='nethack' (NetHackNet) is not ported yet (ROADMAP.md "
-            "queue A, item 8)"
-        )
+        return NetHackNet(num_actions, use_lstm=cfg.use_lstm,
+                          compute_dtype=dtype, device=device,
+                          generator=generator)
     obs_shape = _obs_shape(cfg)
     if model == "mlp":
         if len(obs_shape) != 1:
@@ -173,7 +172,8 @@ def _make_model(cfg: VtraceConfig, device=None,
     if model == "transformer":
         return TransformerNet(
             num_actions, obs_shape, compute_dtype=dtype,
-            mlp=cfg.transformer_mlp, device=device, generator=generator,
+            mlp=cfg.transformer_mlp, num_experts=cfg.num_experts,
+            device=device, generator=generator,
         )
     if model == "resnet":
         return ImpalaNet(
@@ -181,11 +181,6 @@ def _make_model(cfg: VtraceConfig, device=None,
             compute_dtype=dtype, device=device, generator=generator,
         )
     raise ValueError(f"unknown model {cfg.model!r}")
-
-
-def _host(x):
-    """A staged metric or action as a host tensor (waits for its copy)."""
-    return x.result() if isinstance(x, HostStaged) else x
 
 
 def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
@@ -196,6 +191,7 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
 
     from ...learner import (
         ImpalaConfig,
+        call_model,
         load_train_state,
         make_act_step,
         make_apply_step,
@@ -230,12 +226,20 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
     # explicit below.
     scope = StepScope("vtrace_learner")
     act = make_act_step(net, stepscope=scope)
+    learn_apply = call_model
+    if getattr(net, "mlp", "dense") == "moe":
+        # The MoE layers' aux (load-balance and z losses, drop fraction)
+        # rides a 3-tuple apply, which folds it into the loss and the
+        # training metrics (drops must never be silent).
+        def learn_apply(model, obs, done, core_state):
+            return model(obs, done, core_state, return_aux=True)
+
     # grad_scale folds the x batch_size "sum contribution" scaling into
     # the step, so the update loop never touches gradient values on the
     # host.
     grad_step = make_grad_step(
-        config=loss_cfg, grad_scale=float(cfg.learn_batch_size),
-        stepscope=scope,
+        learn_apply, config=loss_cfg,
+        grad_scale=float(cfg.learn_batch_size), stepscope=scope,
     )
     # apply_step updates the parameters and the optimizer's state in
     # place. get_state runs on Accumulator RPC threads (requestState
@@ -383,9 +387,14 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
     def drain_metrics(keep_last: int = 0):
         while len(pending_metrics) > keep_last:
             m = pending_metrics.pop(0)
-            window["total_loss"] += float(_host(m["total_loss"]))
-            window["entropy"] += float(_host(m["entropy"]))
-            window["grad_norm"] += float(_host(m["grad_norm"]))
+            window["total_loss"] += float(host_result(m["total_loss"]))
+            window["entropy"] += float(host_result(m["entropy"]))
+            window["grad_norm"] += float(host_result(m["grad_norm"]))
+            if "moe_drop_fraction" in m:
+                # Capacity drops must show in the logs, not vanish into
+                # the residual path.
+                window["moe_drop_fraction"] += float(
+                    host_result(m["moe_drop_fraction"]))
 
     def checkpoint_state():
         with state_lock:
@@ -447,7 +456,7 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
                         # pool's slab; the logits ride with them (one
                         # wait: both copies are on one stream).
                         a, logits = (
-                            _host(x) for x in
+                            host_result(x) for x in
                             stage_host_async((a, logits.float()))
                         )
                         a = a.numpy()
@@ -581,26 +590,41 @@ def _apply_overrides(cfg: VtraceConfig, overrides: List[str]) -> VtraceConfig:
     return VtraceConfig(**values)
 
 
+def _load_config(path: str) -> VtraceConfig:
+    """A yaml file of VtraceConfig fields, read by PyYAML where it is
+    installed, else as the flat ``key: value`` lines (``#`` comments) the
+    shipped configs hold, typed by the fields as CLI overrides are."""
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    with open(path) as f:
+        if yaml is not None:
+            return VtraceConfig(**(yaml.safe_load(f) or {}))
+        items = []
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if line:
+                k, v = (part.strip() for part in line.split(":", 1))
+                items.append(f"{k}={v}")
+    return _apply_overrides(VtraceConfig(), items)
+
+
 def main():
     p = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     p.add_argument("--config", type=str, default=None,
-                   help="yaml file of VtraceConfig fields (needs PyYAML)")
+                   help="yaml file of VtraceConfig fields")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the card; 'cpu' to run "
                         "on the CPU)")
     p.add_argument("overrides", nargs="*",
                    help="key=value config overrides")
     args = p.parse_args()
-    values = {}
-    if args.config:
-        import yaml
-
-        with open(args.config) as f:
-            values = yaml.safe_load(f) or {}
-    cfg = _apply_overrides(VtraceConfig(**values), args.overrides)
+    cfg = _load_config(args.config) if args.config else VtraceConfig()
+    cfg = _apply_overrides(cfg, args.overrides)
     train(cfg, device=args.device)
 
 

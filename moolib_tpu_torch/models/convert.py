@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["a2c_params_from_flax", "impala_params_from_flax",
-           "transformer_params_from_flax"]
+           "nethack_params_from_flax", "transformer_params_from_flax"]
 
 
 def _t(x) -> torch.Tensor:
@@ -44,8 +44,10 @@ def transformer_params_from_flax(params: Mapping[str, Any]
                                  ) -> Dict[str, torch.Tensor]:
     """Map a ``TransformerNet`` parameter tree (``{"params": ...}`` or its
     inside) onto :class:`moolib_tpu_torch.models.TransformerNet`'s
-    ``state_dict`` keys. Raises ``KeyError`` on a tree of another model
-    and ``ValueError`` on an MoE tree, which the port does not have yet."""
+    ``state_dict`` keys; an MoE block's ``moe/{router,w_up,w_down}``
+    keep their layout. Raises ``KeyError`` on a tree of another model,
+    and on one that mixes dense and MoE blocks (the port's blocks are all
+    of one kind), or a block that has both MLPs."""
     p = params["params"] if "params" in params else params
     sd: Dict[str, torch.Tensor] = {}
 
@@ -59,19 +61,30 @@ def transformer_params_from_flax(params: Mapping[str, Any]
     else:
         put("embed_in", _dense(p["Dense_0"]))
     sd["pos_emb.weight"] = _t(p["pos_emb"]["embedding"])
+    kinds = set()
     i = 0
     while f"block_{i}" in p:
         blk = p[f"block_{i}"]
-        if "moe" in blk:
-            raise ValueError("MoE blocks are not ported yet")
         pre = f"blocks.{i}"
         put(f"{pre}.ln1", _norm(blk["LayerNorm_0"]))
         put(f"{pre}.attn.qkv", _dense(blk["attn"]["qkv"]))
         put(f"{pre}.attn.out", _dense(blk["attn"]["out"]))
         put(f"{pre}.ln2", _norm(blk["LayerNorm_1"]))
-        put(f"{pre}.mlp_in", _dense(blk["Dense_0"]))
-        put(f"{pre}.mlp_out", _dense(blk["Dense_1"]))
+        if "moe" in blk:
+            if "Dense_0" in blk or "Dense_1" in blk:
+                raise KeyError(f"block_{i} has both a dense MLP and an "
+                               "MoE MLP")
+            put(f"{pre}.moe", {k: _t(blk["moe"][k])
+                               for k in ("router", "w_up", "w_down")})
+            kinds.add("moe")
+        else:
+            put(f"{pre}.mlp_in", _dense(blk["Dense_0"]))
+            put(f"{pre}.mlp_out", _dense(blk["Dense_1"]))
+            kinds.add("dense")
         i += 1
+    if len(kinds) > 1:
+        raise KeyError("the tree mixes dense and MoE blocks; the port's "
+                       "TransformerNet has blocks of one kind")
     put("ln_f", _norm(p["LayerNorm_0"]))
     put("policy", _dense(p["policy"]))
     put("baseline", _dense(p["baseline"]))
@@ -147,6 +160,31 @@ def impala_params_from_flax(params: Mapping[str, Any]
     put("fc", _dense(p["Dense_0"]))
     put("policy", _dense(p["Dense_1"]))
     put("baseline", _dense(p["Dense_2"]))
+    if "LSTMCore_0" in p:
+        sd.update(_lstm_cell(
+            p["LSTMCore_0"]["Scan_MaskedLSTMStep_0"]["OptimizedLSTMCell_0"],
+            "core"))
+    return sd
+
+
+def nethack_params_from_flax(params: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """Map a ``NetHackNet`` parameter tree (``{"params": ...}`` or its
+    inside) onto :class:`moolib_tpu_torch.models.NetHackNet`'s
+    ``state_dict`` keys: ``glyph_embed``, ``Conv_i`` -> ``convs.i``,
+    ``Dense_0`` -> ``blstats_fc``, ``Dense_1`` -> ``fc`` (both flatten
+    the glyph features in (h, w, c) order), the heads, and the LSTM cell
+    -> ``core``. Raises ``KeyError`` on a tree of another model."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {
+        "glyph_embed.weight": _t(p["glyph_embed"]["embedding"])}
+    for i in range(3):
+        for leaf, v in _conv(p[f"Conv_{i}"]).items():
+            sd[f"convs.{i}.{leaf}"] = v
+    for name, k in (("blstats_fc", "Dense_0"), ("fc", "Dense_1"),
+                    ("policy", "policy"), ("baseline", "baseline")):
+        for leaf, v in _dense(p[k]).items():
+            sd[f"{name}.{leaf}"] = v
     if "LSTMCore_0" in p:
         sd.update(_lstm_cell(
             p["LSTMCore_0"]["Scan_MaskedLSTMStep_0"]["OptimizedLSTMCell_0"],

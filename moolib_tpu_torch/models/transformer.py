@@ -28,22 +28,32 @@ On the card, f32 means full f32: the conv torso runs inside
 caller that differentiates the model (the learner's steps do). The
 linear layers follow PyTorch's f32 matmul precision, full f32
 ("highest") unless the caller changes it.
+
+With ``mlp="moe"`` each block's MLP is a Switch/GShard mixture of
+experts (:func:`~moolib_tpu_torch.parallel.moe.moe_ffn` over the call's
+T*B tokens). The blocks see f32 at any ``compute_dtype``, as the
+reference's do (flax promotes the bf16 input with the f32 parameters).
+The reference sows each layer's aux into flax's ``intermediates``; here
+``forward(..., return_aux=True)`` returns it as a third element,
+aggregated by :func:`moe_aux_losses`, which is the 3-tuple
+:func:`~moolib_tpu_torch.learner.impala_loss` folds into the loss.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
+from ..parallel.moe import moe_ffn
 from ..utils.device import resolve_device
 from .common import f32_convolutions, same_pads
 
-__all__ = ["TransformerNet", "f32_convolutions", "segment_ids_from_done",
-           "same_pads"]
+__all__ = ["TransformerNet", "f32_convolutions", "moe_aux_losses",
+           "segment_ids_from_done", "same_pads"]
 
 _LN_EPS = 1e-6
 
@@ -88,20 +98,92 @@ class _SelfAttention(nn.Module):
         return self.out(o.permute(2, 0, 1, 3).reshape(T, B, E))
 
 
+class _MoEMlp(nn.Module):
+    """Switch/GShard MoE MLP of a block: ``router`` [E_model, E],
+    ``w_up`` [E, E_model, H] and ``w_down`` [E, H, E_model], the
+    reference's parameter layout."""
+
+    def __init__(self, d_model: int, mlp_ratio: int, num_experts: int,
+                 top_k: int, capacity_factor: float, device=None):
+        super().__init__()
+        d_hidden = mlp_ratio * d_model
+        self.top_k = top_k
+        self.capacity_factor = capacity_factor
+        self.router = nn.Parameter(
+            torch.empty(d_model, num_experts, device=device))
+        self.w_up = nn.Parameter(
+            torch.empty(num_experts, d_model, d_hidden, device=device))
+        self.w_down = nn.Parameter(
+            torch.empty(num_experts, d_hidden, d_model, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """LeCun-normal, untruncated: the router's fan-in is d_model; the
+        experts' axis is a batch of matrices (flax's ``batch_axis=(0,)``),
+        so each expert's fan-in is its own input width."""
+        gen_device = None if generator is None else generator.device
+        for w in (self.router, self.w_up, self.w_down):
+            fan_in = w.shape[-2]
+            w.copy_(torch.randn(w.shape, generator=generator,
+                                device=gen_device) / fan_in ** 0.5)
+
+    def forward(self, x: torch.Tensor):  # [T, B, E] -> ([T, B, E], aux)
+        T, B, E = x.shape
+        y, aux = moe_ffn(
+            {"router": self.router, "w_up": self.w_up,
+             "w_down": self.w_down},
+            x.reshape(T * B, E), top_k=self.top_k,
+            capacity_factor=self.capacity_factor)
+        return y.reshape(T, B, E), aux
+
+
+def moe_aux_losses(aux: List[dict]) -> dict:
+    """Aggregate the MoE layers' aux dicts (one per layer, in order):
+    summed load-balance and router-z losses (add them to the training
+    loss) and the mean drop fraction (log it: silent drops are a capacity
+    bug), with ``n_moe_layers``."""
+    if not aux:
+        raise ValueError("no MoE aux entries: was the model built with "
+                         "mlp='moe'?")
+    n = len(aux)
+    return {
+        "load_balance_loss": sum(a["load_balance_loss"] for a in aux),
+        "router_z_loss": sum(a["router_z_loss"] for a in aux),
+        "drop_fraction": sum(a["drop_fraction"] for a in aux) / n,
+        "n_moe_layers": n,
+    }
+
+
 class _Block(nn.Module):
-    """Pre-LN block: attention, then a GELU MLP, each residual."""
+    """Pre-LN block: attention, then a GELU MLP (dense, or a mixture of
+    experts), each residual."""
 
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: int,
-                 backend: str, device=None):
+                 backend: str, mlp: str = "dense", num_experts: int = 8,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
+                 device=None):
         super().__init__()
         self.ln1 = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
         self.attn = _SelfAttention(d_model, num_heads, backend, device)
         self.ln2 = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
-        self.mlp_in = nn.Linear(d_model, mlp_ratio * d_model, device=device)
-        self.mlp_out = nn.Linear(mlp_ratio * d_model, d_model, device=device)
+        if mlp == "moe":
+            self.moe = _MoEMlp(d_model, mlp_ratio, num_experts, moe_top_k,
+                               moe_capacity_factor, device)
+        else:
+            self.mlp_in = nn.Linear(d_model, mlp_ratio * d_model,
+                                    device=device)
+            self.mlp_out = nn.Linear(mlp_ratio * d_model, d_model,
+                                     device=device)
 
-    def forward(self, x: torch.Tensor, seg_bt: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seg_bt: torch.Tensor,
+                aux: Optional[List[dict]] = None) -> torch.Tensor:
+        """``aux``, when given, receives the MoE layer's aux dict."""
         x = x + self.attn(self.ln1(x), seg_bt)
+        if hasattr(self, "moe"):
+            y, layer_aux = self.moe(self.ln2(x))
+            if aux is not None:
+                aux.append(layer_aux)
+            return x + y
         h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
         return x + self.mlp_out(h)
 
@@ -111,8 +193,10 @@ class TransformerNet(nn.Module):
 
     ``obs_shape`` is one frame's shape: ``(H, W, C)`` for uint8 pixels or
     ``(F,)`` for float vectors (the reference infers it from the first
-    call). Weights are drawn from ``generator`` at construction; load
-    converted reference weights with
+    call). ``mlp`` is ``"dense"`` or ``"moe"`` (``num_experts`` experts,
+    top-``moe_top_k`` routing at ``moe_capacity_factor``). Weights are
+    drawn from ``generator`` at construction; load converted reference
+    weights with
     :func:`moolib_tpu_torch.models.convert.transformer_params_from_flax`.
     """
 
@@ -121,16 +205,12 @@ class TransformerNet(nn.Module):
                  num_heads: int = 4, mlp_ratio: int = 4,
                  max_len: int = 2048, attention_backend: str = "auto",
                  compute_dtype: torch.dtype = torch.float32,
-                 mlp: str = "dense",
+                 mlp: str = "dense", num_experts: int = 8,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if mlp == "moe":
-            raise NotImplementedError(
-                "mlp='moe' is not ported yet (ROADMAP queue A: MoE "
-                "transformer blocks)"
-            )
-        if mlp != "dense":
+        if mlp not in ("dense", "moe"):
             raise ValueError(
                 f"unknown mlp type {mlp!r}; expected 'dense' or 'moe'"
             )
@@ -145,6 +225,7 @@ class TransformerNet(nn.Module):
         self.d_model = d_model
         self.attention_backend = attention_backend
         self.compute_dtype = compute_dtype
+        self.mlp = mlp
         self.pixels = len(self.obs_shape) == 3
         if self.pixels:
             c = self.obs_shape[-1]
@@ -155,7 +236,8 @@ class TransformerNet(nn.Module):
                                       device=device)
         self.pos_emb = nn.Embedding(max_len, d_model, device=device)
         self.blocks = nn.ModuleList(
-            _Block(d_model, num_heads, mlp_ratio, attention_backend, device)
+            _Block(d_model, num_heads, mlp_ratio, attention_backend, mlp,
+                   num_experts, moe_top_k, moe_capacity_factor, device)
             for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
@@ -167,7 +249,8 @@ class TransformerNet(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """LeCun-normal weights, zero biases, unit LayerNorm scales, and
         a 1/sqrt(d_model) normal embedding (the reference's initializers,
-        untruncated), drawn from ``generator``."""
+        untruncated), drawn from ``generator``; the MoE layers draw their
+        own."""
         gen_device = None if generator is None else generator.device
         for mod in self.modules():
             if isinstance(mod, (nn.Linear, nn.Conv2d)):
@@ -184,6 +267,8 @@ class TransformerNet(nn.Module):
                 w = torch.randn(mod.weight.shape, generator=generator,
                                 device=gen_device)
                 mod.weight.copy_(w / self.d_model ** 0.5)
+            elif isinstance(mod, _MoEMlp):
+                mod.reset_parameters(generator)
 
     def initial_state(self, batch_size: int) -> Tuple:
         return ()
@@ -191,7 +276,11 @@ class TransformerNet(nn.Module):
     def forward(self, obs: torch.Tensor, done: torch.Tensor,
                 core_state: Tuple = (),
                 segment_ids: Optional[torch.Tensor] = None,
-                positions: Optional[torch.Tensor] = None):
+                positions: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
+        """``((logits, baseline), core_state)``; with ``return_aux`` a
+        third element, :func:`moe_aux_losses` of the MoE layers (raises
+        ``ValueError`` on a dense model)."""
         # obs: [T, B, F] float vectors or [T, B, H, W, C] uint8 pixels.
         T, B = obs.shape[:2]
         x = obs.to(self.compute_dtype)
@@ -210,9 +299,12 @@ class TransformerNet(nn.Module):
         x = x + pos[:, None, :].float()
         if segment_ids is None:
             segment_ids = segment_ids_from_done(done)
+        aux: List[dict] = []
         for block in self.blocks:
-            x = block(x, segment_ids)
+            x = block(x, segment_ids, aux)
         x = self.ln_f(x.float())
         logits = self.policy(x)
         baseline = self.baseline(x).squeeze(-1)
+        if return_aux:
+            return (logits, baseline), core_state, moe_aux_losses(aux)
         return (logits, baseline), core_state

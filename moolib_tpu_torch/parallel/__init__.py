@@ -1,13 +1,17 @@
 """The training services of the port: the elastic gradient
-``Accumulator`` and the cluster-wide ``GlobalStatsAccumulator``; the
+``Accumulator``, the cluster-wide ``GlobalStatsAccumulator`` and the
+one-device mixture-of-experts FFN (``moe_params``, ``moe_ffn``); the
 counterpart of :mod:`moolib_tpu.parallel`. The device layouts of the
-reference's package (``mesh``, ``tp``, ``pipeline``, ``moe``) are not
-ported yet and raise ``AttributeError`` naming their roadmap item."""
+reference's package (``mesh``, ``tp``, ``pipeline``, the expert-sharded
+``moe_ffn_sharded``) are not ported yet and raise, naming their roadmap
+item."""
 
 from .accumulator import Accumulator
+from .moe import moe_ffn, moe_ffn_sharded, moe_params
 from .stats import GlobalStatsAccumulator
 
-__all__ = ["Accumulator", "GlobalStatsAccumulator"]
+__all__ = ["Accumulator", "GlobalStatsAccumulator", "moe_ffn",
+           "moe_ffn_sharded", "moe_params"]
 
 # Unported names of the reference's package -> ROADMAP.md queue A item.
 _NOT_PORTED = {
@@ -17,9 +21,8 @@ _NOT_PORTED = {
          "shard_batch", "count_sharded_leaves", "impala_tp_specs",
          "shard_params", "sharded_init_opt_state", "transformer_tp_specs",
          "MICRO_SPEC", "pipeline_apply", "shard_microbatches",
-         "stack_stage_params", "unshard_microbatches", "moe_ffn_sharded"),
+         "stack_stage_params", "unshard_microbatches"),
         "item 11, multi-device"),
-    **dict.fromkeys(("moe_ffn", "moe_params"), "item 9, MoE blocks"),
 }
 
 

@@ -743,3 +743,115 @@ def test_experiment_loop_trains_the_transformer_through_the_kernels(card):
     assert math.isfinite(logs[-1]["total_loss"])
     assert launches["flash_fwd"] > 0 and launches["flash_bwd_tile"] > 0, \
         launches
+
+
+# -- the MoE transformer and the NetHack agent ---------------------------------
+
+
+def test_moe_transformer_on_the_card_matches_the_cpu(card):
+    """TransformerNet(mlp="moe") at a small size on the card against the
+    CPU: the router probabilities at the f32 tolerance, the top-2 sets
+    of the tokens whose two best experts do not nearly tie equal; then,
+    with the card's routing fed to the CPU (moe.RouteReplay), the aux and
+    one IMPALA step's gradients (the aux folded in) at the f32
+    tolerances."""
+    from moolib_tpu_torch.parallel import moe
+
+    gen = torch.Generator().manual_seed(0)
+    kw = dict(d_model=32, num_layers=2, num_heads=1, num_experts=4,
+              mlp="moe", attention_backend="auto")  # head dim 32
+    cpu = TransformerNet(6, (5,), device="cpu", generator=gen, **kw)
+    net = TransformerNet(6, (5,), device=card, **kw)
+    net.load_state_dict(cpu.state_dict())
+    T, B = 21, 4
+    batch = {
+        "obs": torch.randn((T + 1, B, 5), generator=gen),
+        "done": torch.rand((T + 1, B), generator=gen) < 0.1,
+        "rewards": torch.randn((T + 1, B), generator=gen),
+        "actions": torch.randint(0, 6, (T, B), generator=gen),
+        "behavior_logits": torch.randn((T, B, 6), generator=gen),
+        "core_state": (),
+    }
+
+    def apply(model, obs, done, core_state):
+        return model(obs, done, core_state, return_aux=True)
+
+    routes = moe.RouteReplay()
+    with routes.record():
+        grads, metrics = make_grad_step(apply)(net, _to(batch, card))
+    assert len(routes.recorded) == 2
+    with routes.replay():
+        want_grads, want_metrics = make_grad_step(apply)(cpu, batch)
+    assert not routes.recorded and routes.tokens == 2 * (T + 1) * B
+    assert routes.prob_err <= 1e-5
+    # A token's top-2 set may differ only where its two best experts
+    # nearly tie.
+    assert all(m <= 1e-5 for m in routes.margins), routes.margins
+    for name in ("total_loss", "moe_lb_loss", "moe_z_loss",
+                 "moe_drop_fraction"):
+        torch.testing.assert_close(metrics[name].cpu(), want_metrics[name],
+                                   rtol=0, atol=1e-5 * max(
+                                       1.0, float(want_metrics[name].abs())))
+    for name, w in want_grads.items():
+        torch.testing.assert_close(grads[name].cpu(), w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()),
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def _nethack_batch(gen, T, B, A):
+    return {
+        "obs": {"glyphs": torch.randint(0, 5976, (T + 1, B, 21, 79),
+                                        generator=gen).to(torch.int16),
+                "blstats": 50.0 * torch.randn((T + 1, B, 27), generator=gen)},
+        "done": torch.tensor([[False] * B, [True] + [False] * (B - 1),
+                              [False] * B])[:T + 1],
+        "rewards": torch.randn((T + 1, B), generator=gen),
+        "actions": torch.randint(0, A, (T, B), generator=gen),
+        "behavior_logits": torch.randn((T, B, A), generator=gen),
+        "core_state": tuple(torch.randn((B, 256), generator=gen)
+                            for _ in range(2)),
+    }
+
+
+def _nested_to(x, device):
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _nested_to(v, device) for k, v in x.items()}
+    return tuple(_nested_to(v, device) for v in x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nethack_net_on_the_card_matches_the_cpu(card, dtype):
+    """NetHackNet with its LSTM on the card against the CPU: f32 forward
+    and one IMPALA step's gradients within 1e-5 / 1e-4 of each tensor's
+    largest entry (its convolutions held in full f32); bf16 forward
+    within 2e-2 (cuDNN's and the CPU's bf16 products rounded after their
+    own summation orders)."""
+    from moolib_tpu_torch import NetHackNet
+
+    gen = torch.Generator().manual_seed(0)
+    cpu = NetHackNet(23, compute_dtype=dtype, device="cpu", generator=gen)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith("bias") or name.endswith("bias_hh"):
+                p.normal_(0.0, 0.1, generator=gen)
+    net = NetHackNet(23, compute_dtype=dtype, device=card)
+    net.load_state_dict(cpu.state_dict())
+    batch = _nethack_batch(gen, 2, 2, 23)
+    on_card = _nested_to(batch, card)
+    with torch.no_grad():
+        got = net(on_card["obs"], on_card["done"], on_card["core_state"])
+        want = cpu(batch["obs"], batch["done"], batch["core_state"])
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                    torch.utils._pytree.tree_leaves(want)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=tol * float(w.abs().max()))
+    if dtype == torch.float32:
+        grads, _ = make_grad_step()(net, on_card)
+        want_grads, _ = make_grad_step()(cpu, batch)
+        for name, w in want_grads.items():
+            torch.testing.assert_close(grads[name].cpu(), w, rtol=0,
+                                       atol=1e-4 * float(w.abs().max()),
+                                       msg=lambda m: f"{name}: {m}")

@@ -7,6 +7,7 @@ CPU."""
 import dataclasses
 import json
 import math
+import sys
 import time
 
 import jax
@@ -181,6 +182,21 @@ def test_config_files_are_the_references():
         port_exp.VtraceConfig(**port)  # every key is a field
 
 
+@pytest.mark.parametrize("name", ["config.yaml", "config_nethack.yaml",
+                                  "config_procgen.yaml"])
+def test_config_loader_reads_the_shipped_files_without_yaml(name,
+                                                           monkeypatch):
+    """--config's loader gives the same VtraceConfig with PyYAML and,
+    where it is missing, from the files' key: value lines."""
+    from importlib.resources import files
+
+    path = str(files("moolib_tpu_torch.examples.vtrace").joinpath(name))
+    with_yaml = port_exp._load_config(path)
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    assert dataclasses.asdict(port_exp._load_config(path)) \
+        == dataclasses.asdict(with_yaml)
+
+
 # -- A2CNet ---------------------------------------------------------------------
 
 
@@ -226,11 +242,14 @@ def test_train_refuses_the_cpu_unasked():
 
 
 @pytest.mark.parametrize("cfg,err", [
-    (dict(env="nethack"), NotImplementedError),
-    (dict(model="transformer", transformer_mlp="moe"), NotImplementedError),
+    (dict(model="mlp"), ValueError),  # pixel frames, not vectors
+    (dict(model="transformer", transformer_mlp="sparse"), ValueError),
     (dict(model="nope"), ValueError),
 ])
 def test_unported_models_raise(cfg, err):
+    """Every model of the reference's _make_model is ported (nethack and
+    the MoE transformer in tests/test_torch_nethack.py and
+    tests/test_torch_moe.py); what it refuses, the port refuses."""
     with pytest.raises(err):
         port_exp._make_model(VtraceConfig(**cfg), "cpu")
 

@@ -1,5 +1,6 @@
 """Import hygiene of the port: moolib_tpu_torch, chip_smoke.py,
-bench_torch.py, bench_allreduce_torch.py and bench_e2e_torch.py import
+bench_torch.py, bench_allreduce_torch.py, bench_e2e_torch.py and
+bench_a2c_torch.py import
 neither JAX nor anything of the JAX package, and the entry points refuse
 to run on the CPU unasked."""
 
@@ -22,6 +23,7 @@ import moolib_tpu_torch
 import bench_torch
 import bench_allreduce_torch
 import bench_e2e_torch
+import bench_a2c_torch
 mods = [m.name for m in pkgutil.walk_packages(
     moolib_tpu_torch.__path__, "moolib_tpu_torch.")]
 for m in mods:
@@ -63,7 +65,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "examples.envs", "examples.common",
                 "examples.common.record", "examples.vtrace",
                 "examples.vtrace.experiment", "models.a2c",
-                "utils.profiling"):
+                "utils.profiling", "parallel.moe", "models.nethack",
+                "examples.a2c", "examples.remote_actors"):
         assert f"moolib_tpu_torch.{mod}" in got["modules"], mod
     assert got["bad"] == [], got["bad"]
 
@@ -105,6 +108,15 @@ def test_bench_allreduce_torch_imports_no_jax_and_no_reference_package():
 
 def test_bench_e2e_torch_imports_no_jax_and_no_reference_package():
     names = list(_imported_roots(REPO_ROOT / "bench_e2e_torch.py"))
+    assert any(n.startswith("moolib_tpu_torch") for n in names), names
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "flax", "optax", "moolib_tpu",
+                                  "ml_dtypes")]
+    assert bad == [], bad
+
+
+def test_bench_a2c_torch_imports_no_jax_and_no_reference_package():
+    names = list(_imported_roots(REPO_ROOT / "bench_a2c_torch.py"))
     assert any(n.startswith("moolib_tpu_torch") for n in names), names
     bad = [n for n in names
            if n.split(".")[0] in ("jax", "flax", "optax", "moolib_tpu",

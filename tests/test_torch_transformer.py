@@ -142,8 +142,13 @@ def test_conv_torso_runs_without_tf32():
 
 
 def test_moe_and_ring_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerNet(4, (5,), mlp="moe", device="cpu", **SMALL)
+    """MoE blocks are ported (tests/test_torch_moe.py); ring attention
+    still raises, naming its roadmap item, and an unknown MLP is
+    refused."""
+    net = TransformerNet(4, (5,), mlp="moe", device="cpu", **SMALL)
+    assert all(hasattr(b, "moe") for b in net.blocks)
+    with pytest.raises(ValueError, match="mlp"):
+        TransformerNet(4, (5,), mlp="sparse", device="cpu", **SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransformerNet(4, (5,), attention_backend="ring", device="cpu",
                        **SMALL)
