@@ -188,18 +188,63 @@ Phases, in order; any failure exits non-zero before the result line:
    convoy and never stack): updates. No flash
    kernel may launch on the nethack, a2c and remote actors paths. [zoo]
    lines; readings carry the card's name and power limit.
-13. The kernels line (with the ledgers, the bundles' summaries and the
-    RPC, accumulate, e2e and zoo phases' readings; launches_by_path
-    includes "rpc act" and "rpc context", the child's launches, "acc",
-    both processes' launches in the accumulate phase's transformer
-    runs, "e2e transformer", the transformer loop's, and the zoo's
-    "moe act", "moe context", "moe train", "e2e moe", "nethack", "a2c"
-    and "remote actors"), the card line, and the result line.
+13. Durable state and the fleet. (a) A port Broker here and three
+   learner processes (this script with --acc-child BROKER CTL_NAME),
+   each one phase 9's learner of the full-width TransformerNet on learn
+   batches [21, 32] through an Accumulator (virtual batch 64, group
+   timeout 8 s) with a StateStore under build/statestore/ (1 MiB chunks)
+   on its Rpc. 4 updates with no Replicator (the updates/s without
+   durability), then a Replicator(followers=2) on each, whose state_fn
+   is train_state_to_host under the sync-mode and state locks, for 12
+   more (latest-wins: a version may be skipped, none published without
+   the store's and both followers' acks); training pauses until the
+   leader's last version is on all three stores. The leader's process is SIGKILLed and its store
+   deleted; a fresh process on the same name restores with quorum 2
+   from the two survivors onto the card (load_train_state), seeds
+   set_model_version and rejoins. Checks: the restored version is the
+   leader's last, its manifest hash is the one the leader published,
+   the sha256 of the state read back off the card equals that of the
+   host copy the leader's state_fn produced for that version, the
+   holders are the survivors, and the cohort commits 3 more versions.
+   (b) Two act Replicas of the TransformerNet on the card behind a
+   Router; publish_from_statestore(router, store, peers=survivors,
+   quorum=2) from a fresh store here loads the newest version (its sha
+   the publisher's) into both; every reply after it is held against the
+   dense CPU forward with that version's parameters at SERVE_TOL, and
+   both replicas' health reports the version. (c) A fleet Controller
+   (FleetSpec.small(replicas=2, routers=1), in-process) whose replicas
+   serve the act step on the card from the restored version, with a
+   standby controller sharing its cohort: 4 closed-loop clients drive
+   act requests through ctl.router() (budget 8 s each, tests/
+   test_fleet.py's) during a rollout of the parameters of one more
+   train step (must end "promoted"; the promoted replies held against
+   the CPU) and of a poisoned build that raises on the canary (must end
+   "rolled_back", its incident bundle validated by load_bundle, both
+   replicas back on the promoted version), then across ctl.kill()
+   until the standby has adopted (epoch 2) and 48 more requests were
+   served; no request may fail. flash_fwd and flash_bwd_tile must
+   launch on the learners' and the fleet's paths, flash_fwd on the
+   serve path. [statestore] and [fleet] lines: bundle MB and chunks,
+   publish ms (local write, push to one follower), versions published
+   per committed version, updates/s with the Replicators off and on,
+   restore ms (negotiate; restore = a second negotiation, the pull and
+   decode, and the local write of the pulled bundle, that write apart;
+   upload onto the card), the
+   rejoin, materialize, promote, rollback and adoption seconds, and
+   requests/s and failed requests during each rollout.
+14. The kernels line (with the ledgers, the bundles' summaries and the
+    RPC, accumulate, e2e, zoo and statestore phases' readings;
+    launches_by_path includes "rpc act" and "rpc context", the child's
+    launches, "acc", both processes' launches in the accumulate phase's
+    transformer runs, "e2e transformer", the transformer loop's, the
+    zoo's "moe act", "moe context", "moe train", "e2e moe", "nethack",
+    "a2c" and "remote actors", and phase 13's "statestore learners",
+    "statestore serve" and "fleet"), the card line, and the result line.
 
 Lines tagged [telemetry], [stepscope] and [flightrec] carry the
 observability checks and readings, [rpc] lines the RPC phase's, [acc]
 lines the accumulate phase's, [e2e] lines the e2e phase's, [zoo] lines
-the zoo phase's.
+the zoo phase's, [statestore] and [fleet] lines phase 13's.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2580,7 +2625,12 @@ class _Learner:
     batch fills) while its params are below ``target``, and applies every
     result: the mean goes onto the card pinned and non-blocking, the
     apply runs under the state lock, and the params' checksums are
-    recorded on the card for every version."""
+    recorded on the card for every version. A subclass may set up more
+    in ``_before_join`` (the model and optimizer are built, the group not
+    joined yet) and ``_before_run`` (the Accumulator exists, its thread
+    not started yet)."""
+
+    GROUP_TIMEOUT = ACC_GROUP_TIMEOUT
 
     def __init__(self, name: str, rank: int, broker_addr: str, group: str,
                  kind: str, seed: int = 0, chunk_bytes=None):
@@ -2614,8 +2664,9 @@ class _Learner:
         self.batch = _learn_batches(torch.Generator(
             device="cuda").manual_seed(100 + rank), 1)[0]
         self.lock = threading.Lock()  # the state lock
+        self._before_join()
         self.group = Group(self.rpc, group_name=group, sort_order=rank,
-                           timeout=ACC_GROUP_TIMEOUT)
+                           timeout=self.GROUP_TIMEOUT)
         self.acc = Accumulator(
             self.rpc, group=self.group, virtual_batch_size=ACC_VBS,
             parallel_gradients=1, get_state=self._get_state,
@@ -2630,9 +2681,16 @@ class _Learner:
         self.contribs, self.applies = [], []
         self.error = None
         self.stop = threading.Event()
+        self._before_run()
         self.thread = threading.Thread(target=self._run, daemon=True,
                                        name=f"learner {name}")
         self.thread.start()
+
+    def _before_join(self):
+        pass
+
+    def _before_run(self):
+        pass
 
     def _get_state(self):
         from moolib_tpu_torch.learner import train_state_to_host
@@ -2780,16 +2838,19 @@ class _Learner:
         self.rpc.close()
 
 
-def acc_child(broker_addr: str) -> int:
+def acc_child(broker_addr: str, ctl_name: str = "acc-child") -> int:
     """The second process of the accumulate phase (``chip_smoke.py
-    --acc-child BROKER``): learners created, driven and read by the
-    parent through one control endpoint, ``chip_acc(op, ...)``: the
-    process's kernel launch counts (``reset``, ``kernels``), ``learner``
-    (a new _Learner), ``target``, ``status``, ``state_checksum``,
-    ``stats`` (start each learner's global stats round), ``stats_result``,
-    ``report`` and ``close``. Prints its address, then serves until its
-    stdin closes. Its chunk size is its environment's
-    MOOLIB_TPU_ALLREDUCE_CHUNK."""
+    --acc-child BROKER``), and each learner process of phase 13
+    (``--acc-child BROKER CTL_NAME``): learners created, driven and read
+    by the parent through one control endpoint, ``chip_acc(op, ...)`` on
+    the peer ``ctl_name``: the process's kernel launch counts (``reset``,
+    ``kernels``), ``learner`` (a new _Learner), ``durable`` (a new
+    _DurableLearner), ``replicator`` (attach its Replicator),
+    ``durable_report``, ``addr`` (the learners' listen addresses),
+    ``target``, ``status``, ``state_checksum``, ``stats`` (start each
+    learner's global stats round), ``stats_result``, ``report`` and
+    ``close``. Prints its address, then serves until its stdin closes.
+    Its chunk size is its environment's MOOLIB_TPU_ALLREDUCE_CHUNK."""
     from moolib_tpu_torch.ops._kernels import KERNELS
     from moolib_tpu_torch.rpc import Rpc
 
@@ -2811,6 +2872,19 @@ def acc_child(broker_addr: str) -> int:
             learners[name] = _Learner(name, rank, broker_addr, group, kind,
                                       seed)
             return True
+        if op == "durable":
+            name, rank, group, seed, root, restore_from = args
+            learners[name] = _DurableLearner(name, rank, broker_addr, group,
+                                             seed, root, restore_from)
+            return learners[name].restored
+        if op == "replicator":
+            learners[args[0]].replicate()
+            return True
+        if op == "durable_report":
+            return {n: lr.durable_report() for n, lr in learners.items()}
+        if op == "addr":
+            return {n: lr.rpc.debug_info()["listen"][0]
+                    for n, lr in learners.items()}
         if op == "target":
             learners[args[0]].target = int(args[1])
             return True
@@ -2837,7 +2911,7 @@ def acc_child(broker_addr: str) -> int:
             return True
         raise ValueError(f"unknown op {op!r}")
 
-    ctl = Rpc("acc-child")
+    ctl = Rpc(ctl_name)
     ctl.set_timeout(ACC_BUDGET_S)
     ctl.listen("127.0.0.1:0")
     ctl.define("chip_acc", control)
@@ -4500,6 +4574,780 @@ def phase_zoo(smi) -> dict:
                 launches=launches)
 
 
+# -- phase 13: durable state and the fleet ------------------------------------
+
+SS_LEARNERS = ("ss0", "ss1", "ss2")
+SS_OFF_UPDATES = 4        # updates timed with the Replicators off
+SS_ON_UPDATES = 12        # then with them on, before the leader dies
+SS_AFTER_REJOIN = 3       # versions the cohort commits after the rejoin
+SS_FOLLOWERS = 2
+SS_QUORUM = 2
+SS_CHUNK = 1 << 20        # bundle chunk bytes
+SS_KEEP = 64              # versions a store keeps
+SS_GROUP_TIMEOUT = 8.0
+SS_KEEPALIVE_S = 0.5      # a dead peer's lanes close after 4 silent intervals
+SS_BUDGET_S = 120.0
+SS_ROOT = os.path.join("build", "statestore")
+FLEET_REQUESTS = 48       # act requests before the rollouts and after adoption
+FLEET_CONCURRENCY = 4
+FLEET_BUDGET_S = 8.0      # a request's budget, tests/test_fleet.py's
+
+
+def sslog(msg: str, smi: str) -> None:
+    """A [statestore] line, with the card's name and power limit."""
+    log(f"[statestore] {msg} | card: {smi}")
+
+
+def flog(msg: str, smi: str) -> None:
+    """A [fleet] line, with the card's name and power limit."""
+    log(f"[fleet] {msg} | card: {smi}")
+
+
+def _state_sha(host: dict) -> str:
+    """sha256 over a train_state_to_host payload's parameters and
+    optimizer state (names, then raw bytes), in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    leaves = [(f"params/{n}", t) for n, t in sorted(host["params"].items())]
+    leaves += [(f"optimizer/{n}/{k}", v)
+               for n, st in sorted(host["optimizer"].items())
+               for k, v in sorted(st.items())]
+    for name, v in leaves:
+        h.update(name.encode())
+        if torch.is_tensor(v):
+            h.update(str(v.dtype).encode())
+            h.update(v.detach().cpu().contiguous().reshape(-1)
+                     .view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(v).encode())
+    return h.hexdigest()
+
+
+def _hist(snap: dict, name: str) -> list:
+    h = snap.get(name)
+    return [h["count"], h["sum"]] if h else [0, 0.0]
+
+
+class _DurableLearner(_Learner):
+    """A learner of phase 13: phase 9's _Learner of the full-width
+    TransformerNet with a StateStore under ``root`` on its Rpc and, once
+    asked, a Replicator(followers=2) whose state_fn is
+    train_state_to_host under the sync-mode and state locks (the copy off
+    the card waits for the card). With ``restore_from`` (the survivors'
+    names and addresses) it first restores the newest version they agree
+    on by quorum 2 onto the card, reads the state back off the card, and
+    seeds its model version from it. Each version it publishes is
+    recorded with the sha256 of the host copy its state_fn produced."""
+
+    GROUP_TIMEOUT = SS_GROUP_TIMEOUT
+
+    def __init__(self, name, rank, broker_addr, group, seed, root,
+                 restore_from=()):
+        self.root = root
+        self.restore_from = [tuple(p) for p in restore_from]
+        self.restored = None
+        self.shas = {}
+        self.publish_ms = []
+        self.rep = None
+        super().__init__(name, rank, broker_addr, group, "transformer", seed)
+
+    def _before_join(self):
+        from moolib_tpu_torch.statestore import StateStore
+
+        self.rpc.set_keepalive_interval(SS_KEEPALIVE_S)
+        self.store = StateStore(self.root, self.rpc, chunk_bytes=SS_CHUNK,
+                                keep_versions=SS_KEEP)
+        publish = self.store.publish
+
+        def timed(version, state, peers=(), **kw):
+            t0 = time.perf_counter()
+            acks = publish(version, state, peers, **kw)
+            self.publish_ms.append(
+                [int(version), 1e3 * (time.perf_counter() - t0), len(peers)])
+            return acks
+
+        self.store.publish = timed  # a measuring instrument
+        if self.restore_from:
+            self.restored = self._restore()
+
+    def _restore(self) -> dict:
+        from moolib_tpu_torch.learner import (load_train_state,
+                                              train_state_to_host)
+
+        for _name, addr in self.restore_from:
+            self.rpc.connect(addr)
+        peers = tuple(n for n, _a in self.restore_from)
+        t0 = time.perf_counter()
+        neg = self.store.negotiate(peers, quorum=SS_QUORUM, timeout=30.0)
+        t1 = time.perf_counter()
+        got = self.store.restore(peers, quorum=SS_QUORUM, timeout=30.0)
+        t2 = time.perf_counter()
+        if neg is None or got is None:
+            raise RuntimeError(f"{self.name}: nothing restorable on {peers}")
+        version, host = got
+        # The restore re-persists what it pulled: its local write.
+        persist_ms = 1e3 * _hist(self.rpc.telemetry.registry.snapshot(),
+                                 "statestore_put_seconds")[1]
+        with self.lock:
+            self.state = load_train_state(self.state, host)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            card = train_state_to_host(self.state)
+            self.done_step = self.state.step
+        return dict(version=version, negotiated=neg.version,
+                    manifest_hash=neg.manifest_hash,
+                    local_hash=dict(self.store.versions()).get(version),
+                    holders=list(neg.holders), sha=_state_sha(card),
+                    step=self.state.step, negotiate_ms=1e3 * (t1 - t0),
+                    restore_ms=1e3 * (t2 - t1), persist_ms=persist_ms,
+                    upload_ms=1e3 * (t3 - t2))
+
+    def _before_run(self):
+        if self.restored is not None:
+            self.acc.set_model_version(self.restored["version"])
+
+    def _get_state(self):
+        with _SYNC_MODE_LOCK:
+            return super()._get_state()
+
+    def _durable_state(self):
+        from moolib_tpu_torch.learner import train_state_to_host
+
+        with _SYNC_MODE_LOCK, self.lock:
+            version = self.acc.result_model_version()
+            stable = not self.acc.has_gradients()
+            host = train_state_to_host(self.state)
+        if stable:
+            self.shas[version] = _state_sha(host)
+        return host
+
+    def replicate(self):
+        from moolib_tpu_torch.statestore import Replicator
+
+        if self.rep is None:
+            self.rep = Replicator(self.store, self.acc, self._durable_state,
+                                  followers=SS_FOLLOWERS)
+
+    def durable_report(self) -> dict:
+        from moolib_tpu_torch.statestore import LOCAL
+        from moolib_tpu_torch.statestore.bundle import read_manifest
+
+        published = []
+        if self.rep is not None:
+            with self.rep._lock:
+                published = sorted(self.rep.published.items())
+        versions = self.store.versions()
+        bundle = None
+        if versions:
+            m = read_manifest(self.store.root, versions[-1][0])
+            bundle = [m["total_bytes"], len(m["chunks"])]
+        snap = self.rpc.telemetry.registry.snapshot()
+        return dict(
+            version=self.acc.model_version, leader=self.acc.is_leader(),
+            published=[[v, acks.get(LOCAL), sorted(p for p in acks
+                                                   if p != LOCAL),
+                        all(acks.values()), self.shas.get(v)]
+                       for v, acks in published],
+            versions=[[v, h] for v, h in versions], bundle=bundle,
+            publish_ms=list(self.publish_ms),
+            put=_hist(snap, "statestore_put_seconds"),
+            replicate=_hist(snap, "statestore_replicate_seconds"),
+            restored=self.restored,
+            applies=[[a["version"], a["t"]] for a in list(self.applies)])
+
+    def close(self):
+        if self.rep is not None:
+            self.rep.close()
+        self.store.close()
+        super().close()
+
+
+class _SsCohort:
+    """Phase 13's learner processes: a Broker here, and one child process
+    per learner (this script with --acc-child BROKER CTL_NAME), each
+    holding one _DurableLearner."""
+
+    def __init__(self):
+        from moolib_tpu_torch.rpc import Rpc
+        from moolib_tpu_torch.rpc.broker import Broker
+
+        self.broker_rpc = Rpc("broker")  # the Group default broker_name
+        self.broker_rpc.set_keepalive_interval(SS_KEEPALIVE_S)
+        self.broker_rpc.listen("127.0.0.1:0")
+        self.addr = self.broker_rpc.debug_info()["listen"][0]
+        self.broker = Broker(self.broker_rpc)
+        self.stop = threading.Event()
+        self.pump = threading.Thread(target=self._pump, daemon=True)
+        self.pump.start()
+        self.client = Rpc("ss-client")
+        self.client.set_timeout(SS_BUDGET_S)
+        self.children = {}  # learner name -> (process, control peer)
+        self.generation = 0
+
+    def _pump(self):
+        while not self.stop.is_set():
+            self.broker.update()
+            time.sleep(0.02)
+
+    def spawn(self, names):
+        """Start one child per learner name, all together."""
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.generation += 1
+        procs = {}
+        for name in names:
+            ctl = f"ss-ctl-{name}-{self.generation}"
+            procs[name] = (subprocess.Popen(
+                [sys.executable, os.path.join(here, "chip_smoke.py"),
+                 ACC_CHILD_FLAG, self.addr, ctl], cwd=here,
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True),
+                ctl)
+        self.children.update(procs)
+        for name, (proc, _ctl) in procs.items():
+            self.client.connect(_child_addresses(proc)["addr"])
+
+    def ctl(self, name, op, *args):
+        return self.client.async_(self.children[name][1], "chip_acc", op,
+                                  *args).result(timeout=SS_BUDGET_S)
+
+    def status(self) -> dict:
+        st = {}
+        for name in self.children:
+            st.update(self.ctl(name, "status"))
+        bad = {n: s["error"] for n, s in st.items() if s["error"]}
+        if bad:
+            raise RuntimeError(f"statestore phase: learner failed: {bad}")
+        return st
+
+    def reports(self) -> dict:
+        out = {}
+        for name in self.children:
+            out.update(self.ctl(name, "durable_report"))
+        return out
+
+    def until(self, cond, what):
+        return _until(cond, what, lambda: str(self.status()),
+                      timeout=SS_BUDGET_S)
+
+    def train_to(self, target: int):
+        for name in self.children:
+            self.ctl(name, "target", name, target)
+        self.until(lambda: all(s["step"] >= target
+                               for s in self.status().values()),
+                   f"version {target} on every learner")
+
+    def kill(self, name):
+        """SIGKILL the learner's process (no cleanup of any kind)."""
+        proc, _ctl = self.children.pop(name)
+        proc.kill()
+        proc.wait(timeout=30)
+
+    def close(self):
+        try:
+            for name in list(self.children):
+                try:
+                    self.ctl(name, "close")
+                except Exception as e:  # the exit code below decides
+                    log(f"[statestore] closing {name}: {e}")
+        finally:
+            codes = {}
+            for name, (proc, _ctl) in self.children.items():
+                proc.stdin.close()
+                try:
+                    codes[name] = proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+                    codes[name] = "killed"
+            self.children = {}
+            self.client.close()
+            self.stop.set()
+            self.pump.join(timeout=5)
+            self.broker_rpc.close()
+        if any(c != 0 for c in codes.values()):
+            raise RuntimeError(f"statestore children exited with {codes}")
+
+
+def _rate(applies, lo: int, hi: int) -> float:
+    """Updates a second over versions (lo, hi] of one learner's applies."""
+    ts = {v: t for v, t in applies}
+    if lo not in ts or hi not in ts or hi <= lo:
+        raise RuntimeError(f"no applies for versions {lo}..{hi}: "
+                           f"{sorted(ts)}")
+    return (hi - lo) / (ts[hi] - ts[lo])
+
+
+def _ss_settled(cohort):
+    """(leader, version, reports) once every learner is at one version,
+    one of them leads, it published that version with every ack, and all
+    three stores advertise it with the leader's manifest hash; else
+    None."""
+    reps = cohort.reports()
+    leaders = [n for n, r in reps.items() if r["leader"]]
+    versions = {r["version"] for r in reps.values()}
+    if len(leaders) != 1 or len(versions) != 1:
+        return None
+    leader, v = leaders[0], versions.pop()
+    pub = {p[0]: p for p in reps[leader]["published"]}
+    if v not in pub or not pub[v][3]:
+        return None
+    h = dict(map(tuple, reps[leader]["versions"])).get(v)
+    if not all(dict(map(tuple, r["versions"])).get(v) == h
+               for r in reps.values()):
+        return None
+    return leader, v, reps
+
+
+def _ss_durable(cohort, smi) -> dict:
+    """Phase 13 (a): three learners train with and without Replicators;
+    the leader dies with its disk; a fresh process restores by quorum 2
+    onto the card, bit for bit, and rejoins."""
+    names = list(SS_LEARNERS)
+    shutil.rmtree(SS_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    cohort.spawn(names)
+    for rank, name in enumerate(names):
+        cohort.ctl(name, "durable", name, rank, "ss", rank,
+                   os.path.join(SS_ROOT, name), [])
+    cohort.until(lambda: all(s["connected"] and s["synced"]
+                             and len(s["members"]) == 3
+                             for s in cohort.status().values()),
+                 "three synced learners")
+    start_s = time.perf_counter() - t0
+    cohort.train_to(1)
+    cohort.train_to(1 + SS_OFF_UPDATES)
+    off = cohort.reports()
+    lead = next(n for n, r in off.items() if r["leader"])
+    off_rate = _rate(off[lead]["applies"], 1, 1 + SS_OFF_UPDATES)
+    for name in names:
+        cohort.ctl(name, "replicator", name)
+    v_on = 1 + SS_OFF_UPDATES
+    target = v_on + SS_ON_UPDATES
+    cohort.train_to(target)
+    # Training paused at `target`: wait until the leader has published
+    # the last version and both followers hold it.
+    leader, v_kill, reps = cohort.until(lambda: _ss_settled(cohort),
+                                        "the last version on 3 stores")
+    rep = reps[leader]
+    published = {p[0]: p for p in rep["published"]}
+    committed = v_kill - v_on
+    on_rate = _rate(rep["applies"], v_on, v_kill)
+    pub_ms = sorted(ms for _v, ms, _n in rep["publish_ms"])
+    put_n, put_s = rep["put"]
+    repl_n, repl_s = rep["replicate"]
+    mb, chunks = rep["bundle"][0] / 1e6, rep["bundle"][1]
+    sslog(f"bundle {mb:.3f} MB in {chunks} chunks of {SS_CHUNK} bytes | "
+          f"leader {leader}: {len(published)} versions published for "
+          f"{committed} committed ({len(published) / committed:.3f} per "
+          f"committed version) | publish ms median "
+          f"{pub_ms[len(pub_ms) // 2]:.2f} (min {pub_ms[0]:.2f}, max "
+          f"{pub_ms[-1]:.2f}): local write {1e3 * put_s / max(put_n, 1):.2f} "
+          f"ms mean over {put_n}, push to one follower "
+          f"{1e3 * repl_s / max(repl_n, 1):.2f} ms mean over {repl_n}", smi)
+    sslog(f"updates/s of the leader: Replicators off {off_rate:.2f} "
+          f"(versions 1..{v_on}), on {on_rate:.2f} (versions "
+          f"{v_on}..{v_kill}) | three learners started in {start_s:.1f} s",
+          smi)
+    # Latest-wins: versions may be skipped, never published unacked.
+    bad = {v: p for v, p in published.items()
+           if not p[1] or not p[3] or len(p[2]) != SS_FOLLOWERS or not p[4]}
+    if bad:
+        raise RuntimeError(f"publishes not acked by the store and "
+                           f"{SS_FOLLOWERS} followers: {bad}")
+    launches = cohort.ctl(leader, "kernels")  # its process dies next
+    addrs = {}
+    for n in names:
+        addrs.update(cohort.ctl(n, "addr"))
+
+    # Host loss: SIGKILL the leader and wipe its store.
+    t_kill = time.perf_counter()
+    cohort.kill(leader)
+    shutil.rmtree(os.path.join(SS_ROOT, leader))
+    survivors = [n for n in names if n != leader]
+    cohort.spawn([leader])
+    restored = cohort.ctl(leader, "durable", leader, names.index(leader),
+                          "ss", 10 + names.index(leader),
+                          os.path.join(SS_ROOT, leader),
+                          [[n, addrs[n]] for n in survivors])
+    v = restored["version"]
+    want = published.get(v)
+    if want is None:
+        raise RuntimeError(f"restored v{v}, which the leader did not "
+                           f"publish ({sorted(published)})")
+    leader_hash = dict(map(tuple, rep["versions"]))[v]
+    checks = dict(version=v == v_kill, negotiated=restored["negotiated"] == v,
+                  manifest_hash=restored["manifest_hash"] == leader_hash,
+                  local_hash=restored["local_hash"] == leader_hash,
+                  sha=restored["sha"] == want[4],
+                  holders=sorted(restored["holders"]) == sorted(survivors))
+    sslog(f"killed leader {leader} and wiped its store; the fresh process "
+          f"restored v{v} from {restored['holders']} (quorum {SS_QUORUM}): "
+          f"negotiate {restored['negotiate_ms']:.2f} ms; restore "
+          f"{restored['restore_ms']:.2f} ms = its negotiation, the pull and "
+          f"decode, and the local write of what it pulled "
+          f"({restored['persist_ms']:.2f} ms); upload onto the card "
+          f"{restored['upload_ms']:.2f} ms | manifest hash "
+          f"{restored['manifest_hash'][:16]}.. == leader's "
+          f"{leader_hash[:16]}.. | card readback sha "
+          f"{restored['sha'][:16]}.. vs the leader's state_fn copy "
+          f"{want[4][:16]}.. | checks {checks}", smi)
+    if not all(checks.values()):
+        raise RuntimeError(f"restore checks failed: {checks}")
+    cohort.until(lambda: all(s["connected"] and s["synced"]
+                             and len(s["members"]) == 3
+                             for s in cohort.status().values()),
+                 "the rejoined cohort")
+    rejoin_s = time.perf_counter() - t_kill
+    cohort.ctl(leader, "replicator", leader)
+    cohort.train_to(v_kill + SS_AFTER_REJOIN)
+    leader2, v_end, after = cohort.until(lambda: _ss_settled(cohort),
+                                         "the last version after the rejoin")
+    sslog(f"cohort rejoined {rejoin_s:.1f} s after the kill and committed "
+          f"versions {v_kill + 1}..{v_end} with the restored learner; "
+          f"leader now {leader2}", smi)
+    if v_end < v_kill + SS_AFTER_REJOIN:
+        raise RuntimeError(f"only versions up to {v_end} after the rejoin")
+    for n in cohort.children:  # cumulative in each live process
+        for k, c in cohort.ctl(n, "kernels").items():
+            launches[k] = launches.get(k, 0) + c
+    return dict(leader=leader, survivors=survivors, version=v,
+                version_end=v_end, bundle_mb=mb, chunks=chunks,
+                published=len(published), committed=committed,
+                publish_ms=pub_ms, put=rep["put"],
+                replicate=rep["replicate"], updates_s_off=off_rate,
+                updates_s_on=on_rate, restore=restored, rejoin_s=rejoin_s,
+                addrs={n: addrs[n] for n in survivors}, launches=launches)
+
+
+class _CardActFn:
+    """A serving model function over train-state payloads: each thread
+    that calls it (one a replica) keeps a full-width TransformerNet on
+    the card and loads a payload's parameters into it the first time it
+    sees that payload; then it runs phase 5's act step on BATCH requests
+    (a smaller batch padded as Replica(pad=True) pads it). A payload with
+    ``poison`` set raises (the poisoned build of the fleet's rollback)."""
+
+    def __init__(self):
+        self.local = threading.local()
+        self.batch_ms = {"act": [], "context": []}
+
+    def __call__(self, params, batch):
+        if params.get("poison"):
+            raise RuntimeError("poisoned canary build")
+        loc = self.local
+        if getattr(loc, "net", None) is None:
+            loc.net = _serve_net(0)
+            loc.params = None
+            loc.act = _service_fns(self.batch_ms)["act"]
+        if loc.params is not params:
+            _load_params(loc.net, params["params"])
+            loc.params = params
+        n = batch["done"].shape[0]
+        if n == BATCH:
+            return loc.act(loc.net, batch)
+        # Phase 5's shape: pad to BATCH requests (row 0 repeated), as a
+        # Replica with pad=True does, and slice the reply back.
+        padded = {k: torch.cat([v, v[:1].expand(BATCH - n, *v.shape[1:])])
+                  for k, v in batch.items()}
+        return {k: v[:n] for k, v in loc.act(loc.net, padded).items()}
+
+
+def _load_params(net, host_params):
+    named = dict(net.named_parameters())
+    with torch.no_grad():
+        for name, t in host_params.items():
+            named[name].copy_(torch.as_tensor(np.asarray(t))
+                              if not torch.is_tensor(t) else t)
+
+
+def _cpu_dense(host_params):
+    """Phase 5's dense CPU forward with these parameters."""
+    from moolib_tpu_torch import TransformerNet
+
+    dense = TransformerNet(6, (84, 84, 4), compute_dtype=torch.bfloat16,
+                           attention_backend="dense", device="cpu").eval()
+    _load_params(dense, host_params)
+    return dense
+
+
+def _ss_serve(cohort, durable, smi) -> dict:
+    """Phase 13 (b): publish_from_statestore into two card Replicas."""
+    from moolib_tpu_torch import Replica, Router
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.rpc import Rpc
+    from moolib_tpu_torch.serving import publish_from_statestore
+    from moolib_tpu_torch.statestore import StateStore
+
+    tel = _telemetry("statestore serve")
+    fn = _CardActFn()
+    rpcs = [Rpc(f"ss-rep{i}", telemetry=tel) for i in range(2)]
+    front = Rpc("ss-front", telemetry=tel)
+    reps, router, store = [], None, None
+    try:
+        for r in rpcs:
+            r.listen("127.0.0.1:0")
+            front.connect(r.debug_info()["listen"][0])
+        for addr in durable["addrs"].values():
+            front.connect(addr)
+        init = {"params": {n: p.detach().cpu() for n, p in
+                           _serve_net(0).named_parameters()}}
+        reps = [Replica(r, fn, init, service="act", batch_size=BATCH,
+                        pad=True, linger_s=0.01, device="cuda")
+                for r in rpcs]
+        router = Router(front, [r.get_name() for r in rpcs], service="act")
+        _until(lambda: len(router.routable()) == 2, "2 routable replicas",
+               timeout=60)
+        store = StateStore(os.path.join(SS_ROOT, "serve"), front,
+                           chunk_bytes=SS_CHUNK)
+        for kern in KERNELS:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        v, acks = publish_from_statestore(
+            router, store, peers=durable["survivors"], quorum=SS_QUORUM)
+        publish_ms = 1e3 * (time.perf_counter() - t0)
+        host = store.load(v)
+        if not all(acks.values()) or any(r.version != v for r in reps):
+            raise RuntimeError(f"publish of v{v}: acks {acks}, replica "
+                               f"versions {[r.version for r in reps]}")
+        sha = _state_sha(host)
+        shas = {p[0]: p[4] for r in cohort.reports().values()
+                for p in r["published"]}
+        if sha != shas.get(v):
+            raise RuntimeError(f"v{v} served from the statestore is not "
+                               "the version its publisher recorded")
+        dense = _cpu_dense(host["params"])
+        reqs = _serve_requests()["act"]
+        errs = []
+        for i in range(2 * len(reqs)):
+            req = reqs[i % len(reqs)]
+            out = router.infer(req, budget_s=60.0)
+            errs.append(_reply_err("act", out, _dense_ref(dense, "act",
+                                                          req)))
+        health = [front.sync(r.get_name(), "act.health")["model_version"]
+                  for r in rpcs]
+        launches = {k.name: k.launches for k in KERNELS}
+        sslog(f"publish_from_statestore(peers={durable['survivors']}, "
+              f"quorum {SS_QUORUM}) loaded v{v} (sha {sha[:16]}.., the "
+              f"publisher's) into both card replicas in {publish_ms:.1f} ms "
+              f"| {len(errs)} act replies through the Router after it, max "
+              f"abs err {max(errs):.3e} vs the dense CPU forward (tol "
+              f"{SERVE_TOL}) | health versions {health} | launches "
+              f"{launches}", smi)
+        if max(errs) > SERVE_TOL or health != [v, v]:
+            raise RuntimeError("statestore serve: replies off the "
+                               "published version")
+        if not launches["flash_fwd"]:
+            raise RuntimeError("statestore serve: no flash_fwd launch")
+        return dict(version=v, publish_ms=publish_ms, max_abs_err=max(errs),
+                    replies=len(errs), host=host, launches=launches)
+    finally:
+        if store is not None:
+            store.close()
+        if router is not None:
+            router.close()
+        for r in reps:
+            r.close()
+        front.close()
+        for r in rpcs:
+            r.close()
+
+
+class _FleetLoad:
+    """FLEET_CONCURRENCY closed-loop clients sending act requests
+    through ``router`` until stopped; every outcome is recorded (ok with
+    a well-formed reply, or the error)."""
+
+    def __init__(self, router, reqs):
+        self.outcomes = []
+        self.lock = threading.Lock()
+        self.halt = threading.Event()
+        self.t0 = time.perf_counter()
+        self.threads = [threading.Thread(target=self._worker,
+                                         args=(router, reqs, k), daemon=True)
+                        for k in range(FLEET_CONCURRENCY)]
+        for t in self.threads:
+            t.start()
+
+    def _worker(self, router, reqs, k):
+        from moolib_tpu_torch.serving import error_kind
+
+        i = k
+        while not self.halt.is_set():
+            try:
+                out = router.infer(reqs[i % len(reqs)],
+                                   budget_s=FLEET_BUDGET_S)
+                ok = (np.asarray(out["action"]).shape == (ACT_ENVS,)
+                      and bool(np.isfinite(np.asarray(out["logits"])).all()))
+                rec = "ok" if ok else "malformed reply"
+            except Exception as e:  # recorded; the phase fails on it
+                rec = f"{error_kind(e)}: {e}"
+            with self.lock:
+                self.outcomes.append(rec)
+            i += FLEET_CONCURRENCY
+
+    def count(self) -> int:
+        with self.lock:
+            return len(self.outcomes)
+
+    def stop(self, what: str) -> dict:
+        self.halt.set()
+        for t in self.threads:
+            t.join(timeout=FLEET_BUDGET_S + 30)
+            if t.is_alive():
+                raise RuntimeError(f"fleet: a load worker hung {what}")
+        wall = time.perf_counter() - self.t0
+        failed = [o for o in self.outcomes if o != "ok"]
+        return dict(requests=len(self.outcomes), failed=len(failed),
+                    errors=failed[:3], seconds=wall,
+                    requests_s=len(self.outcomes) / wall)
+
+
+def _next_params(host) -> dict:
+    """One more IMPALA train step on the card from ``host``: the
+    payload of the version the fleet promotes."""
+    from moolib_tpu_torch import (ClippedRMSprop, ImpalaConfig,
+                                  make_apply_step, make_grad_step,
+                                  make_train_state)
+    from moolib_tpu_torch.learner import (load_train_state,
+                                          train_state_to_host)
+
+    net = _serve_net(0).train()
+    state = make_train_state(net, ClippedRMSprop(
+        net.parameters(), 6e-4, decay=0.99, eps=0.01, max_norm=40.0))
+    state = load_train_state(state, host)
+    cfg = ImpalaConfig(discounting=0.99, baseline_cost=0.5,
+                       entropy_cost=0.0006, reward_clip=1.0)
+    batch = _learn_batches(torch.Generator(device="cuda").manual_seed(7),
+                           1)[0]
+    grads, _ = make_grad_step(config=cfg, grad_scale=float(LEARN_B))(
+        state.model, batch)
+    state = make_apply_step()(state, grads)
+    return train_state_to_host(state)
+
+
+def _ss_fleet(served, smi) -> dict:
+    """Phase 13 (c): a fleet Controller of card replicas serving the
+    restored version, a promote, a poisoned rollback, a controller kill
+    with standby adoption."""
+    from moolib_tpu_torch.fleet import Controller, FleetSpec
+    from moolib_tpu_torch.flightrec import load_bundle
+    from moolib_tpu_torch.ops._kernels import KERNELS
+
+    v, host = served["version"], served["host"]
+    spec = FleetSpec.small(replicas=2, routers=1)
+    fn = _CardActFn()
+    reqs = _serve_requests()["act"]
+    for kern in KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    ctl = Controller(spec, name="ctl0", model=fn, params=host, version=v,
+                     device="cuda", incident_dir=BUNDLE_DIR)
+    standby = None
+    try:
+        ctl.materialize()
+        standby = Controller(spec, cohort=ctl.cohort, name="ctl1",
+                             standby=True, model=fn, params=host, version=v,
+                             device="cuda", incident_dir=BUNDLE_DIR)
+        _until(lambda: ctl.router() is not None
+               and len(ctl.router().routable()) == 2,
+               "2 routable fleet replicas", timeout=60)
+        materialize_s = time.perf_counter() - t0
+        router = ctl.router()
+        warm = _FleetLoad(router, reqs)
+        _until(lambda: warm.count() >= FLEET_REQUESTS, "warm-up requests",
+               timeout=120)
+        warm = warm.stop("before the rollouts")
+        nxt = _next_params(host)
+        rollouts = {}
+        for tag, params, version, want in (
+                ("promote", nxt, v + 1, "promoted"),
+                ("rollback", dict(nxt, poison=True), v + 2, "rolled_back")):
+            load = _FleetLoad(router, reqs)
+            t1 = time.perf_counter()
+            state = ctl.start_rollout(params=params, version=version,
+                                      wait=True)
+            took = time.perf_counter() - t1
+            rollouts[tag] = dict(state=state, rollout_s=took,
+                                 **load.stop(f"across the {tag}"))
+            if state != want or rollouts[tag]["failed"]:
+                raise RuntimeError(f"fleet {tag}: {state} (want {want}), "
+                                   f"{rollouts[tag]}")
+        bundle = load_bundle(ctl._rollout.incident_path)  # validates
+        if bundle["trigger"]["kind"] != "fleet_rollback":
+            raise RuntimeError(f"incident bundle trigger {bundle['trigger']}")
+        versions = [ctl.cohort.roles[f"{spec.name}-rep{i}"].obj.version
+                    for i in range(2)]
+        if versions != [v + 1, v + 1]:
+            raise RuntimeError(f"replicas on {versions} after the "
+                               f"rollback, want v{v + 1}")
+        dense = _cpu_dense(nxt["params"])
+        err = _reply_err("act", router.infer(reqs[0], budget_s=60.0),
+                         _dense_ref(dense, "act", reqs[0]))
+        if err > SERVE_TOL:
+            raise RuntimeError(f"fleet: promoted replies off by {err}")
+        # Kill the primary under load: the standby adopts.
+        load = _FleetLoad(router, reqs)
+        t2 = time.perf_counter()
+        ctl.kill()
+        _until(lambda: ctl.cohort.controller == "ctl1"
+               and ctl.cohort.epoch == 2, "standby adoption", timeout=30)
+        adopt_s = time.perf_counter() - t2
+        after = load.count()
+        _until(lambda: load.count() >= after + FLEET_REQUESTS,
+               "requests after the adoption", timeout=120)
+        kill = load.stop("across the controller kill")
+        if kill["failed"] or standby.adopt() != {"already": True,
+                                                 "epoch": 2}:
+            raise RuntimeError(f"fleet adoption: {kill}")
+        launches = {k.name: k.launches for k in KERNELS}
+        flog(f"materialize {materialize_s:.2f} s (2 card replicas "
+             f"routable) | warm-up {warm['requests_s']:.1f} requests/s | "
+             f"promote v{v + 1} {rollouts['promote']['rollout_s']:.2f} s, "
+             f"rollback of the poisoned v{v + 2} "
+             f"{rollouts['rollback']['rollout_s']:.2f} s (incident bundle "
+             f"{ctl._rollout.incident_path} validates) | adoption "
+             f"{adopt_s:.2f} s, {kill['requests']} requests across the "
+             f"kill, {kill['failed']} failed | promoted replies max abs err "
+             f"{err:.3e} | launches {launches}", smi)
+        for tag, r in rollouts.items():
+            flog(f"{tag}: {r['requests']} requests during the rollout, "
+                 f"{r['failed']} failed, {r['requests_s']:.1f} requests/s "
+                 f"({FLEET_CONCURRENCY} closed-loop clients, act requests "
+                 f"of {ACT_ENVS} envs, budget {FLEET_BUDGET_S} s)", smi)
+        if not launches["flash_fwd"] or not launches["flash_bwd_tile"]:
+            raise RuntimeError(f"fleet path launches {launches}")
+        return dict(materialize_s=materialize_s, adopt_s=adopt_s,
+                    warm=warm, rollouts=rollouts, kill=kill,
+                    promoted_err=err, launches=launches)
+    finally:
+        if standby is not None:
+            standby.close()
+        ctl.close(close_roles=True)
+
+
+def phase_statestore(smi) -> dict:
+    """Phase 13: durable state and the fleet (see the module docstring)."""
+    t0 = time.perf_counter()
+    cohort = _SsCohort()
+    try:
+        durable = _ss_durable(cohort, smi)
+        served = _ss_serve(cohort, durable, smi)
+    finally:
+        cohort.close()
+    fleet = _ss_fleet(served, smi)
+    served.pop("host")
+    launches = {"statestore learners": durable.pop("launches"),
+                "statestore serve": served.pop("launches"),
+                "fleet": fleet.pop("launches")}
+    if not (launches["statestore learners"].get("flash_fwd")
+            and launches["statestore learners"].get("flash_bwd_tile")):
+        raise RuntimeError(f"statestore learners launched "
+                           f"{launches['statestore learners']}")
+    sslog(f"phase took {time.perf_counter() - t0:.1f} s", smi)
+    return dict(durable=durable, serve=served, fleet=fleet,
+                seconds=time.perf_counter() - t0, launches=launches)
+
+
 BUNDLE_DIR = os.path.join("build", "flightrec")
 # The environment prefixes the port's bundles record (the reference's
 # MOOLIB, and the card's in place of JAX and XLA).
@@ -4573,6 +5421,7 @@ def main() -> int:
     bundles = phase_bundles(tels)
     e2e = phase_e2e(impala["bench"]["line"]["value"])
     zoo = phase_zoo(smi)
+    durable = phase_statestore(smi)
 
     launches_by_path = {
         path: counts for path, counts in
@@ -4580,7 +5429,8 @@ def main() -> int:
          ("train", train["launches"]),
          ("context backward", context_backward),
          ("impala", impala_launches), *acc["launches"].items(),
-         *e2e["launches"].items(), *zoo["launches"].items()]
+         *e2e["launches"].items(), *zoo["launches"].items(),
+         *durable["launches"].items()]
     }
     never = [kname for kname in train["launches"]
              if not any(c[kname] for c in launches_by_path.values())]
@@ -4653,7 +5503,9 @@ def main() -> int:
                       "rpc": {k: rpc[k] for k in rpc if k != "launches"},
                       "acc": {k: acc[k] for k in acc if k != "launches"},
                       "e2e": {k: e2e[k] for k in e2e if k != "launches"},
-                      "zoo": {k: zoo[k] for k in zoo if k != "launches"}}),
+                      "zoo": {k: zoo[k] for k in zoo if k != "launches"},
+                      "statestore": {k: durable[k] for k in durable
+                                     if k != "launches"}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4666,5 +5518,5 @@ if __name__ == "__main__":
     if sys.argv[1:] == [RPC_CHILD_FLAG]:
         sys.exit(rpc_child())
     if sys.argv[1:2] == [ACC_CHILD_FLAG]:
-        sys.exit(acc_child(sys.argv[2]))
+        sys.exit(acc_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -36,7 +36,12 @@ reference each ported part is tested against. The slices so far:
   mixture-of-experts FFN (``parallel.moe``) and
   ``TransformerNet(mlp="moe")``, the ``NetHackNet``, the A2C example
   (``examples/a2c.py``) and the remote-actors example
-  (``examples/remote_actors.py``).
+  (``examples/remote_actors.py``);
+- durable state and the fault engine: the ``StateStore`` (content-hashed
+  chunked bundles, push replication, quorum restore) and its
+  ``Replicator`` on the ``Accumulator``, the seeded chaos engine
+  (``testing``), and the fleet controller (``fleet``: spec, supervision,
+  standby adoption, canary rollout).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -68,6 +73,8 @@ _EXPORTS = {
     **dict.fromkeys(("AllReduce", "Broker", "Future", "Group", "Queue",
                      "Rpc", "RpcDeferredReturn", "RpcError"),
                     "moolib_tpu_torch.rpc"),
+    **dict.fromkeys(("Replicator", "StateStore", "StateStoreError"),
+                    "moolib_tpu_torch.statestore"),
     **dict.fromkeys(("EnvPool", "EnvPoolServer", "EnvRunner", "EnvStepper",
                      "EnvStepperFuture", "RemoteEnvStepper", "WorkerDied",
                      "step_with_retry"), "moolib_tpu_torch.envpool"),

@@ -23,9 +23,6 @@ Where the reference is JAX-specific:
   ``ImpalaNet`` in bf16 on the card and in f32 on the CPU (the reference
   picks bf16 on the TPU and f32 elsewhere).
 
-``A2CConfig.from_fleet_spec`` waits for the port's ``fleet/`` (ROADMAP.md
-queue A, item 10).
-
 Run (on the card unless ``--device cpu``):
 ``python -m moolib_tpu_torch.examples.a2c [--total-steps N] [--use-lstm]``
 """
@@ -94,6 +91,22 @@ class A2CConfig:
     group: str = "a2c"
     log_interval_steps: int = 4_000
     seed: int = 0
+
+    @classmethod
+    def from_fleet_spec(cls, spec, **overrides) -> "A2CConfig":
+        """Derive the launch shape from a declarative
+        :class:`~moolib_tpu_torch.fleet.spec.FleetSpec`: the env tier's
+        worker count and the learner cohort's quorum/straggler/group knobs
+        come from the spec — one validated value drives both the fleet
+        controller and the training example. Everything else keeps its
+        default unless overridden."""
+        cfg = cls(
+            num_processes=max(spec.env_workers.n, 1),
+            min_quorum=spec.learners.min_quorum,
+            straggler_timeout=spec.learners.straggler_timeout_s,
+            group=spec.learners.group,
+        )
+        return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
 def a2c_loss(model, apply_fn, batch, config):

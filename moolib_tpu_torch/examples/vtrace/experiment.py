@@ -122,6 +122,22 @@ class VtraceConfig:
     seed: int = 0
     compute_dtype: str = "bfloat16"
 
+    @classmethod
+    def from_fleet_spec(cls, spec, **overrides) -> "VtraceConfig":
+        """Derive the launch shape from a declarative
+        :class:`~moolib_tpu_torch.fleet.spec.FleetSpec`: the env tier's
+        worker count and the learner cohort's quorum/straggler/group knobs
+        come from the spec — one validated value drives both the fleet
+        controller and the training example. Everything else keeps its
+        default unless overridden."""
+        cfg = cls(
+            num_actor_processes=max(spec.env_workers.n, 1),
+            min_quorum=spec.learners.min_quorum,
+            straggler_timeout=spec.learners.straggler_timeout_s,
+            group=spec.learners.group,
+        )
+        return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
 
 def _make_env_fn(cfg: VtraceConfig):
     return env_factories.make_env_fn(

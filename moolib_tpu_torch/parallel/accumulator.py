@@ -516,7 +516,7 @@ class Accumulator:
         """Install (or clear, with None) the durability hook: called with
         each newly applied model version at ``zero_gradients`` time —
         when the caller's params embody that version — outside the lock.
-        The reference's statestore ``Replicator`` uses it to stream
+        :class:`~moolib_tpu_torch.statestore.Replicator` uses it to stream
         committed versions to replica peers without ever stalling a
         gradient round; the hook itself must be cheap (note and
         return)."""
@@ -656,7 +656,7 @@ class Accumulator:
                 hook = self._durability_hook
             self._user_has_contributed = False
         if hook is not None and version is not None:
-            # The durability seam (the reference's statestore Replicator):
+            # The durability seam (statestore.Replicator):
             # at THIS instant the caller's params embody `version` (the
             # contract is apply-then-zero), so it is the one moment a
             # (version, state) pair can be snapshotted untorn. The hook

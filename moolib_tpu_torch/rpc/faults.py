@@ -3,9 +3,9 @@ of :mod:`moolib_tpu.rpc.faults`.
 
 This module defines the *contract* only — the seam vocabulary an
 :class:`~moolib_tpu_torch.rpc.rpc.Rpc` consults when a hooks object is
-installed via ``Rpc.install_fault_hooks``. The reference's deterministic
-scenario engine that implements it (:mod:`moolib_tpu.testing.chaos`) is
-not ported yet; any object with these methods serves.
+installed via ``Rpc.install_fault_hooks``. The deterministic scenario
+engine that implements it is :mod:`moolib_tpu_torch.testing.chaos`
+(``FaultPlan`` and ``ChaosNet``); any object with these methods serves.
 
 Seams (all on the Rpc's IO loop thread):
 

@@ -1,7 +1,6 @@
 """Serving tier of the port: admission control, the replica (in-process
 or bound to an RPC peer), health gating and the router; the counterpart
-of :mod:`moolib_tpu.serving`. ``publish_from_statestore`` waits for the
-port's StateStore."""
+of :mod:`moolib_tpu.serving`."""
 
 from ..rpc import RpcError
 from .admission import (
@@ -13,7 +12,8 @@ from .admission import (
 )
 from .health import CircuitBreaker, ReplicaHealth
 from .replica import ENDPOINT_SUFFIXES, Replica
-from .router import Router, publish_from_accumulator
+from .router import (Router, publish_from_accumulator,
+                     publish_from_statestore)
 
 __all__ = [
     "AdmissionQueue",
@@ -28,4 +28,5 @@ __all__ = [
     "ServingError",
     "error_kind",
     "publish_from_accumulator",
+    "publish_from_statestore",
 ]

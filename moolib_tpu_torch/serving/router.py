@@ -1,6 +1,5 @@
 """Load-aware, health-gated request router with deadline-bounded
-failover; the counterpart of :mod:`moolib_tpu.serving.router`
-(``publish_from_statestore`` waits for the port's StateStore).
+failover; the counterpart of :mod:`moolib_tpu.serving.router`.
 
 The router is the client-facing half of the serving tier: it owns the
 fleet view (one :class:`~moolib_tpu_torch.serving.health.ReplicaHealth` per
@@ -41,7 +40,7 @@ from ..utils import get_logger
 from .admission import DeadlineExceeded, Overloaded, error_kind
 from .health import CircuitBreaker, ReplicaHealth
 
-__all__ = ["Router", "publish_from_accumulator"]
+__all__ = ["Router", "publish_from_accumulator", "publish_from_statestore"]
 
 log = get_logger("serving")
 
@@ -546,3 +545,42 @@ def publish_from_accumulator(router: Router, accumulator, params: Any,
     return router.publish_weights(
         params, int(accumulator.model_version), timeout_s=timeout_s
     )
+
+
+def publish_from_statestore(router: Router, store, *,
+                            peers: "tuple | list" = (),
+                            version: Optional[int] = None,
+                            quorum: int = 1,
+                            timeout_s: float = 30.0):
+    """Publish a *durable* model version into the serving fleet — the
+    path that survives the death of the training host: weights come out
+    of the statestore (local, or negotiated+pulled from the replica
+    ``peers`` when the local disk was lost), so a hot publish into the
+    serving tier can never be orphaned by a single machine loss.
+
+    With ``version=None`` the newest restorable version wins: the
+    restore negotiation across ``peers`` + the local store when peers
+    are given, else the newest locally verified version. Returns
+    ``(version, acks)``; raises
+    :class:`~moolib_tpu_torch.statestore.StateStoreError` when nothing
+    restorable exists anywhere."""
+    from ..statestore import StateStoreError  # local: no import cycle
+
+    if version is not None:
+        params = store.load(int(version))
+        v = int(version)
+    elif peers:
+        restored = store.restore(tuple(peers), quorum=quorum,
+                                 timeout=timeout_s)
+        if restored is None:
+            raise StateStoreError(
+                "no restorable model version on any replica"
+            )
+        v, params = restored
+    else:
+        v = store.latest()
+        if v is None:
+            raise StateStoreError("local statestore holds no verified "
+                                  "version and no peers were given")
+        params = store.load(v)
+    return v, router.publish_weights(params, v, timeout_s=timeout_s)

@@ -855,3 +855,147 @@ def test_nethack_net_on_the_card_matches_the_cpu(card, dtype):
             torch.testing.assert_close(grads[name].cpu(), w, rtol=0,
                                        atol=1e-4 * float(w.abs().max()),
                                        msg=lambda m: f"{name}: {m}")
+
+
+def _small_train_state(seed):
+    from moolib_tpu_torch import ClippedRMSprop, make_train_state
+
+    net = TransformerNet(6, (5,), d_model=64, num_layers=1, num_heads=2,
+                         device="cuda",
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(seed))
+    return make_train_state(net, ClippedRMSprop(
+        net.parameters(), 6e-4, decay=0.99, eps=0.01, max_norm=40.0))
+
+
+def _small_batch(seed, T=4, B=2):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"obs": torch.randn((T + 1, B, 5), generator=gen, device="cuda"),
+            "done": torch.rand((T + 1, B), generator=gen,
+                               device="cuda") < 0.25,
+            "rewards": torch.randn((T + 1, B), generator=gen, device="cuda"),
+            "actions": torch.randint(0, 6, (T, B), generator=gen,
+                                     device="cuda"),
+            "behavior_logits": torch.randn((T, B, 6), generator=gen,
+                                           device="cuda"),
+            "core_state": ()}
+
+
+def test_train_state_published_from_the_card_restores_onto_it(card,
+                                                              tmp_path):
+    """A card TrainState after one step, published from a StateStore to
+    two followers; its store is deleted; a fresh store restores by quorum
+    2 and loads it onto another card model: parameters and ClippedRMSprop's
+    nu equal bit for bit, and so does the state read back off the card.
+    (A torch leaf's pickle names its storage by address, so two encodings
+    of equal tensors are compared by value, not by bytes.)"""
+    import shutil
+
+    from moolib_tpu_torch import make_impala_train_step
+    from moolib_tpu_torch.learner import load_train_state, train_state_to_host
+    from moolib_tpu_torch.rpc import Rpc
+    from moolib_tpu_torch.statestore import StateStore
+
+    lead, _ = make_impala_train_step()(_small_train_state(0), _small_batch(3))
+    host = train_state_to_host(lead)
+    rpcs = [Rpc(f"cuda-ss{i}") for i in range(3)]
+    stores = []
+    try:
+        for r in rpcs:
+            r.listen("127.0.0.1:0")
+        for r in rpcs[1:]:
+            rpcs[0].connect(r.debug_info()["listen"][0])
+        stores = [StateStore(str(tmp_path / f"s{i}"), r, chunk_bytes=4096)
+                  for i, r in enumerate(rpcs)]
+        acks = stores[0].publish(1, host, peers=("cuda-ss1", "cuda-ss2"))
+        assert all(acks.values()), acks
+        stores[0].close()
+        shutil.rmtree(tmp_path / "s0")
+        stores[0] = StateStore(str(tmp_path / "s0"), rpcs[0],
+                               chunk_bytes=4096)
+        v, restored = stores[0].restore(("cuda-ss1", "cuda-ss2"), quorum=2)
+        assert v == 1
+        got = load_train_state(_small_train_state(1), restored)
+        torch.cuda.synchronize()
+        back = train_state_to_host(got)
+        assert back["step"] == host["step"] == 1
+        assert back["groups"] == host["groups"]
+        for n, t in host["params"].items():
+            assert torch.equal(back["params"][n], t), n
+            for k, x in host["optimizer"][n].items():
+                assert torch.equal(back["optimizer"][n][k], x), (n, k)
+        for (n, a), b in zip(lead.model.named_parameters(),
+                             got.model.parameters()):
+            assert b.device.type == "cuda" and torch.equal(a, b), n
+            assert torch.equal(lead.optimizer.state[a]["nu"],
+                               got.optimizer.state[b]["nu"]), n
+    finally:
+        for s in stores:
+            s.close()
+        for r in rpcs:
+            r.close()
+
+
+def test_publish_from_statestore_into_a_card_replica(card, tmp_path):
+    """A version put into a StateStore reaches a Replica on the card
+    through publish_from_statestore and a Router: its replies follow
+    those parameters (the CPU forward of the same weights) and its
+    health reports the version."""
+    import time
+
+    from moolib_tpu_torch import Replica, Router
+    from moolib_tpu_torch.rpc import Rpc
+    from moolib_tpu_torch.serving import publish_from_statestore
+    from moolib_tpu_torch.statestore import StateStore
+
+    net = TransformerNet(6, (5,), d_model=64, num_layers=1, num_heads=2,
+                         device="cuda").eval()
+    cpu = TransformerNet(6, (5,), d_model=64, num_layers=1, num_heads=2,
+                         device="cpu").eval()
+
+    def forward(params, x):
+        if getattr(forward, "params", None) is not params:
+            net.load_state_dict({k: torch.as_tensor(v)
+                                 for k, v in params.items()})
+            forward.params = params
+        (logits, _), _ = net(x["obs"].transpose(0, 1),
+                             x["done"].transpose(0, 1), ())
+        return logits.transpose(0, 1)
+
+    new = TransformerNet(6, (5,), d_model=64, num_layers=1, num_heads=2,
+                         device="cpu", generator=torch.Generator()
+                         .manual_seed(9)).state_dict()
+    cpu.load_state_dict(new)
+    rep_rpc, front = Rpc("cuda-pub-rep"), Rpc("cuda-pub-front")
+    rep = router = store = None
+    try:
+        rep_rpc.listen("127.0.0.1:0")
+        front.connect(rep_rpc.debug_info()["listen"][0])
+        rep = Replica(rep_rpc, forward, {k: v.cpu() for k, v in
+                                         net.state_dict().items()},
+                      service="pub", batch_size=1, device="cuda")
+        router = Router(front, ["cuda-pub-rep"], service="pub")
+        deadline = time.monotonic() + 30.0
+        while not router.routable() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert router.routable() == ["cuda-pub-rep"]
+        store = StateStore(str(tmp_path / "store"), front)
+        store.put(7, new)
+        v, acks = publish_from_statestore(router, store)
+        assert v == 7 and acks == {"cuda-pub-rep": True}
+        gen = torch.Generator().manual_seed(2)
+        x = {"obs": torch.randn((3, 5), generator=gen).numpy(),
+             "done": (torch.rand(3, generator=gen) < 0.3).numpy()}
+        got = torch.as_tensor(router.infer(x, budget_s=60.0))
+        with torch.no_grad():
+            (want, _), _ = cpu(torch.from_numpy(x["obs"])[:, None],
+                               torch.from_numpy(x["done"])[:, None], ())
+        # f32: the flash kernel against dense attention, summation order.
+        torch.testing.assert_close(got, want[:, 0], rtol=1e-4, atol=1e-4)
+        assert front.sync("cuda-pub-rep", "pub.health")["model_version"] == 7
+    finally:
+        for obj in (store, router, rep):
+            if obj is not None:
+                obj.close()
+        front.close()
+        rep_rpc.close()

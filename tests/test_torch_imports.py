@@ -66,7 +66,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "examples.common.record", "examples.vtrace",
                 "examples.vtrace.experiment", "models.a2c",
                 "utils.profiling", "parallel.moe", "models.nethack",
-                "examples.a2c", "examples.remote_actors"):
+                "examples.a2c", "examples.remote_actors", "statestore",
+                "statestore.bundle", "statestore.store", "testing",
+                "testing.chaos", "testing.scenarios", "fleet", "fleet.spec",
+                "fleet.rollout", "fleet.controller", "fleet.runner", "tools",
+                "tools.statestore_smoke", "tools.fleet_smoke"):
         assert f"moolib_tpu_torch.{mod}" in got["modules"], mod
     assert got["bad"] == [], got["bad"]
 
@@ -156,6 +160,43 @@ def test_lazy_exports_resolve():
         moolib_tpu_torch.no_such_name
 
 
+_ONE_MODULE = r"""
+import importlib, json, sys
+importlib.import_module(sys.argv[1])
+print(json.dumps(sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "flax", "optax", "ml_dtypes", "moolib_tpu"))))
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "moolib_tpu_torch.statestore", "moolib_tpu_torch.testing",
+    "moolib_tpu_torch.testing.scenarios", "moolib_tpu_torch.fleet",
+    "moolib_tpu_torch.fleet.runner", "moolib_tpu_torch.tools.statestore_smoke",
+    "moolib_tpu_torch.tools.fleet_smoke"])
+def test_durable_state_fault_engine_and_fleet_import_alone_cleanly(module):
+    """Each of this slice's sub-packages and smokes, imported alone in a
+    fresh interpreter, pulls in no JAX, no ml_dtypes and nothing of the
+    reference package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _ONE_MODULE, module], cwd=str(REPO_ROOT),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_lazy_exports_resolve_the_durable_state_names():
+    import moolib_tpu_torch
+    from moolib_tpu_torch.statestore import store
+
+    assert moolib_tpu_torch.StateStore is store.StateStore
+    assert moolib_tpu_torch.Replicator is store.Replicator
+    assert issubclass(moolib_tpu_torch.StateStoreError, RuntimeError)
+    assert {"StateStore", "Replicator", "StateStoreError"} <= set(
+        moolib_tpu_torch.__all__)
+
+
 def test_entry_points_refuse_the_cpu_unasked():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
@@ -176,8 +217,8 @@ def test_entry_points_refuse_the_cpu_unasked():
             bench_e2e_torch.main(duration=1.0)
 
 
-def test_replica_has_no_rpc_binding_yet():
-    # The binding exists now: Replica(rpc, ...) needs an Rpc, and a
-    # stand-in without the Rpc surface is refused before anything runs.
+def test_replica_refuses_a_stand_in_without_the_rpc_surface():
+    # Replica(rpc, ...) needs an Rpc: a stand-in without the Rpc surface
+    # is refused before anything runs.
     with pytest.raises(AttributeError, match="defined"):
         Replica(object(), lambda p, x: x, device="cpu")
