@@ -232,25 +232,54 @@ Phases, in order; any failure exits non-zero before the result line:
    upload onto the card), the
    rejoin, materialize, promote, rollback and adoption seconds, and
    requests/s and failed requests during each rollout.
-14. The kernels line (with the ledgers, the bundles' summaries and the
-    RPC, accumulate, e2e, zoo and statestore phases' readings;
+14. Chaos and parity. (a) The port's chaos soak in a child process,
+    ``python -m moolib_tpu_torch.tools.chaos_soak --smoke --restrack``:
+    all 18 scenarios must pass with no leaked thread, shm segment, Rpc
+    or gauge, the serving and fleet scenarios' replicas on the card
+    (its stderr in build/chaos_soak.log). (b) Three Replicas of phase
+    5's act step (32 envs at T=1, BATCH 4) on the card behind a port
+    Router; after two warm-up waves of 8 requests through the Router
+    (replies checked, not counted), 8 closed-loop clients send 240
+    requests (budget 8 s each)
+    and after 60 completed ones a FaultPlan seeded 101 kills one
+    replica's connections, then closes its peer. Every request must
+    return or fail explicitly within budget + 5 s, none before the kill
+    may fail and 80% after it must be served, the p99 after the kill
+    must stay within 3x the p99 before (the baseline floored at 0.1 s,
+    as scenario_replica_kill floors it), the injected log must be
+    {"conn_kill": 1}, every reply must be within SERVE_TOL of the dense
+    CPU forward and flash_fwd must launch. (c) ParityWatch (3 runs,
+    bitwise) over each kernel at the main paths' shapes (flash_fwd at
+    act, train, the context shape with resets and [8,4,2048,32] bf16;
+    flash_bwd_tile at train; flash_bwd_dq and flash_bwd_dkdv at the
+    context shape) and over phase 6's train step from one seeded state
+    and batch (parameters, RMSprop's state, metrics); then the time of
+    that step and of bench_torch.py's ImpalaNet step (B=256) with and
+    without cuDNN's deterministic algorithms, in turns.
+    [chaos] and [parity] lines.
+15. The kernels line (with the ledgers, the bundles' summaries and the
+    RPC, accumulate, e2e, zoo, statestore and chaos phases' readings;
     launches_by_path includes "rpc act" and "rpc context", the child's
     launches, "acc", both processes' launches in the accumulate phase's
     transformer runs, "e2e transformer", the transformer loop's, the
     zoo's "moe act", "moe context", "moe train", "e2e moe", "nethack",
-    "a2c" and "remote actors", and phase 13's "statestore learners",
-    "statestore serve" and "fleet"), the card line, and the result line.
+    "a2c" and "remote actors", phase 13's "statestore learners",
+    "statestore serve" and "fleet", and phase 14's "chaos replica
+    kill", "parity kernels" and "parity train"), the card line, and the
+    result line.
 
 Lines tagged [telemetry], [stepscope] and [flightrec] carry the
 observability checks and readings, [rpc] lines the RPC phase's, [acc]
 lines the accumulate phase's, [e2e] lines the e2e phase's, [zoo] lines
-the zoo phase's, [statestore] and [fleet] lines phase 13's.
+the zoo phase's, [statestore] and [fleet] lines phase 13's, [chaos] and
+[parity] lines phase 14's.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import json
@@ -5348,6 +5377,464 @@ def phase_statestore(smi) -> dict:
                 seconds=time.perf_counter() - t0, launches=launches)
 
 
+# -- phase 14: chaos and parity ----------------------------------------------
+
+SOAK_TIMEOUT_S = 400.0
+SOAK_LOG = os.path.join("build", "chaos_soak.log")  # the child's stderr
+SOAK_SCENARIOS = 18
+KILL_REPLICAS = 3
+KILL_CLIENTS = 8
+KILL_BUDGET_S = 8.0       # a request's budget, scenario_replica_kill's
+KILL_SLACK_S = 5.0        # and its slack
+KILL_AFTER = 60           # completed requests before the kill
+KILL_REQUESTS = 240
+KILL_SEED = 101           # the replica_kill seed of tests/test_chaos.py
+KILL_DISTINCT = 8         # act requests the clients cycle through
+PARITY_RUNS = 3
+PARITY_STEPS = 20         # timed train steps a turn
+
+
+def clog(msg: str, smi: str) -> None:
+    """A [chaos] line, with the card's name and power limit."""
+    log(f"[chaos] {msg} | card: {smi}")
+
+
+def plog(msg: str, smi: str) -> None:
+    """A [parity] line, with the card's name and power limit."""
+    log(f"[parity] {msg} | card: {smi}")
+
+
+def _chaos_soak(smi) -> dict:
+    """Phase 14 (a): every scenario of the port's chaos soak under the
+    resource tracker, in a child process whose serving and fleet
+    replicas sit on the card (the soak's default device). The child's
+    exit code decides; its stderr goes to SOAK_LOG."""
+    os.makedirs("build", exist_ok=True)
+    cmd = [sys.executable, "-m", "moolib_tpu_torch.tools.chaos_soak",
+           "--smoke", "--restrack",
+           "--incident-dir", os.path.join("build", "incidents")]
+    t0 = time.perf_counter()
+    with open(SOAK_LOG, "w") as err:
+        # A session of its own: a failed phase kills the soak and the env
+        # workers it spawned together.
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=err,
+                                text=True, start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=SOAK_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        clog(f"soak: {line}", smi)
+    try:
+        report = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        report = {}
+    passed = [ln for ln in lines if ln.startswith("ok ")]
+    if (proc.returncode != 0 or not report.get("ok")
+            or report.get("runs") != SOAK_SCENARIOS
+            or len(passed) != SOAK_SCENARIOS
+            or report.get("restrack", {}).get("leaked") != {}):
+        with open(SOAK_LOG) as f:
+            tail = f.read()[-4000:]
+        raise RuntimeError(f"the chaos soak failed (exit {proc.returncode}"
+                           f"): {report or lines[-5:]}; its stderr ends: "
+                           f"{tail}")
+    clog(f"soak: {len(passed)} scenarios passed, restrack "
+         f"{report['restrack']['tracked']} acquisitions, none leaked; "
+         f"{seconds:.1f} s with the child's start", smi)
+    return dict(seconds=seconds, total_seconds=report["total_seconds"],
+                scenario_seconds=report["scenario_seconds"],
+                tracked=report["restrack"]["tracked"])
+
+
+def _kill_requests():
+    """KILL_DISTINCT act requests of ACT_ENVS envs, resets at their
+    phases as in phase 5."""
+    rng = np.random.default_rng(KILL_SEED)
+    phase = rng.integers(0, EPISODE_LENGTH, ACT_ENVS)
+    return [{"obs": rng.integers(0, 256, (ACT_ENVS, 84, 84, 4), np.uint8),
+             "done": (r + phase) % EPISODE_LENGTH == 0}
+            for r in range(KILL_DISTINCT)]
+
+
+def _quantile(vals, q):
+    vals = sorted(vals)
+    return vals[min(int(q * len(vals)), len(vals) - 1)]
+
+
+def _chaos_replica_kill(smi) -> dict:
+    """Phase 14 (b): three Replicas of phase 5's act step on the card
+    behind a Router, KILL_CLIENTS closed-loop clients, one replica's
+    connections killed and its peer closed after KILL_AFTER completed
+    requests (a FaultPlan seeded KILL_SEED), held to the invariants of
+    scenario_replica_kill; every reply, the warm-up's too, against the
+    dense CPU forward."""
+    from moolib_tpu_torch import Replica, Router, Rpc
+    from moolib_tpu_torch.ops._kernels import FLASH_FWD, KERNELS
+    from moolib_tpu_torch.serving import error_kind
+    from moolib_tpu_torch.testing import ChaosNet, FaultPlan
+    from moolib_tpu_torch.testing.scenarios import _await
+
+    reqs = _kill_requests()
+    batch_ms = {"act": [], "context": []}
+    rpcs, reps = [], []
+    router_rpc = router = net = None
+    try:
+        for i in range(KILL_REPLICAS):
+            rpc = Rpc(f"chaos-rep{i}")
+            rpc.listen("127.0.0.1:0")
+            rpcs.append(rpc)
+            model = _serve_net(0)
+            reps.append(Replica(rpc, _service_fns(batch_ms)["act"], model,
+                                service="act", batch_size=BATCH, pad=True,
+                                device="cuda"))
+        dense = _dense_copy(model.state_dict())
+        refs = [_dense_ref(dense, "act", req) for req in reqs]
+        for rep in reps:  # a replica's first batch is cold
+            rep.submit(reqs[0]).result(timeout=120)
+        names = [rpc.get_name() for rpc in rpcs]
+        router_rpc = Rpc("chaos-router")
+        for rpc in rpcs:
+            router_rpc.connect(rpc.debug_info()["listen"][0])
+        router = Router(router_rpc, names, service="act",
+                        attempt_timeout_s=1.0, probe_interval_s=0.1,
+                        probe_misses=3, seed=KILL_SEED)
+        _await(lambda: len(router.routable()) == KILL_REPLICAS, 30.0,
+               "chaos replica kill: the replicas never became routable")
+        # Warm the routed path (connections, lanes) with two waves of
+        # KILL_CLIENTS requests, so the p99 before the kill is the
+        # steady one the bound is taken from.
+        with concurrent.futures.ThreadPoolExecutor(KILL_CLIENTS) as pool:
+            for _ in range(2):
+                warm = list(pool.map(
+                    lambda i: router.infer(reqs[i], budget_s=KILL_BUDGET_S),
+                    [k % KILL_DISTINCT for k in range(KILL_CLIENTS)]))
+        plan = FaultPlan(KILL_SEED)
+        net = ChaosNet(plan, [router_rpc] + rpcs)
+
+        lock = threading.Lock()
+        # (ok, request index, latency s, after the kill, reply or error)
+        outcomes = []
+        killed = threading.Event()
+        marks = {}
+
+        def worker(k):
+            for j in range(KILL_REQUESTS // KILL_CLIENTS):
+                i = (k + KILL_CLIENTS * j) % KILL_DISTINCT
+                t0 = time.monotonic()
+                try:
+                    got = router.infer(reqs[i], budget_s=KILL_BUDGET_S)
+                    ok = True
+                except Exception as e:  # recorded; checked after the run
+                    got, ok = f"{error_kind(e)}: {e}", False
+                lat = time.monotonic() - t0
+                with lock:
+                    outcomes.append((ok, i, lat, killed.is_set(), got))
+                    fire = (len(outcomes) >= KILL_AFTER
+                            and not killed.is_set())
+                    if fire:
+                        killed.set()
+                        marks["kill"] = time.monotonic()
+                if fire:
+                    net.kill_conns(rpcs[0])
+                    rpcs[0].close()
+
+        for kern in KERNELS:
+            kern.launches = 0
+        marks["start"] = time.monotonic()
+        threads = [threading.Thread(target=worker, args=(k,), daemon=True)
+                   for k in range(KILL_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=KILL_REQUESTS * (KILL_BUDGET_S + KILL_SLACK_S))
+            if t.is_alive():
+                raise RuntimeError("chaos replica kill: a client hung: a "
+                                   "request neither returned nor failed")
+        marks["end"] = time.monotonic()
+        launches = {kern.name: kern.launches for kern in KERNELS}
+        _await(lambda: names[0] not in router.routable(), 15.0,
+               "chaos replica kill: the killed replica stayed in rotation")
+        drained_s = time.monotonic() - marks["kill"]
+        reg = router_rpc.telemetry.registry
+        retried = reg.value("serving_retried_total", service="act") or 0
+        out_of_rotation = [n for n in names if n not in router.routable()]
+        plan.verify_telemetry()
+        summary = plan.summary()
+    finally:
+        if net is not None:
+            net.detach_all()
+        if router is not None:
+            router.close()
+        if router_rpc is not None:
+            router_rpc.close()
+        for rep, rpc in zip(reps, rpcs):
+            rep.close()
+            rpc.close()
+
+    pre = [o for o in outcomes if not o[3]]
+    post = [o for o in outcomes if o[3]]
+    failed = [o for o in outcomes if not o[0]]
+    slow = [o for o in outcomes if o[2] >= KILL_BUDGET_S + KILL_SLACK_S]
+    errs = [_reply_err("act", o[4], refs[o[1]]) for o in outcomes if o[0]]
+    errs += [_reply_err("act", out, refs[k % KILL_DISTINCT])
+             for k, out in enumerate(warm)]
+    pre_lat = [o[2] for o in pre]
+    post_lat = [o[2] for o in post if o[0]]
+    p99_pre, p99_post = _quantile(pre_lat, 0.99), _quantile(post_lat, 0.99)
+    bound = 3.0 * max(p99_pre, 0.1)  # scenario_replica_kill's floor
+    rate_pre = len(pre) / (marks["kill"] - marks["start"])
+    rate_post = len(post) / (marks["end"] - marks["kill"])
+    clog(f"replica kill: {KILL_REPLICAS} act replicas ({ACT_ENVS} envs, "
+         f"BATCH {BATCH}), {KILL_CLIENTS} clients, {len(outcomes)} requests "
+         f"| before the kill {len(pre)} at {rate_pre:.1f} requests/s, p50 "
+         f"{1e3 * _quantile(pre_lat, 0.5):.2f} ms, p99 {1e3 * p99_pre:.2f} "
+         f"ms | after {len(post)} at {rate_post:.1f} requests/s, p50 "
+         f"{1e3 * _quantile(post_lat, 0.5):.2f} ms, p99 "
+         f"{1e3 * p99_post:.2f} ms (bound {1e3 * bound:.2f}) | failed "
+         f"{len(failed)} | router retried {retried:g}, out of rotation "
+         f"{out_of_rotation} {drained_s:.2f} s after the kill | injected "
+         f"{summary} | max|reply-dense on CPU| {max(errs):.3e} (tol "
+         f"{SERVE_TOL}) | launches {launches}", smi)
+    problems = []
+    if len(outcomes) != KILL_REQUESTS:
+        problems.append(f"{KILL_REQUESTS - len(outcomes)} requests vanished")
+    if slow:
+        problems.append(f"{len(slow)} outcomes past budget + slack")
+    if not all(o[0] for o in pre):
+        problems.append(f"failures before the kill: {failed[:3]}")
+    if sum(o[0] for o in post) < 0.8 * len(post):
+        problems.append(f"only {len(post_lat)}/{len(post)} served after "
+                        f"the kill: {[o[4] for o in failed][:3]}")
+    if p99_post > bound:
+        problems.append(f"p99 after the kill {p99_post:.4f} s > {bound:.4f}")
+    if summary != {"conn_kill": 1}:
+        problems.append(f"injected {summary}")
+    if max(errs) > SERVE_TOL:
+        problems.append(f"replies {max(errs):.3e} from the CPU forward")
+    if not launches[FLASH_FWD.name]:
+        problems.append(f"{FLASH_FWD.name} never launched")
+    if problems:
+        raise RuntimeError(f"chaos replica kill: {problems}")
+    return dict(requests=len(outcomes), failed=len(failed),
+                before=dict(requests=len(pre), requests_s=rate_pre,
+                            p50_ms=1e3 * _quantile(pre_lat, 0.5),
+                            p99_ms=1e3 * p99_pre),
+                after=dict(requests=len(post), requests_s=rate_post,
+                           p50_ms=1e3 * _quantile(post_lat, 0.5),
+                           p99_ms=1e3 * p99_post),
+                p99_ratio=p99_post / p99_pre, retried=retried,
+                out_of_rotation=out_of_rotation, drained_s=drained_s,
+                injected=summary, max_err=max(errs), launches=launches)
+
+
+def _parity_kernels(smi) -> dict:
+    """Phase 14 (c): each kernel's wrapper PARITY_RUNS times on one
+    seeded input at the shapes the main paths give it, under ParityWatch
+    (bitwise)."""
+    from moolib_tpu_torch.ops import _kernels
+    from moolib_tpu_torch.ops.attention import _flash_delta
+    from moolib_tpu_torch.testing import ParityWatch
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    items = []
+    for kern in _kernels.KERNELS:
+        kern.launches = 0
+    for where, shape, dtype, kernels in (
+            ("act", ACT_SHAPE, torch.float32, ("flash_fwd",)),
+            ("train", TRAIN_SHAPE, torch.float32,
+             ("flash_fwd", "flash_bwd_tile")),
+            ("context, resets", CONTEXT_SHAPE, torch.float32,
+             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")),
+            ("B*H=32 T=2048 bf16, resets", (8, 4, 2048, 32), torch.bfloat16,
+             ("flash_fwd",))):
+        B, _, T, _ = shape
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        seg = episode_segments(gen, B, T)
+        o, lse = _kernels.flash_fwd(q, k, v, seg, seg, True)
+        delta = _flash_delta(o, do)
+        calls = {
+            "flash_fwd": lambda: _kernels.flash_fwd(q, k, v, seg, seg, True),
+            "flash_bwd_tile": lambda: _kernels.flash_bwd_tile(
+                q, k, v, seg, seg, o, lse, do, True),
+            "flash_bwd_dq": lambda: _kernels.flash_bwd_dq(
+                q, k, v, seg, seg, lse, delta, do, True),
+            "flash_bwd_dkdv": lambda: _kernels.flash_bwd_dkdv(
+                q, k, v, seg, seg, lse, delta, do, True),
+        }
+        for kname in kernels:
+            ParityWatch(runs=PARITY_RUNS, enabled=True,
+                        label=f"{kname} {where}").check(calls[kname])
+            items.append(f"{kname} {list(shape)} {str(dtype)[6:]} ({where})")
+    launches = {kern.name: kern.launches for kern in _kernels.KERNELS}
+    plog(f"kernels bitwise over {PARITY_RUNS} runs: {'; '.join(items)}",
+         smi)
+    return dict(items=items, launches=launches)
+
+
+@contextlib.contextmanager
+def _tf32_off_only():
+    """The convolution switch as it stood before the repair: TF32 held
+    off, cuDNN free to pick any algorithm."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def _unrepaired():
+    """The train steps without the determinism repair: the convolution
+    switch of the learner and of the models swapped for _tf32_off_only."""
+    from moolib_tpu_torch import learner
+    from moolib_tpu_torch.models import impala, transformer
+
+    mods = (learner, impala, transformer)
+    saved = [m.f32_convolutions for m in mods]
+    for m in mods:
+        m.f32_convolutions = _tf32_off_only
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.f32_convolutions = fn
+
+
+def _step_ms(step, state, batch, steps: int) -> float:
+    """Mean ms of ``steps`` chained train steps (CUDA events) after 3
+    warm-up steps."""
+    for _ in range(3):
+        state, _ = step(state, batch)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def _repair_turns(make_state, step, batch, steps: int) -> dict:
+    """The step's ms with and without the determinism repair, in turns
+    (with, without, without, with), each turn from a fresh state."""
+    times = {"repaired": [], "unrepaired": []}
+    for turn in ("repaired", "unrepaired", "unrepaired", "repaired"):
+        with (_unrepaired() if turn == "unrepaired"
+              else contextlib.nullcontext()):
+            times[turn].append(_step_ms(step, make_state(), batch, steps))
+    return times
+
+
+def _parity_train(smi) -> dict:
+    """Phase 14 (c): phase 6's full-width TransformerNet IMPALA/V-trace
+    train step (learn batch [21, 32], bf16 compute, ClippedRMSprop) from
+    one seeded state and batch, PARITY_RUNS times under ParityWatch: the
+    parameters, RMSprop's state and the metrics bit for bit. Then the
+    step's time with and without the determinism repair of cuDNN's
+    convolutions, in turns, and whether the unrepaired step diverges."""
+    from moolib_tpu_torch import (ClippedRMSprop, ImpalaConfig,
+                                  TransformerNet, make_impala_train_step,
+                                  make_train_state)
+    from moolib_tpu_torch.learner import train_state_to_host
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.testing import ParityViolation, ParityWatch
+    from moolib_tpu_torch.testing.paritywatch import flatten_with_paths
+
+    import bench_torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    net0 = TransformerNet(6, (84, 84, 4), compute_dtype=torch.bfloat16,
+                          attention_backend="auto", device="cuda",
+                          generator=gen)
+    batch = _learn_batches(gen, 1)[0]
+    step = make_impala_train_step(config=ImpalaConfig(
+        discounting=0.99, baseline_cost=0.5, entropy_cost=0.0006,
+        reward_clip=1.0))
+
+    def fresh():
+        net = copy.deepcopy(net0)
+        return make_train_state(net, ClippedRMSprop(
+            net.parameters(), 6e-4, decay=0.99, eps=0.01, max_norm=40.0))
+
+    def update():
+        state, m = step(fresh(), batch)
+        return {"state": train_state_to_host(state),
+                "metrics": {k: m[k] for k in METRICS}}
+
+    for kern in KERNELS:
+        kern.launches = 0
+    out = ParityWatch(runs=PARITY_RUNS, enabled=True,
+                      label="transformer train step").check(update)
+    launches = {kern.name: kern.launches for kern in KERNELS}
+    leaves = len(flatten_with_paths(out))
+    times = _repair_turns(fresh, step, batch, PARITY_STEPS)
+    # The repair's cost where the convolutions weigh most: bench_torch's
+    # bf16 ImpalaNet step at B=BENCH_B.
+    istep, istate, ibatch = bench_torch.build("cuda", BENCH_B)
+    impala_times = _repair_turns(lambda: istate, istep, ibatch,
+                                 PARITY_STEPS // 2)
+    del istate, ibatch
+    with _unrepaired():
+        try:
+            ParityWatch(runs=PARITY_RUNS, enabled=True,
+                        label="unrepaired train step").check(update)
+            control = "bitwise in this run"
+        except ParityViolation as e:
+            pairs = zip(flatten_with_paths(update()),
+                        flatten_with_paths(update()))
+            differ = [p for (p, a), (_, b) in pairs
+                      if torch.is_tensor(a) and not torch.equal(a, b)]
+            control = f"{e}; the leaves two more runs differ in: {differ}"
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    impala_ms = {k: float(np.mean(v)) for k, v in impala_times.items()}
+    plog(f"train step {list(batch['obs'].shape)} u8, bf16 compute, "
+         f"ClippedRMSprop: bitwise over {PARITY_RUNS} runs ({leaves} "
+         f"leaves: parameters, RMSprop's state, metrics) | step "
+         f"ms (CUDA events, {PARITY_STEPS} steps a turn) with cuDNN's "
+         f"deterministic algorithms {times['repaired']}, without "
+         f"{times['unrepaired']}: {ms['repaired'] / ms['unrepaired']:.3f}x "
+         f"| without, the step: {control} | launches {launches}", smi)
+    plog(f"bench_torch.py's bf16 ImpalaNet step at B={BENCH_B} (ms, CUDA "
+         f"events, {PARITY_STEPS // 2} steps a turn; state carried over): "
+         f"with cuDNN's deterministic algorithms "
+         f"{impala_times['repaired']}, without "
+         f"{impala_times['unrepaired']}: "
+         f"{impala_ms['repaired'] / impala_ms['unrepaired']:.3f}x", smi)
+    return dict(runs=PARITY_RUNS, leaves=leaves, step_ms=ms,
+                step_ms_turns=times, impala_step_ms=impala_ms,
+                impala_step_ms_turns=impala_times, unrepaired=control,
+                launches=launches)
+
+
+def phase_chaos(smi) -> dict:
+    """Phase 14: chaos and parity (see the module docstring)."""
+    t0 = time.perf_counter()
+    soak = _chaos_soak(smi)
+    kill = _chaos_replica_kill(smi)
+    kernels = _parity_kernels(smi)
+    train = _parity_train(smi)
+    launches = {"chaos replica kill": kill.pop("launches"),
+                "parity kernels": kernels.pop("launches"),
+                "parity train": train.pop("launches")}
+    never = [k for k, n in launches["parity kernels"].items() if not n]
+    if never or not (launches["parity train"]["flash_fwd"]
+                     and launches["parity train"]["flash_bwd_tile"]):
+        raise RuntimeError(f"parity: launches {launches}")
+    seconds = time.perf_counter() - t0
+    clog(f"phase took {seconds:.1f} s", smi)
+    return dict(soak=soak, replica_kill=kill,
+                parity=dict(kernels=kernels, train=train), seconds=seconds,
+                launches=launches)
+
+
 BUNDLE_DIR = os.path.join("build", "flightrec")
 # The environment prefixes the port's bundles record (the reference's
 # MOOLIB, and the card's in place of JAX and XLA).
@@ -5422,6 +5909,7 @@ def main() -> int:
     e2e = phase_e2e(impala["bench"]["line"]["value"])
     zoo = phase_zoo(smi)
     durable = phase_statestore(smi)
+    chaos = phase_chaos(smi)
 
     launches_by_path = {
         path: counts for path, counts in
@@ -5430,7 +5918,7 @@ def main() -> int:
          ("context backward", context_backward),
          ("impala", impala_launches), *acc["launches"].items(),
          *e2e["launches"].items(), *zoo["launches"].items(),
-         *durable["launches"].items()]
+         *durable["launches"].items(), *chaos["launches"].items()]
     }
     never = [kname for kname in train["launches"]
              if not any(c[kname] for c in launches_by_path.values())]
@@ -5505,7 +5993,9 @@ def main() -> int:
                       "e2e": {k: e2e[k] for k in e2e if k != "launches"},
                       "zoo": {k: zoo[k] for k in zoo if k != "launches"},
                       "statestore": {k: durable[k] for k in durable
-                                     if k != "launches"}}),
+                                     if k != "launches"},
+                      "chaos": {k: chaos[k] for k in chaos
+                                if k != "launches"}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

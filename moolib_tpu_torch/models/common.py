@@ -1,11 +1,16 @@
 """What the port's models share: flax's "SAME" padding arithmetic and the
-switch that keeps cuDNN's convolutions in full f32.
+switch that keeps cuDNN's convolutions in full f32 and deterministic.
 
 On the card, f32 means full f32: cuDNN runs f32 convolutions in TF32
-unless told otherwise. A model turns TF32 off around its convolutions;
-their backward runs later, when autograd reaches it, and reads the switch
-then, so a caller that differentiates a model runs the forward and the
-backward inside :func:`f32_convolutions` (the learner's steps do).
+unless told otherwise. And cuDNN may pick an algorithm whose sums land in
+a different order on every call: the conv torso's weight and bias
+gradients then differ in their last bits between two runs of one seeded
+train step (up to 17 ULP on an H100), and every parameter the optimizer
+moves with them. A model turns TF32 off and deterministic algorithms on
+around its convolutions; their backward runs later, when autograd
+reaches it, and reads the switches then, so a caller that differentiates
+a model runs the forward and the backward inside
+:func:`f32_convolutions` (the learner's steps do).
 """
 
 from __future__ import annotations
@@ -33,13 +38,14 @@ _TF32_LOCK = threading.RLock()
 
 @contextlib.contextmanager
 def f32_convolutions():
-    """cuDNN's TF32 switch is process-wide: hold it off for the block and
-    put it back after, one thread at a time (the owning thread may
-    enter again)."""
+    """cuDNN's TF32 and determinism switches are process-wide: hold TF32
+    off and deterministic algorithms on for the block and put both back
+    after, one thread at a time (the owning thread may enter again)."""
+    cudnn = torch.backends.cudnn
     with _TF32_LOCK:
-        prev = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
+        prev = cudnn.allow_tf32, cudnn.deterministic
+        cudnn.allow_tf32, cudnn.deterministic = False, True
         try:
             yield
         finally:
-            torch.backends.cudnn.allow_tf32 = prev
+            cudnn.allow_tf32, cudnn.deterministic = prev

@@ -1,29 +1,40 @@
 """Testing utilities: deterministic fault injection for the RPC stack,
-the env-worker tier and the disk, and the seeded scenarios that drive
-it; the counterpart of :mod:`moolib_tpu.testing`.
+the env-worker tier and the disk, the seeded scenarios that drive it,
+and the dynamic tracers ``restrack`` (resource lifecycles) and
+``paritywatch`` (bitwise replay); the counterpart of
+:mod:`moolib_tpu.testing`.
 
 Kept outside the production packages so importing
 :mod:`moolib_tpu_torch.rpc` never pays for (or accidentally enables)
-chaos machinery; see :mod:`moolib_tpu_torch.testing.chaos`. The
-reference's dynamic tracers (``hotwatch``, ``locktrace``, ``paritywatch``
-and ``restrack``) are not ported yet: ROADMAP.md queue A, item 12.
+chaos machinery; see :mod:`moolib_tpu_torch.testing.chaos`. Every name
+is imported lazily, as the package root's are: an env worker unpickling
+:class:`~moolib_tpu_torch.testing.chaos_env.ChaosStepEnv` imports this
+package and must not pull in torch or the RPC stack. The reference's
+``hotwatch`` and ``locktrace`` are not ported yet: ROADMAP.md queue A,
+item 12.
 """
 
-from .chaos import (ChaosNet, Event, FaultPlan, ProcChaos, ProcFaultPlan,
-                    ResourceChaos, ResourceFaultPlan)
+import importlib
 
-__all__ = ["ChaosNet", "Event", "FaultPlan", "ProcChaos", "ProcFaultPlan",
-           "ResourceChaos", "ResourceFaultPlan", "SCENARIOS"]
+# Exported name -> the module that defines it.
+_EXPORTS = {
+    **dict.fromkeys(("ChaosNet", "Event", "FaultPlan", "ProcChaos",
+                     "ProcFaultPlan", "ResourceChaos", "ResourceFaultPlan"),
+                    "chaos"),
+    **dict.fromkeys(("ParityViolation", "ParityWatch", "parity_enabled"),
+                    "paritywatch"),
+    **dict.fromkeys(("ResourceLeak", "ResourceTracker"), "restrack"),
+    "ChaosStepEnv": "chaos_env",
+    "SCENARIOS": "scenarios",
+}
+
+__all__ = sorted(_EXPORTS)
 
 
 def __getattr__(name):
-    # Scenarios pull in the Accumulator and the fleet lazily — importing
-    # the chaos engine alone must not drag the parallel package (and
-    # torch) in.
-    if name == "SCENARIOS":
-        from .scenarios import SCENARIOS
-
-        return SCENARIOS
-    raise AttributeError(
-        f"module 'moolib_tpu_torch.testing' has no attribute {name!r}"
-    )
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module 'moolib_tpu_torch.testing' has no attribute {name!r}"
+        )
+    return getattr(importlib.import_module(f"{__name__}.{mod}"), name)

@@ -259,9 +259,11 @@ def test_bitflip_corruption_target_equals_the_reference():
 
 
 def test_scenarios_registry_holds_the_ported_six():
+    """The port's registry holds every scenario of the reference's, in
+    its order (the soak runs them sorted; the order is the reference's
+    grouping by tier)."""
+    from moolib_tpu.testing.scenarios import SCENARIOS as REF
     from moolib_tpu_torch.testing import SCENARIOS
 
-    assert sorted(SCENARIOS) == sorted([
-        "statestore_host_loss", "statestore_disk_full",
-        "statestore_bitflip", "fleet_controller_kill", "fleet_bad_canary",
-        "fleet_role_crashloop"])
+    assert list(SCENARIOS) == list(REF)
+    assert len(SCENARIOS) == 18

@@ -266,6 +266,46 @@ def test_flash_backward_is_repeatable(card, dtype, T):
         assert torch.equal(a, b)
 
 
+# The main paths' shapes [B, H, T, D]: the act step (32 envs x BATCH 4 at
+# T=1) and the learn batch (32 envs, T+1 = 21).
+PARITY_SHAPES = {"act": (128, 4, 1, 32), "train": (32, 4, 21, 32)}
+
+
+def _kernel_call(name, shape, device):
+    """A seeded call of kernel ``name``'s wrapper at ``shape`` (resets
+    every 200 steps, causal), returning its outputs."""
+    B, H, T, D = shape
+    gen = torch.Generator(device=device).manual_seed(T)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=device)
+                   for _ in range(4))
+    seg, _ = _segments("resets", gen, B, T, T, True, device)
+    o, lse = _kernels.flash_fwd(q, k, v, seg, seg, True)
+    if name == "flash_fwd":
+        return lambda: _kernels.flash_fwd(q, k, v, seg, seg, True)
+    if name == "flash_bwd_tile":
+        return lambda: _kernels.flash_bwd_tile(q, k, v, seg, seg, o, lse, do,
+                                               True)
+    delta = tattn._flash_delta(o, do)
+    fn = getattr(_kernels, name)
+    return lambda: fn(q, k, v, seg, seg, lse, delta, do, True)
+
+
+@pytest.mark.parametrize("shape", sorted(PARITY_SHAPES))
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_tile",
+                                  "flash_bwd_dq", "flash_bwd_dkdv"])
+def test_kernel_replays_bitwise_under_paritywatch(card, name, shape):
+    """Each kernel's wrapper, three calls on one seeded input at a main
+    path's shape, under ParityWatch: the same bits every time, and each
+    call one launch."""
+    from moolib_tpu_torch.testing import ParityWatch
+
+    call = _kernel_call(name, PARITY_SHAPES[shape], card)
+    kern = getattr(_kernels, name.upper())
+    before = kern.launches
+    ParityWatch(runs=3, enabled=True, label=f"{name} {shape}").check(call)
+    assert kern.launches - before == 3
+
+
 def test_flash_backward_wrappers_refuse_misaligned_rows(card):
     """Rows come by 16-byte bulk copies (float4 loads in the fused
     kernel): an input that starts off a 16-byte boundary is refused
@@ -319,6 +359,42 @@ def test_conv_torso_backward_is_f32_not_tf32(card):
         scale = float(want[name].abs().max())
         torch.testing.assert_close(got[name].cpu(), want[name],
                                    atol=1e-5 * scale, rtol=0)
+
+
+def test_train_step_replays_bitwise_on_the_card(card):
+    """A seeded IMPALA train step of the pixel TransformerNet, three runs
+    from one state under ParityWatch: parameters, RMSprop's state and the
+    metrics bit for bit. cuDNN's weight-gradient algorithm of the conv
+    torso summed in another order on every call until the learner held
+    its deterministic algorithms on."""
+    import copy
+
+    from moolib_tpu_torch import ClippedRMSprop, make_impala_train_step
+    from moolib_tpu_torch.learner import make_train_state, train_state_to_host
+    from moolib_tpu_torch.testing import ParityWatch
+
+    gen = torch.Generator(device=card).manual_seed(2)
+    T, B, A = 6, 16, 6
+    net0 = TransformerNet(A, (84, 84, 4), device=card, generator=gen)
+    batch = {
+        "obs": torch.randint(0, 256, (T + 1, B, 84, 84, 4), generator=gen,
+                             device=card, dtype=torch.uint8),
+        "done": torch.zeros((T + 1, B), dtype=torch.bool, device=card),
+        "rewards": torch.randn((T + 1, B), generator=gen, device=card),
+        "actions": torch.randint(0, A, (T, B), generator=gen, device=card),
+        "behavior_logits": torch.randn((T, B, A), generator=gen,
+                                       device=card),
+        "core_state": (),
+    }
+    step = make_impala_train_step()
+
+    def update():
+        net = copy.deepcopy(net0)
+        opt = ClippedRMSprop(net.parameters(), 6e-4, max_norm=40.0)
+        state, metrics = step(make_train_state(net, opt), batch)
+        return {"state": train_state_to_host(state), "metrics": metrics}
+
+    ParityWatch(runs=3, enabled=True, label="train step").check(update)
 
 
 def _tie_margin(net, obs) -> float:

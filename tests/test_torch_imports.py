@@ -70,7 +70,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "statestore.bundle", "statestore.store", "testing",
                 "testing.chaos", "testing.scenarios", "fleet", "fleet.spec",
                 "fleet.rollout", "fleet.controller", "fleet.runner", "tools",
-                "tools.statestore_smoke", "tools.fleet_smoke"):
+                "tools.statestore_smoke", "tools.fleet_smoke",
+                "testing.chaos_env", "testing.restrack",
+                "testing.paritywatch", "tools.chaos_soak",
+                "tools.serving_load"):
         assert f"moolib_tpu_torch.{mod}" in got["modules"], mod
     assert got["bad"] == [], got["bad"]
 
@@ -173,7 +176,11 @@ print(json.dumps(sorted(
     "moolib_tpu_torch.statestore", "moolib_tpu_torch.testing",
     "moolib_tpu_torch.testing.scenarios", "moolib_tpu_torch.fleet",
     "moolib_tpu_torch.fleet.runner", "moolib_tpu_torch.tools.statestore_smoke",
-    "moolib_tpu_torch.tools.fleet_smoke"])
+    "moolib_tpu_torch.tools.fleet_smoke", "moolib_tpu_torch.testing.restrack",
+    "moolib_tpu_torch.testing.paritywatch",
+    "moolib_tpu_torch.testing.chaos_env",
+    "moolib_tpu_torch.tools.chaos_soak",
+    "moolib_tpu_torch.tools.serving_load"])
 def test_durable_state_fault_engine_and_fleet_import_alone_cleanly(module):
     """Each of this slice's sub-packages and smokes, imported alone in a
     fresh interpreter, pulls in no JAX, no ml_dtypes and nothing of the
@@ -184,6 +191,41 @@ def test_durable_state_fault_engine_and_fleet_import_alone_cleanly(module):
     )
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+_ENV_MODULE = r"""
+import json, sys
+import moolib_tpu_torch.testing.chaos_env
+import moolib_tpu_torch.tools.chaos_soak
+print(json.dumps(sorted(m for m in ("torch", "jax", "moolib_tpu")
+                        if m in sys.modules)))
+"""
+
+
+def test_chaos_step_env_module_imports_no_torch():
+    """The env-tier scenarios' env module, the testing package it sits
+    in, and the soak runner pull in neither torch nor JAX nor the
+    reference package: a spawn worker imports the first two to unpickle
+    its env factory, and the soak's module as its main module."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _ENV_MODULE], cwd=str(REPO_ROOT),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_lazy_testing_exports_resolve():
+    from moolib_tpu_torch import testing
+    from moolib_tpu_torch.testing import chaos, paritywatch, restrack
+
+    assert testing.FaultPlan is chaos.FaultPlan
+    assert testing.ParityWatch is paritywatch.ParityWatch
+    assert testing.ResourceTracker is restrack.ResourceTracker
+    for name in testing.__all__:
+        assert getattr(testing, name) is not None, name
+    with pytest.raises(AttributeError):
+        testing.no_such_name
 
 
 def test_lazy_exports_resolve_the_durable_state_names():

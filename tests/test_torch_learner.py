@@ -305,6 +305,30 @@ def test_train_step_runs_the_conv_backward_without_tf32():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+def test_train_step_runs_the_conv_backward_on_deterministic_algorithms():
+    """cuDNN reads its determinism switch when the convolutions' backward
+    runs (its weight-gradient algorithms may sum in a different order on
+    every call otherwise): the train step holds it on around the forward
+    and the backward, and puts the caller's setting back."""
+    batch = _tbatch(_batch(3, pixels=True, T=1))
+    net = TransformerNet(A, (84, 84, 4), device="cpu",
+                         generator=torch.Generator().manual_seed(0), **SMALL)
+    seen = []
+    for conv in (net.conv0, net.conv1):
+        conv.weight.register_hook(
+            lambda g: seen.append(torch.backends.cudnn.deterministic))
+    prev = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = False
+        opt = ClippedRMSprop(net.parameters(), 6e-4, max_norm=40.0)
+        tlearner.make_impala_train_step()(
+            tlearner.make_train_state(net, opt), batch)
+        assert seen == [True, True]
+        assert torch.backends.cudnn.deterministic is False
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 def test_unported_options_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlearner.make_impala_train_step(mesh=object())
