@@ -149,7 +149,7 @@ Phases, in order; any failure exits non-zero before the result line:
    without a savedir, its rates and ledger, the device's busy time and
    idle share in the traced window, and the
    host's heaviest CUDA runtime calls and operators there. (c)
-   bench_e2e_torch.py (the bf16 ImpalaNet loop at B=64, 60 s) in a
+   bench_e2e_torch.py (the bf16 ImpalaNet loop at B=64, 30 s) in a
    process of its own: its JSON line, its ledger and its env worker
    deaths (none allowed) from the JSON line it prints on stderr, and its
    rate beside phase 8's bench_torch.py learner-only rate. [e2e] lines.
@@ -174,7 +174,7 @@ Phases, in order; any failure exits non-zero before the result line:
    (each tensor within the larger of 1e-3 and 3x the CPU f32 step's own
    distance), the same bounds failed by a trunk with TF32 convolutions
    and by a bf16 trunk; then
-   train() at config_nethack.yaml's settings for 30 s (4 actor
+   train() at config_nethack.yaml's settings for 20 s (4 actor
    processes, not 8): updates, finite losses, no env worker death, the
    LSTM state carried into the unrolls. (e) examples/a2c.py on CartPole
    at LEARNING_r04.json's settings (80,000 steps): return > 100 in at
@@ -257,7 +257,38 @@ Phases, in order; any failure exits non-zero before the result line:
     that step and of bench_torch.py's ImpalaNet step (B=256) with and
     without cuDNN's deterministic algorithms, in turns.
     [chaos] and [parity] lines.
-15. The kernels line (with the ledgers, the bundles' summaries and the
+15. Multi-device (every comparison at full width). (a) An NCCL world
+    of one in this process, a mesh of five axes of size 1: phase 6's
+    train step (learn batch [21, 32], bf16 compute, ClippedRMSprop)
+    through make_impala_train_step(mesh=...) must equal the plain step
+    from the same seeded state bit for bit (parameters, RMSprop's nu,
+    metrics); ring_attention at sp=1 against the flash forward at the
+    context shape [4, 4, 2048, 32] f32 with resets (1e-4); the psum
+    plane of bench_allreduce_torch.py prints its single-device note.
+    (b) A gloo world of 2 child processes sharing the card (this script
+    with --md-child RANK STORE; a child that dies fails the phase):
+    dp=2, the same step on halves of the batch, its parameter changes
+    within phase 6's gradient tolerance of (a)'s plain step and the two
+    ranks bitwise equal; sp=2, ring_attention and
+    zigzag_sharded_attention at the context shape against the flash
+    forward (o within 1e-4) and backward (dq, dk, dv within 1e-4 of each
+    one's max), and TransformerNet(attention_backend="ring"/"zigzag")
+    forward at the context shape within SERVE_TOL of the flash model;
+    tp=2, the full-width forward at the act shape within SERVE_TOL of
+    tp=1 and one train step within phase 6's gradient tolerance of
+    (a)'s; pp=2, pipeline_apply (with and without remat) and
+    pipeline_train_1f1b at the dry run's stage tanh(x @ w), F=128,
+    against the sequential model (1e-5 of max; remat against stashing
+    1e-6); ep=2, moe_ffn_sharded at 128->512->128, 8 experts, top-2,
+    capacity factor 1.25, on the act's 128 tokens and the context's
+    8192, against moe_ffn on each rank's tokens at its seats and on all
+    of them where nothing drops (1e-5 of max). [md] lines: each leg's
+    ms on each rank (a second call, synchronized, host clock), the bytes
+    it handed to the collectives, peak card memory, and the card's name
+    and power limit; each says that the ranks share one card and gloo's
+    transport goes through the host: no interconnect measurement.
+    flash_fwd and flash_bwd_tile must launch on "md dp".
+16. The kernels line (with the ledgers, the bundles' summaries and the
     RPC, accumulate, e2e, zoo, statestore and chaos phases' readings;
     launches_by_path includes "rpc act" and "rpc context", the child's
     launches, "acc", both processes' launches in the accumulate phase's
@@ -265,14 +296,15 @@ Phases, in order; any failure exits non-zero before the result line:
     zoo's "moe act", "moe context", "moe train", "e2e moe", "nethack",
     "a2c" and "remote actors", phase 13's "statestore learners",
     "statestore serve" and "fleet", and phase 14's "chaos replica
-    kill", "parity kernels" and "parity train"), the card line, and the
-    result line.
+    kill", "parity kernels" and "parity train", and phase 15's "md dp
+    nccl", "md sp nccl", "md dp", "md sp", "md tp", "md pp" and "md
+    ep"), the card line, and the result line.
 
 Lines tagged [telemetry], [stepscope] and [flightrec] carry the
 observability checks and readings, [rpc] lines the RPC phase's, [acc]
 lines the accumulate phase's, [e2e] lines the e2e phase's, [zoo] lines
 the zoo phase's, [statestore] and [fleet] lines phase 13's, [chaos] and
-[parity] lines phase 14's.
+[parity] lines phase 14's, [md] lines phase 15's.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -283,6 +315,7 @@ import concurrent.futures
 import contextlib
 import copy
 import json
+import math
 import os
 import re
 import shutil
@@ -3406,7 +3439,8 @@ def _impala_run(run: "_AccRun") -> dict:
 
 def _bench_allreduce() -> list:
     """bench_allreduce_torch.py (4 peers, the reference's sizes) in a
-    process of its own, with a time limit."""
+    process of its own, with a time limit: its three dcn_rpc_tree rows,
+    then its psum plane's (on one card, the single-device note)."""
     import signal
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3429,7 +3463,12 @@ def _bench_allreduce() -> list:
             if line.startswith("{")]
     for row in rows:
         log(f"[acc] bench_allreduce_torch: {json.dumps(row)}")
-    if len(rows) != 3:
+    tree = [r for r in rows if r.get("plane") == "dcn_rpc_tree"]
+    psum = [r for r in rows if r.get("plane") == "nccl_psum"]
+    cards = torch.cuda.device_count()
+    if (len(tree) != 3 or len(tree) + len(psum) != len(rows)
+            or len(psum) != (1 if cards < 2 else 3)
+            or (cards < 2 and "note" not in psum[0])):
         raise RuntimeError(f"bench_allreduce_torch.py printed {rows}")
     return rows
 
@@ -3480,7 +3519,9 @@ E2E_SECONDS = 45.0   # the transformer loop's run
 E2E_RESUME_SECONDS = 10.0
 E2E_PLAIN_SECONDS = 20.0  # the same loop without a savedir, profiled
 E2E_PROFILE_DIR = os.path.join("build", "e2e_profile")
-E2E_BENCH_SECONDS = 60.0
+# Short: the whole script must stay well inside its 1200 s limit as it
+# grows, and the rate needs no longer window.
+E2E_BENCH_SECONDS = 30.0
 E2E_BENCH_TIMEOUT_S = 300.0
 E2E_SAVEDIR = os.path.join("build", "e2e")
 # A uniform policy's episode return on the synthetic env: 200 steps, one
@@ -3940,7 +3981,7 @@ ZOO_ACT_WAVES = [[0, 1, 2, 3], [4, 5, 6, 0]]   # checked act batches
 ZOO_CONTEXT_WAVES = [[0, 1, 2, 3]]             # the checked context batch
 ZOO_STEADY_WAVES = {"act": 16, "context": 4}   # unchecked, for the rates
 ZOO_E2E_SECONDS = 20.0
-NETHACK_SECONDS = 30.0
+NETHACK_SECONDS = 20.0  # short, as E2E_BENCH_SECONDS
 NETHACK_COND = 3.0  # the card's f32 gradients against the f64 step's
 # config_nethack.yaml asks for 8 actor processes; the card machine has 8
 # cores for them, the learner and the actor loop: 4.
@@ -5835,6 +5876,708 @@ def phase_chaos(smi) -> dict:
                 launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: multi-device
+# ---------------------------------------------------------------------------
+
+MD_CHILD_FLAG = "--md-child"
+MD_DIR = os.path.join("build", "md")
+MD_RANKS = 2
+MD_CHILD_TIMEOUT_S = 420.0
+# (a) runs in this process as a world of one over this backend.
+MD_WORLD1_BACKEND = "nccl"
+# The ring against the flash kernels at the context shape: o absolute,
+# the gradients relative to each one's largest entry (f32 both sides:
+# the folds' and the kernels' summation orders).
+MD_SP_TOL = 1e-4
+# The pipeline leg: the dry run's stage tanh(x @ w) at F=128.
+MD_PP = dict(F=128, mb=64, n_micro=8)
+# Pipelines against the sequential model (f32 matmuls, TF32 off): outputs
+# and gradients relative to their largest entry; remat against stashing.
+MD_PP_TOL, MD_REMAT_TOL = 1e-5, 1e-6
+# The MoE width of the zoo phase's MoE TransformerNet (d_model 128,
+# mlp_ratio 4, 8 experts, top-2, capacity factor 1.25) on the act's 128
+# tokens and the context's 8192. The sharded FFN against moe_ffn on the
+# same tokens and seats: relative to the output's largest entry (the
+# expert matmuls batch [G, E_local, C, D] against [E, C, D]).
+MD_MOE_TOL = 1e-5
+MD_MOE_TOKENS = {"act": BATCH * ACT_ENVS, "context": BATCH * CONTEXT_T}
+
+
+def mdlog(msg: str, smi: str, shared: bool = True) -> None:
+    where = ("2 gloo ranks sharing one card, gloo's transport through the "
+             "host: not an interconnect measurement") if shared else \
+        "an NCCL world of one rank on one card: not an interconnect measurement"
+    log(f"[md] {msg} ({where}; {smi})")
+
+
+def _md_cfg():
+    from moolib_tpu_torch import ImpalaConfig
+
+    return ImpalaConfig(discounting=0.99, baseline_cost=0.5,
+                        entropy_cost=0.0006, reward_clip=1.0)
+
+
+def _md_optimizer(net):
+    from moolib_tpu_torch import ClippedRMSprop
+
+    return ClippedRMSprop(net.parameters(), 6e-4, decay=0.99, eps=0.01,
+                          max_norm=40.0)
+
+
+def _md_train_inputs():
+    """Phase 6's full-width train step, from its seed: the model (bf16
+    compute, the flash kernels) and its first learn batch [21, 32]."""
+    from moolib_tpu_torch import TransformerNet
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    net = TransformerNet(6, (84, 84, 4), compute_dtype=torch.bfloat16,
+                         attention_backend="auto", device="cuda",
+                         generator=gen)
+    return net, _learn_batches(gen, 1)[0]
+
+
+def _md_serve_net(backend: str, mesh=None):
+    """Phase 5's full-width model (seed 0) with ``backend``."""
+    from moolib_tpu_torch import TransformerNet
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return TransformerNet(6, (84, 84, 4), compute_dtype=torch.bfloat16,
+                          attention_backend=backend, mesh=mesh,
+                          device="cuda", generator=gen).eval()
+
+
+def _md_context_qkv():
+    """q, k, v, dO [4, 4, 2048, 32] f32 and episode segment ids (a reset
+    every 200 steps), from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    B, H, T, D = CONTEXT_SHAPE
+    q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device="cuda")
+                   for _ in range(4))
+    return q, k, v, do, episode_segments(gen, B, T)
+
+
+def _md_context_obs():
+    """A context batch [2048, 4, 84, 84, 4] u8 with resets, from a seed."""
+    from moolib_tpu_torch.models import segment_ids_from_done
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    B, T = BATCH, CONTEXT_T
+    obs = torch.randint(0, 256, (T, B, 84, 84, 4), generator=gen,
+                        device="cuda", dtype=torch.uint8)
+    seg = episode_segments(gen, B, T)  # [B, T]
+    done = torch.zeros((T, B), dtype=torch.bool, device="cuda")
+    done[1:] = (seg[:, 1:] != seg[:, :-1]).T
+    return obs, done, segment_ids_from_done(done)
+
+
+def _md_act_obs():
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    return torch.randint(0, 256, (1, BATCH * ACT_ENVS, 84, 84, 4),
+                         generator=gen, device="cuda", dtype=torch.uint8)
+
+
+def _md_pp_inputs():
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    F, mb, n_micro = MD_PP["F"], MD_PP["mb"], MD_PP["n_micro"]
+    stages = [{"w": torch.randn((F, F), generator=gen, device="cuda")
+               * F ** -0.5} for _ in range(MD_RANKS)]
+    x = torch.randn((n_micro, mb, F), generator=gen, device="cuda")
+    return stages, x
+
+
+def _md_stage(p, x):
+    return torch.tanh(x @ p["w"])
+
+
+def _md_moe_inputs():
+    from moolib_tpu_torch.parallel.moe import moe_params
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    params = moe_params(128, 512, 8, device="cuda", generator=gen)
+    xs = {kind: torch.randn((n, 128), generator=gen, device="cuda")
+          for kind, n in MD_MOE_TOKENS.items()}
+    return params, xs
+
+
+def _rel(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _md_world_of_one(smi) -> dict:
+    """(a): the dp step on an NCCL world of one, bitwise against the
+    plain step; the ring at sp=1 against the flash forward; the psum
+    plane's note."""
+    import torch.distributed as dist
+
+    import bench_allreduce_torch
+    from moolib_tpu_torch import make_impala_train_step, make_train_state
+    from moolib_tpu_torch.ops import attention as attn_ops
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.ops.ring_attention import ring_attention
+    from moolib_tpu_torch.parallel.mesh import make_mesh
+
+    os.makedirs(MD_DIR, exist_ok=True)
+    store = os.path.join(MD_DIR, "world1.store")
+    if os.path.exists(store):
+        os.remove(store)
+    cfg = _md_cfg()
+    net, batch = _md_train_inputs()
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    state = make_train_state(net, _md_optimizer(net))
+    state, m_plain = make_impala_train_step(config=cfg)(state, batch)
+    plain = ({n: p.detach().clone() for n, p in net.named_parameters()},
+             {n: state.optimizer.state[p]["nu"].clone()
+              for n, p in net.named_parameters()})
+    dist.init_process_group(MD_WORLD1_BACKEND,
+                            store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1, 1, 1, 1, 1, device="cuda")
+        net2, batch2 = _md_train_inputs()
+        state2 = make_train_state(net2, _md_optimizer(net2))
+        step = make_impala_train_step(config=cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        for kern in KERNELS:
+            kern.launches = 0
+        state2, m_mesh = step(state2, batch2)
+        torch.cuda.synchronize()
+        dp_launches = {kern.name: kern.launches for kern in KERNELS}
+        meshed = ({n: p.detach() for n, p in net2.named_parameters()},
+                  {n: state2.optimizer.state[p]["nu"]
+                   for n, p in net2.named_parameters()})
+        unequal = [n for got, want in zip(meshed, plain) for n in want
+                   if not torch.equal(got[n], want[n])]
+        unequal += [k for k in m_plain if not torch.equal(m_mesh[k],
+                                                          m_plain[k])]
+        dp_ms = _md_warm_ms(lambda: step(state2, batch2))
+        mdlog(f"(a) dp step on the mesh (1,1,1,1,1): {dp_ms:.3f} ms "
+              f"(host clock, synchronized, a second step); against the "
+              f"plain step: "
+              f"{len(unequal)} of {2 * len(plain[0]) + len(m_plain)} "
+              f"tensors differ (bitwise); launches {dp_launches}", smi,
+              shared=False)
+        if unequal:
+            raise RuntimeError(f"the world-of-one dp step is not the plain "
+                               f"step bit for bit: {unequal}")
+        q, k, v, do, seg = _md_context_qkv()
+        for kern in KERNELS:
+            kern.launches = 0
+        o_ring = ring_attention(q, k, v, mesh, "sp", causal=True,
+                                segment_ids=seg)
+        torch.cuda.synchronize()
+        sp_launches = {kern.name: kern.launches for kern in KERNELS}
+        sp_ms = _md_warm_ms(lambda: ring_attention(
+            q, k, v, mesh, "sp", causal=True, segment_ids=seg))
+        o_flash = attn_ops.flash_attention(q, k, v, causal=True,
+                                           segment_ids=seg)
+        sp_err = float((o_ring - o_flash).abs().max())
+        mdlog(f"(a) ring_attention at sp=1, {list(q.shape)} f32 with "
+              f"resets: {sp_ms:.3f} ms; max|ring - flash forward| "
+              f"{sp_err:.3e} (tol {MD_SP_TOL}); launches {sp_launches}",
+              smi, shared=False)
+        if not sp_err <= MD_SP_TOL:
+            raise RuntimeError(f"ring at sp=1 differs from the flash "
+                               f"forward by {sp_err}")
+        note = bench_allreduce_torch.bench_psum("nccl")
+        if not (len(note) == 1 and "note" in note[0]):
+            raise RuntimeError(f"the psum plane on one card: {note}")
+    finally:
+        dist.destroy_process_group()
+    return dict(dp_ms=dp_ms, sp_ms=sp_ms, sp_err=sp_err, psum=note[0],
+                before=before, plain=plain[0],
+                launches={"md dp nccl": dp_launches,
+                          "md sp nccl": sp_launches})
+
+
+# -- (b): the children's legs ---------------------------------------------------
+
+
+def _md_leg_dp(mesh) -> dict:
+    from moolib_tpu_torch import make_impala_train_step, make_train_state
+
+    net, batch = _md_train_inputs()
+    state = make_train_state(net, _md_optimizer(net))
+    step = make_impala_train_step(config=_md_cfg(), mesh=mesh)
+    _md_reset()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    out = dict(**_md_reading(), params={n: p.detach().to("cpu", copy=True)
+                                        for n, p in net.named_parameters()},
+               metrics={k: float(v) for k, v in metrics.items()})
+    out["ms"] = _md_warm_ms(lambda: step(state, batch))
+    return out
+
+
+def _md_warm_ms(fn) -> float:
+    """Host milliseconds of a second call of ``fn``, synchronized (the
+    first is the one compared: it pays for cuDNN's and cuBLAS's set-up)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _md_leg_sp(mesh) -> dict:
+    from moolib_tpu_torch.ops.ring_attention import (ring_attention,
+                                                     zigzag_sharded_attention)
+
+    i = mesh.get_local_rank("sp")
+    q, k, v, do, seg = _md_context_qkv()
+    rows = slice(i * q.shape[2] // MD_RANKS, (i + 1) * q.shape[2] // MD_RANKS)
+    out = {}
+
+    def ring():
+        ql, kl, vl = (x[:, :, rows].contiguous().requires_grad_()
+                      for x in (q, k, v))
+        o = ring_attention(ql, kl, vl, mesh, "sp", causal=True,
+                           segment_ids=seg[:, rows])
+        (o * do[:, :, rows]).sum().backward()
+        return dict(o=o.detach().cpu(), dq=ql.grad.cpu(), dk=kl.grad.cpu(),
+                    dv=vl.grad.cpu())
+
+    def zigzag():
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        o = zigzag_sharded_attention(mesh, qg, kg, vg, segment_ids=seg)
+        (o * do).sum().backward()
+        return dict(o=o.detach().cpu(), dq=qg.grad.cpu(), dk=kg.grad.cpu(),
+                    dv=vg.grad.cpu())
+
+    for name, fn in (("ring", ring), ("zigzag", zigzag)):
+        _md_reset()
+        res = fn()
+        out[name] = dict(**res, **_md_reading(), ms=_md_warm_ms(fn))
+    obs, done, segs = _md_context_obs()
+    T = obs.shape[0]
+    pos = torch.arange(T, device="cuda")
+    for backend in ("ring", "zigzag"):
+        from moolib_tpu_torch.ops.ring_attention import zigzag_order
+
+        order = (torch.as_tensor(zigzag_order(MD_RANKS, T), device="cuda")
+                 if backend == "zigzag" else pos)
+        mine = order[rows]  # this rank's global steps
+        net = _md_serve_net(backend, mesh)
+
+        @torch.no_grad()
+        def forward():
+            return net(obs[mine], done[mine], (), segment_ids=segs[:, mine],
+                       positions=mine)[0]
+
+        _md_reset()
+        logits, baseline = forward()
+        out[f"model {backend}"] = dict(
+            steps=mine.cpu(), logits=logits.cpu(), baseline=baseline.cpu(),
+            **_md_reading(), ms=_md_warm_ms(forward))
+    return out
+
+
+def _md_leg_tp(mesh) -> dict:
+    from moolib_tpu_torch import make_impala_train_step, make_train_state
+    from moolib_tpu_torch.parallel import tp as tp_ops
+    from moolib_tpu_torch.parallel.mesh import local_value
+
+    out = {}
+    net = _md_serve_net("auto")
+    specs = tp_ops.transformer_tp_specs(net)
+    tp_ops.shard_params(mesh, net, specs)
+    obs = _md_act_obs()
+    done = torch.zeros(obs.shape[:2], dtype=torch.bool, device="cuda")
+
+    @torch.no_grad()
+    def forward():
+        return net(obs, done, ())[0]
+
+    _md_reset()
+    logits, baseline = forward()
+    out["forward"] = dict(logits=logits.cpu(), baseline=baseline.cpu(),
+                          **_md_reading(), ms=_md_warm_ms(forward))
+    net, batch = _md_train_inputs()
+    tp_ops.shard_params(mesh, net, specs)
+    opt = _md_optimizer(net)
+    tp_ops.sharded_init_opt_state(opt, net)
+    state = make_train_state(net, opt)
+    step = make_impala_train_step(config=_md_cfg(), mesh=mesh)
+    _md_reset()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    out["train"] = dict(params={n: local_value(p).detach().to(
+                                    "cpu", copy=True)
+                                for n, p in net.named_parameters()},
+                        dims={n: s.dim for n, s in specs.items()
+                              if s.is_shard()},
+                        tp=mesh.get_local_rank("tp"), **_md_reading())
+    out["train"]["ms"] = _md_warm_ms(lambda: step(state, batch))
+    return out
+
+
+def _md_leg_pp(mesh) -> dict:
+    from moolib_tpu_torch.parallel import pipeline
+    from moolib_tpu_torch.parallel.mesh import shard_batch
+
+    stages, x = _md_pp_inputs()
+    d = mesh.get_local_rank("pp")
+    out = {"pp": d}
+    stacked = pipeline.stack_stage_params(stages)
+    local = shard_batch(mesh, pipeline.shard_microbatches(x, MD_RANKS),
+                        axis_name="pp").contiguous()
+    def gpipe(remat):
+        mine = {k: v.clone().requires_grad_() for k, v in
+                pipeline.stage_slice(stacked, mesh).items()}
+        y = pipeline.pipeline_apply(_md_stage, mine, local, mesh,
+                                    remat=remat)
+        torch.sum(y ** 2).backward()
+        return dict(y=y.detach().cpu(), grad=mine["w"].grad.cpu())
+
+    def f1b():
+        loss, grads = pipeline.pipeline_train_1f1b(
+            _md_stage, lambda y: torch.sum(y ** 2),
+            pipeline.stage_slice(stacked, mesh), x, mesh)
+        return dict(loss=float(loss), grad=grads["w"].cpu())
+
+    # Warm every path (cuBLAS's workspace, the process group's pairs)
+    # before the peaks are read.
+    gpipe(False)
+    for name, fn in (("gpipe", lambda: gpipe(False)),
+                     ("remat", lambda: gpipe(True)), ("1f1b", f1b)):
+        _md_reset()
+        res = fn()
+        out[name] = dict(**res, **_md_reading(), ms=_md_warm_ms(fn))
+    return out
+
+
+def _md_leg_ep(mesh) -> dict:
+    from moolib_tpu_torch.parallel.moe import moe_ffn_sharded
+
+    params, xs = _md_moe_inputs()
+    g = mesh.get_local_rank("ep")
+    local = {"router": params["router"],
+             "w_up": params["w_up"].chunk(MD_RANKS)[g],
+             "w_down": params["w_down"].chunk(MD_RANKS)[g]}
+    out = {"ep": g}
+    for kind, x in xs.items():
+        xl = x.chunk(MD_RANKS)[g]
+        for cap_name, cap in (("default", None), ("no drops", xl.shape[0])):
+            @torch.no_grad()
+            def ffn(xl=xl, cap=cap):
+                return moe_ffn_sharded(local, xl, cap, mesh=mesh, top_k=2,
+                                       capacity_factor=1.25)
+
+            _md_reset()
+            y, aux = ffn()
+            out[f"{kind} {cap_name}"] = dict(
+                y=y.cpu(), drop=float(aux["drop_fraction"]),
+                **_md_reading(), ms=_md_warm_ms(ffn))
+    return out
+
+
+def _md_reset() -> None:
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.parallel import collectives
+
+    torch.cuda.synchronize()
+    for kern in KERNELS:
+        kern.launches = 0
+    collectives.TRAFFIC.sent = 0
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _md_reading() -> dict:
+    """Launches, bytes handed to the collectives and peak card memory
+    since :func:`_md_reset`."""
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.parallel import collectives
+
+    return dict(launches={kern.name: kern.launches for kern in KERNELS},
+                bytes=collectives.TRAFFIC.sent,
+                peak=torch.cuda.max_memory_allocated())
+
+
+MD_LEGS = (("dp", dict(dp=2), _md_leg_dp), ("sp", dict(dp=1, sp=2),
+                                              _md_leg_sp),
+           ("tp", dict(dp=1, tp=2), _md_leg_tp),
+           ("pp", dict(dp=1, pp=2), _md_leg_pp),
+           ("ep", dict(dp=1, ep=2), _md_leg_ep))
+
+
+def md_child(rank: str, store: str) -> int:
+    """One rank of phase 15 (b) (``chip_smoke.py --md-child RANK STORE``):
+    a gloo world of MD_RANKS processes sharing the card; runs every leg
+    and saves its results to MD_DIR/rank{RANK}.pt for the parent."""
+    import torch.distributed as dist
+
+    from moolib_tpu_torch.parallel.mesh import make_mesh
+
+    rank = int(rank)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, MD_RANKS),
+                            rank=rank, world_size=MD_RANKS)
+    try:
+        out = {}
+        for name, shape, leg in MD_LEGS:
+            out[name] = leg(make_mesh(**shape, device="cuda"))
+            log(f"md child {rank}: leg {name} done")
+        torch.save(out, os.path.join(MD_DIR, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _md_children(smi) -> list:
+    """Start the MD_RANKS children together; every one must exit 0."""
+    store = os.path.join(MD_DIR, "world2.store")
+    for path in [store] + [os.path.join(MD_DIR, f"rank{r}.pt")
+                           for r in range(MD_RANKS)]:
+        if os.path.exists(path):
+            os.remove(path)
+    logs = [open(os.path.join(MD_DIR, f"child{r}.log"), "w")
+            for r in range(MD_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               MD_CHILD_FLAG, str(r), store],
+                              stdout=f, stderr=subprocess.STDOUT)
+             for r, f in enumerate(logs)]
+    deadline = time.monotonic() + MD_CHILD_TIMEOUT_S
+    try:
+        for r, p in enumerate(procs):
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            if rc != 0:
+                raise RuntimeError(f"md child {r} exited {rc}")
+    except (RuntimeError, subprocess.TimeoutExpired):
+        for f in logs:
+            f.flush()
+        for r in range(MD_RANKS):
+            with open(os.path.join(MD_DIR, f"child{r}.log")) as f:
+                log(f"[md] child {r} log tail:\n{f.read()[-4000:]}")
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    return [torch.load(os.path.join(MD_DIR, f"rank{r}.pt"),
+                       weights_only=False) for r in range(MD_RANKS)]
+
+
+def _delta_errs(got, before, want) -> dict:
+    """Per parameter: the step's change against the reference's, relative
+    to the reference change's largest entry."""
+    return {n: _rel(got[n] - before[n].cpu(), want[n].cpu() - before[n].cpu())
+            for n in want}
+
+
+def _check_deltas(errs: dict, what: str) -> float:
+    bad = {n: e for n, e in errs.items()
+           if not e <= BF16_GRAD_TOL.get(n, TRAIN_GRAD_TOL)}
+    if bad:
+        raise RuntimeError(f"{what}: parameter changes differ: {bad}")
+    return max(e for n, e in errs.items() if n not in BF16_GRAD_TOL)
+
+
+def _md_check(outs, one, smi) -> dict:
+    """Hold the children's results against the card's references."""
+    from moolib_tpu_torch.ops import attention as attn_ops
+    from moolib_tpu_torch.parallel.moe import moe_ffn
+
+    report = {}
+    # dp=2: against (a)'s plain step; the ranks bit for bit.
+    errs = _delta_errs(outs[0]["dp"]["params"], one["before"], one["plain"])
+    worst = _check_deltas(errs, "dp=2 step")
+    same = all(torch.equal(outs[0]["dp"]["params"][n],
+                           outs[1]["dp"]["params"][n])
+               for n in outs[0]["dp"]["params"])
+    if not same:
+        raise RuntimeError("dp=2: the two ranks' parameters differ")
+    report["dp"] = dict(delta_err=worst, pos_emb_err=errs["pos_emb.weight"],
+                        ranks_bitwise=same)
+    mdlog(f"dp=2 train step on halves of [21, 32]: parameter changes vs "
+          f"the plain step max rel {worst:.3e} (tol {TRAIN_GRAD_TOL}), "
+          f"pos_emb {errs['pos_emb.weight']:.3e} (tol "
+          f"{BF16_GRAD_TOL['pos_emb.weight']:.3e}); ranks bitwise equal "
+          f"{same}", smi)
+
+    # sp=2: the ring and zigzag against the flash forward and backward.
+    q, k, v, do, seg = _md_context_qkv()
+    qf, kf, vf = (x.clone().requires_grad_() for x in (q, k, v))
+    o = attn_ops.flash_attention(qf, kf, vf, causal=True, segment_ids=seg)
+    (o * do).sum().backward()
+    ref = dict(o=o.detach().cpu(), dq=qf.grad.cpu(), dk=kf.grad.cpu(),
+               dv=vf.grad.cpu())
+    ring = {key: torch.cat([outs[r]["sp"]["ring"][key]
+                            for r in range(MD_RANKS)], dim=2)
+            for key in ref}
+    sp = {}
+    for name, got in (("ring", ring), ("zigzag", outs[0]["sp"]["zigzag"])):
+        e = dict(o=float((got["o"] - ref["o"]).abs().max()),
+                 **{g: _rel(got[g], ref[g]) for g in ("dq", "dk", "dv")})
+        sp[name] = e
+        mdlog(f"sp=2 {name} at {list(CONTEXT_SHAPE)} f32 with resets vs "
+              f"flash: o {e['o']:.3e}, dq {e['dq']:.3e}, dk {e['dk']:.3e}, "
+              f"dv {e['dv']:.3e} of max (tol {MD_SP_TOL})", smi)
+        if not max(e.values()) <= MD_SP_TOL:
+            raise RuntimeError(f"sp=2 {name}: {e}")
+    obs, done, segs = _md_context_obs()
+    flash = _md_serve_net("auto")
+    with torch.no_grad():
+        (l_ref, b_ref), _ = flash(obs, done, (), segment_ids=segs)
+    for backend in ("ring", "zigzag"):
+        logits = torch.zeros_like(l_ref, device="cpu")
+        baseline = torch.zeros_like(b_ref, device="cpu")
+        for r in range(MD_RANKS):
+            got = outs[r]["sp"][f"model {backend}"]
+            logits[got["steps"]] = got["logits"]
+            baseline[got["steps"]] = got["baseline"]
+        err = max(float((logits - l_ref.cpu()).abs().max()),
+                  float((baseline - b_ref.cpu()).abs().max()))
+        sp[f"model {backend}"] = err
+        mdlog(f"sp=2 TransformerNet({backend!r}) forward at the context "
+              f"shape [{CONTEXT_T}, {BATCH}] vs the flash model: max err "
+              f"{err:.3e} (tol {SERVE_TOL})", smi)
+        if not err <= SERVE_TOL:
+            raise RuntimeError(f"the {backend} model differs: {err}")
+    report["sp"] = sp
+
+    # tp=2: the act forward against tp=1, the train step against (a)'s.
+    with torch.no_grad():
+        obs = _md_act_obs()
+        (l_ref, b_ref), _ = _md_serve_net("auto")(
+            obs, torch.zeros(obs.shape[:2], dtype=torch.bool,
+                             device="cuda"), ())
+    fwd = max(max(float((outs[r]["tp"]["forward"]["logits"]
+                         - l_ref.cpu()).abs().max()),
+                  float((outs[r]["tp"]["forward"]["baseline"]
+                         - b_ref.cpu()).abs().max()))
+              for r in range(MD_RANKS))
+    by_tp = {outs[r]["tp"]["train"]["tp"]: outs[r]["tp"]["train"]
+             for r in range(MD_RANKS)}
+    dims = by_tp[0]["dims"]
+    params = {n: (torch.cat([by_tp[t]["params"][n] for t in range(MD_RANKS)],
+                            dim=dims[n]) if n in dims
+                  else by_tp[0]["params"][n]) for n in by_tp[0]["params"]}
+    errs = _delta_errs(params, one["before"], one["plain"])
+    worst = _check_deltas(errs, "tp=2 step")
+    report["tp"] = dict(forward_err=fwd, delta_err=worst)
+    mdlog(f"tp=2 forward at the act shape {list(obs.shape[:2])} vs tp=1: "
+          f"max err {fwd:.3e} (tol {SERVE_TOL}); train step parameter "
+          f"changes vs tp=1 max rel {worst:.3e} (tol {TRAIN_GRAD_TOL})", smi)
+    if not fwd <= SERVE_TOL:
+        raise RuntimeError(f"tp=2 forward differs: {fwd}")
+
+    # pp=2: against the sequential model.
+    stages, x = _md_pp_inputs()
+    ws = [s["w"].clone().requires_grad_() for s in stages]
+    y = x
+    for w in ws:
+        y = _md_stage({"w": w}, y)
+    loss = torch.sum(y ** 2)
+    loss.backward()
+    n_micro, F = MD_PP["n_micro"], MD_PP["F"]
+    by_pp = {outs[r]["pp"]["pp"]: outs[r]["pp"] for r in range(MD_RANKS)}
+    pp = {}
+    for kind in ("gpipe", "remat"):
+        sharded = torch.cat([by_pp[d][kind]["y"] for d in range(MD_RANKS)],
+                            dim=1)
+        e_y = _rel(sharded.reshape(n_micro, -1, F), y.detach())
+        e_g = max(_rel(by_pp[d][kind]["grad"][0], ws[d].grad)
+                  for d in range(MD_RANKS))
+        pp[kind] = dict(y=e_y, grad=e_g)
+    remat_err = max(_rel(by_pp[d]["remat"]["grad"], by_pp[d]["gpipe"]["grad"])
+                    for d in range(MD_RANKS))
+    loss = float(loss.detach())
+    e_loss = abs(by_pp[0]["1f1b"]["loss"] - loss) / loss
+    e_g = max(_rel(by_pp[d]["1f1b"]["grad"][0], ws[d].grad)
+              for d in range(MD_RANKS))
+    pp["1f1b"] = dict(loss=e_loss, grad=e_g)
+    pp["remat_vs_gpipe"] = remat_err
+    peaks = {kind: [by_pp[d][kind]["peak"] for d in range(MD_RANKS)]
+             for kind in ("gpipe", "remat", "1f1b")}
+    pp["peak_bytes"] = peaks
+    mdlog(f"pp=2 at F={F}, {n_micro} microbatches of {MD_PP['mb']}: gpipe "
+          f"y {pp['gpipe']['y']:.3e} grad {pp['gpipe']['grad']:.3e}, remat "
+          f"y {pp['remat']['y']:.3e} grad {pp['remat']['grad']:.3e}, 1f1b "
+          f"loss {e_loss:.3e} grad {e_g:.3e} of max (tol {MD_PP_TOL}); remat "
+          f"vs stashing {remat_err:.3e} (tol {MD_REMAT_TOL}); peak card "
+          f"bytes per rank {peaks}", smi)
+    if max(pp["gpipe"]["y"], pp["gpipe"]["grad"], pp["remat"]["y"],
+           pp["remat"]["grad"], e_loss, e_g) > MD_PP_TOL \
+            or remat_err > MD_REMAT_TOL:
+        raise RuntimeError(f"pp=2: {pp}")
+    report["pp"] = pp
+
+    # ep=2: against moe_ffn on each rank's tokens at its seats, and on
+    # all the tokens where nothing drops.
+    params, xs = _md_moe_inputs()
+    by_ep = {outs[r]["ep"]["ep"]: outs[r]["ep"] for r in range(MD_RANKS)}
+    ep = {}
+    with torch.no_grad():
+        for kind, x in xs.items():
+            n_local = x.shape[0] // MD_RANKS
+            cap = math.ceil(1.25 * n_local * 2 / 8)
+            groups = [moe_ffn(params, xl, min(cap, n_local), top_k=2)[0]
+                      for xl in x.chunk(MD_RANKS)]
+            got = torch.cat([by_ep[g][f"{kind} default"]["y"]
+                             for g in range(MD_RANKS)])
+            e_default = _rel(got, torch.cat(groups))
+            full, _ = moe_ffn(params, x, x.shape[0], top_k=2)
+            got = torch.cat([by_ep[g][f"{kind} no drops"]["y"]
+                             for g in range(MD_RANKS)])
+            e_full = _rel(got, full)
+            drop = by_ep[0][f"{kind} default"]["drop"]
+            ep[kind] = dict(default=e_default, no_drops=e_full, drop=drop)
+            mdlog(f"ep=2 moe_ffn_sharded at 128->512->128, 8 experts, "
+                  f"top-2 on the {kind}'s {x.shape[0]} tokens: group seats "
+                  f"(cf 1.25, drop fraction {drop:.4f}) vs moe_ffn per "
+                  f"group {e_default:.3e}, no drops vs moe_ffn on all "
+                  f"{e_full:.3e} of max (tol {MD_MOE_TOL})", smi)
+            if max(e_default, e_full) > MD_MOE_TOL:
+                raise RuntimeError(f"ep=2 {kind}: {ep[kind]}")
+    report["ep"] = ep
+    return report
+
+
+def phase_md(smi) -> dict:
+    """Phase 15: multi-device (see the module docstring)."""
+    t0 = time.perf_counter()
+    one = _md_world_of_one(smi)
+    t1 = time.perf_counter()
+    outs = _md_children(smi)
+    t2 = time.perf_counter()
+    report = _md_check(outs, one, smi)
+    launches = dict(one["launches"])
+    timing = {}
+    for name, _, _ in MD_LEGS:
+        parts = {}
+        for r, out in enumerate(outs):
+            leg = out[name]
+            items = [("", leg)] if "ms" in leg else [
+                (k, v) for k, v in leg.items() if isinstance(v, dict)]
+            for sub, rd in items:
+                key = f"{name} {sub}".strip()
+                parts.setdefault(key, []).append(
+                    dict(rank=r, ms=rd["ms"], bytes=rd["bytes"],
+                         peak=rd["peak"]))
+                counts = launches.setdefault(f"md {name}", {})
+                for kname, n in rd["launches"].items():
+                    counts[kname] = counts.get(kname, 0) + n
+        timing.update(parts)
+    for key, rows in timing.items():
+        mdlog(f"{key}: " + "; ".join(
+            f"rank {p['rank']} {p['ms']:.3f} ms, {p['bytes']} bytes to the "
+            f"collectives, peak {p['peak'] / 2**20:.1f} MiB" for p in rows),
+            smi)
+    dp = launches["md dp"]
+    if not (dp["flash_fwd"] and dp["flash_bwd_tile"]):
+        raise RuntimeError(f"md dp: the flash kernels did not launch: {dp}")
+    mdlog(f"launches {launches}; (a) {t1 - t0:.1f} s, children "
+          f"{t2 - t1:.1f} s, checks {time.perf_counter() - t2:.1f} s", smi)
+    return dict(world_of_one={k: one[k] for k in ("dp_ms", "sp_ms",
+                                                   "sp_err", "psum")},
+                checks=report, legs=timing,
+                seconds=time.perf_counter() - t0, launches=launches)
+
+
 BUNDLE_DIR = os.path.join("build", "flightrec")
 # The environment prefixes the port's bundles record (the reference's
 # MOOLIB, and the card's in place of JAX and XLA).
@@ -5910,6 +6653,7 @@ def main() -> int:
     zoo = phase_zoo(smi)
     durable = phase_statestore(smi)
     chaos = phase_chaos(smi)
+    md = phase_md(smi)
 
     launches_by_path = {
         path: counts for path, counts in
@@ -5918,7 +6662,8 @@ def main() -> int:
          ("context backward", context_backward),
          ("impala", impala_launches), *acc["launches"].items(),
          *e2e["launches"].items(), *zoo["launches"].items(),
-         *durable["launches"].items(), *chaos["launches"].items()]
+         *durable["launches"].items(), *chaos["launches"].items(),
+         *md["launches"].items()]
     }
     never = [kname for kname in train["launches"]
              if not any(c[kname] for c in launches_by_path.values())]
@@ -5995,7 +6740,8 @@ def main() -> int:
                       "statestore": {k: durable[k] for k in durable
                                      if k != "launches"},
                       "chaos": {k: chaos[k] for k in chaos
-                                if k != "launches"}}),
+                                if k != "launches"},
+                      "md": {k: md[k] for k in md if k != "launches"}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6009,4 +6755,6 @@ if __name__ == "__main__":
         sys.exit(rpc_child())
     if sys.argv[1:2] == [ACC_CHILD_FLAG]:
         sys.exit(acc_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == [MD_CHILD_FLAG]:
+        sys.exit(md_child(*sys.argv[2:4]))
     sys.exit(main())

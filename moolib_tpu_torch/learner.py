@@ -22,6 +22,18 @@ impala_params_from_flax` give the reference's trees), and
 On the card, the forward and the backward of every step run with cuDNN's
 TF32 off (:func:`~moolib_tpu_torch.models.common.f32_convolutions`): the
 reference computes the convolutions and their gradients in f32.
+
+With a ``mesh`` (:func:`~moolib_tpu_torch.parallel.mesh.make_mesh`, one
+process per device) the steps are data parallel over its ``dp`` axis,
+as the reference's ``shard_map`` steps are: every rank is handed the
+same global batch (or ``DTensor`` leaves from :func:`~moolib_tpu_torch.
+parallel.distributed.host_local_batch_to_global`), runs the loss on its
+own slice along the batch axes (:func:`~moolib_tpu_torch.parallel.mesh.
+shard_batch`), and gets the global-mean gradients back
+(:func:`~moolib_tpu_torch.parallel.mesh.dp_average_grads`), with the
+metrics averaged over ``dp`` as ``jax.lax.pmean`` averages them. The
+parameters start equal on every rank (:func:`replicate_state`) and stay
+so: every rank applies the same reduced gradients.
 """
 
 from __future__ import annotations
@@ -36,6 +48,8 @@ import torch
 from .models.common import f32_convolutions
 from .ops import vtrace
 from .optim import global_norm
+from .parallel import collectives
+from .parallel.mesh import dp_average_grads, pmean_gradients, shard_batch
 from .utils import HostStaged, nest, stage_host_async
 
 __all__ = [
@@ -49,6 +63,7 @@ __all__ = [
     "make_grad_step",
     "make_apply_step",
     "make_act_step",
+    "replicate_state",
 ]
 
 
@@ -224,14 +239,6 @@ def impala_loss(model, apply_fn: Callable, batch: dict,
     return total, {k: v.detach() for k, v in metrics.items()}
 
 
-def _not_ported(mesh, batch_axes) -> None:
-    if mesh is not None or batch_axes is not None:
-        raise NotImplementedError(
-            "mesh/batch_axes are not ported yet (ROADMAP queue A: "
-            "multi-device, torch.distributed data parallel)"
-        )
-
-
 def _scoped(fn: Callable, stepscope, phase: str) -> Callable:
     """Wrap a step so each invocation is attributed to a stepscope phase
     (:mod:`moolib_tpu_torch.telemetry.stepscope`). The phase CM no-ops
@@ -254,11 +261,17 @@ def _scoped(fn: Callable, stepscope, phase: str) -> Callable:
 
 
 def _make_grads(apply_fn: Callable, config: ImpalaConfig,
-                loss_fn: Callable) -> Callable:
+                loss_fn: Callable, mesh=None, axis_name: str = "dp",
+                batch_axes: Optional[dict] = None) -> Callable:
     """(model, batch) -> (grads by parameter name, metrics with
-    ``grad_norm``, the norm before any clipping or scaling)."""
+    ``grad_norm``, the norm before any clipping or scaling). With a
+    ``mesh``: the loss of this rank's slice of ``batch``, then the
+    global-mean gradients and the dp-mean metrics."""
 
     def grads_of(model, batch):
+        if mesh is not None:
+            batch = shard_batch(mesh, batch, batch_axes=batch_axes,
+                                axis_name=axis_name)
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         with f32_convolutions():
@@ -268,6 +281,9 @@ def _make_grads(apply_fn: Callable, config: ImpalaConfig,
         grads = {n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(named, grads)}
         metrics = dict(metrics)
+        if mesh is not None:
+            grads = dp_average_grads(grads, mesh, axis_name)
+            metrics = pmean_gradients(metrics, mesh, axis_name)
         metrics["grad_norm"] = global_norm(grads.values())
         return grads, metrics
 
@@ -300,14 +316,19 @@ def make_impala_train_step(
     loss_fn: Callable = impala_loss,
     batch_axes: Optional[dict] = None,
     stepscope=None,
+    axis_name: str = "dp",
 ) -> Callable[[TrainState, dict], Tuple[TrainState, dict]]:
     """Build the train step ``(state, batch) -> (state, metrics)``:
-    forward, V-trace loss, backward and the optimizer step on one device.
-    Metrics are detached 0-d tensors on the model's device (reading them
-    waits for the step), with ``grad_norm`` taken before clipping. With a
-    ``stepscope`` each call is its ``fwd_bwd`` phase."""
-    _not_ported(mesh, batch_axes)
-    grads_of = _make_grads(apply_fn, config, loss_fn)
+    forward, V-trace loss, backward and the optimizer step. Metrics are
+    detached 0-d tensors on the model's device (reading them waits for
+    the step), with ``grad_norm`` taken before clipping. With a
+    ``mesh`` the step is data parallel over ``axis_name`` (the module's
+    docstring); ``batch_axes`` maps top-level batch keys to the axis
+    carrying the batch dimension (default axis 1, time-major
+    [T, B, ...], except ``core_state``'s [B, ...] leaves on axis 0).
+    With a ``stepscope`` each call is its ``fwd_bwd`` phase."""
+    grads_of = _make_grads(apply_fn, config, loss_fn, mesh, axis_name,
+                           batch_axes)
     apply = make_apply_step()
 
     def step(state: TrainState, batch: dict) -> Tuple[TrainState, dict]:
@@ -325,6 +346,7 @@ def make_grad_step(
     batch_axes: Optional[dict] = None,
     grad_scale: Optional[float] = None,
     stepscope=None,
+    axis_name: str = "dp",
 ) -> Callable[[torch.nn.Module, dict], Tuple[Dict[str, torch.Tensor], dict]]:
     """Build the gradient step ``(model, batch) -> (grads, metrics)``, the
     compute half of the elastic path (the Accumulator reduces the
@@ -334,9 +356,11 @@ def make_grad_step(
     the local batch size, turning batch-mean gradients into the batch-sum
     contribution the Accumulator's count/reduce protocol wants);
     ``grad_norm`` is the norm before scaling, as in the reference. With a
-    ``stepscope`` each call is its ``fwd_bwd`` phase."""
-    _not_ported(mesh, batch_axes)
-    grads_of = _make_grads(apply_fn, config, loss_fn)
+    ``mesh`` the gradients are the dp-mean over ``axis_name`` (the
+    module's docstring), which the Accumulator then reduces across
+    cohorts. With a ``stepscope`` each call is its ``fwd_bwd`` phase."""
+    grads_of = _make_grads(apply_fn, config, loss_fn, mesh, axis_name,
+                           batch_axes)
 
     def step(model, batch):
         grads, metrics = grads_of(model, batch)
@@ -378,3 +402,40 @@ def make_act_step(model: Callable, temperature: float = 1.0,
         return actions, logits, core_state
 
     return _scoped(act, stepscope, "act")
+
+
+def replicate_state(state: TrainState, mesh) -> TrainState:
+    """Make every rank's state the mesh's first rank's: its parameters,
+    buffers, optimizer state and hyperparameters and the step count are
+    broadcast from it (one flat bucket per dtype), in place. The mesh
+    spans the default process group. Returns ``state``."""
+    from torch.distributed.tensor import DTensor
+
+    src = int(mesh.mesh.flatten()[0])
+    model, opt = state.model, state.optimizer
+    tensors = [t.data for t in [*model.parameters(), *model.buffers()]]
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise ValueError("replicate_state broadcasts whole tensors; call it "
+                         "before the parameters are sharded")
+    params = [p for g in opt.param_groups for p in g["params"]]
+    tensors += [v for p in params for _, v in
+                sorted(opt.state.get(p, {}).items())
+                if torch.is_tensor(v)]
+    hyper = [(g, k) for g in opt.param_groups for k in sorted(g)
+             if k != "params" and isinstance(g[k], (int, float))
+             and not isinstance(g[k], bool)]
+    device = tensors[0].device
+    scalars = torch.tensor([float(state.step)] + [float(g[k])
+                                                  for g, k in hyper],
+                           dtype=torch.float64, device=device)
+    by_dtype: dict = {}
+    for t in tensors + [scalars]:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        bucket = collectives.flat_bucket(group)
+        collectives.broadcast_(bucket, src)
+        collectives.unflatten_into(bucket, group)
+    values = scalars.tolist()
+    for (g, k), v in zip(hyper, values[1:]):
+        g[k] = type(g[k])(v)
+    return state._replace(step=int(values[0]))

@@ -41,6 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import collectives
+from ..parallel import tp as tp_ops
 from ..utils.device import resolve_device
 from .common import f32_convolutions, same_pads
 from .core import LSTMCore
@@ -198,12 +200,34 @@ class ImpalaNet(nn.Module):
             for seq in self.sequences:
                 x = seq(x)
         x = F.relu(x).permute(0, 2, 3, 1).reshape(T * B, -1)
+        if tp_ops.is_sharded(self.fc.weight):
+            return self._head_tp(x, T, B, done, core_state)
         x = F.linear(x, self.fc.weight.to(dtype)) + self.fc.bias.to(dtype)
         x = F.relu(x).float().reshape(T, B, -1)
         if self.core is not None:
             x, core_state = self.core(x, done, core_state)
         logits = self.policy(x)
         baseline = self.baseline(x).squeeze(-1)
+        return (logits, baseline), core_state
+
+    def _head_tp(self, x, T, B, done, core_state):
+        """Tensor parallel (``parallel/tp.py``'s ``impala_tp_specs``):
+        the flatten projection column-parallel, so this rank holds its
+        hidden features; the LSTM, when there is one, runs on all of them
+        (gathered, then this rank's slice again); the heads row-parallel
+        on them."""
+        dtype = self.compute_dtype
+        group = tp_ops.tp_group(self.fc.weight)
+        x = tp_ops.column_linear(x, self.fc.weight.to(dtype),
+                                 self.fc.bias.to(dtype))
+        x = F.relu(x).float().reshape(T, B, -1)
+        if self.core is not None:
+            x = collectives.gather_from(x, group, -1)
+            x, core_state = self.core(x, done, core_state)
+            x = collectives.scatter_to(x, group, -1)
+        logits = tp_ops.row_linear(x, self.policy.weight, self.policy.bias)
+        baseline = tp_ops.row_linear(x, self.baseline.weight,
+                                     self.baseline.bias).squeeze(-1)
         return (logits, baseline), core_state
 
 

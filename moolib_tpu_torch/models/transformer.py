@@ -48,6 +48,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
+from ..ops import ring_attention as ring_ops
+from ..parallel import collectives
+from ..parallel import tp as tp_ops
 from ..parallel.moe import moe_ffn
 from ..utils.device import resolve_device
 from .common import f32_convolutions, same_pads
@@ -56,6 +59,7 @@ __all__ = ["TransformerNet", "f32_convolutions", "moe_aux_losses",
            "segment_ids_from_done", "same_pads"]
 
 _LN_EPS = 1e-6
+_RING = ("ring", "zigzag")
 
 
 def segment_ids_from_done(done: torch.Tensor) -> torch.Tensor:
@@ -73,29 +77,64 @@ def _conv_same(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 
 class _SelfAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, backend: str,
-                 device=None):
+                 ring_axis: str = "sp", mesh=None, device=None):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by "
                              f"num_heads {num_heads}")
         self.num_heads = num_heads
         self.backend = backend
+        self.ring_axis = ring_axis
+        self.mesh = mesh
         self.qkv = nn.Linear(d_model, 3 * d_model, bias=False, device=device)
         self.out = nn.Linear(d_model, d_model, bias=False, device=device)
+
+    def _attend(self, q, k, v, seg_bt):
+        if self.backend == "ring":
+            return ring_ops.ring_attention(
+                q, k, v, self.mesh, self.ring_axis, causal=True,
+                segment_ids=seg_bt, kv_segment_ids=seg_bt)
+        if self.backend == "zigzag":
+            # The caller feeds zigzag-laid-out shards (zigzag_order on
+            # the T axis of obs, done, segment_ids and positions).
+            return ring_ops.zigzag_ring_attention(
+                q, k, v, self.mesh, self.ring_axis, segment_ids=seg_bt,
+                kv_segment_ids=seg_bt)
+        return attn_ops.attention(q, k, v, backend=self.backend,
+                                  causal=True, segment_ids=seg_bt)
 
     def forward(self, x: torch.Tensor, seg_bt: torch.Tensor) -> torch.Tensor:
         # x: [T, B, E] -> attention in [B, H, T, D].
         T, B, E = x.shape
         D = E // self.num_heads
+        if tp_ops.is_sharded(self.qkv.weight):
+            return self._forward_tp(x, seg_bt)
         q, k, v = self.qkv(x).chunk(3, dim=-1)
 
         def heads(t):  # [T, B, E] -> [B, H, T, D]
             return t.reshape(T, B, self.num_heads, D).permute(1, 2, 0, 3)
 
-        o = attn_ops.attention(heads(q), heads(k), heads(v),
-                               backend=self.backend, causal=True,
-                               segment_ids=seg_bt)
+        o = self._attend(heads(q), heads(k), heads(v), seg_bt)
         return self.out(o.permute(2, 0, 1, 3).reshape(T, B, E))
+
+    def _forward_tp(self, x, seg_bt):
+        """Tensor parallel (``parallel/tp.py``): rank r of the tp group
+        holds rows [r*3E/tp, (r+1)*3E/tp) of the fused qkv weight, which
+        cut across q, k and v, so the fused output is gathered before
+        the split; the rank then attends with its own heads
+        [r*H/tp, (r+1)*H/tp) and multiplies them by its columns of the
+        row-parallel output projection, whose partial sums are reduced."""
+        T, B, E = x.shape
+        D = E // self.num_heads
+        group = tp_ops.tp_group(self.qkv.weight)
+        y = tp_ops.column_linear(x, self.qkv.weight)
+        y = collectives.gather_from(y, group, -1)
+        y = y.reshape(T, B, 3, self.num_heads, D)
+        y = collectives.scatter_to(y, group, 3)  # [T, B, 3, H/tp, D]
+        q, k, v = (t.permute(1, 2, 0, 3) for t in y.unbind(2))
+        o = self._attend(q, k, v, seg_bt)
+        o = o.permute(2, 0, 1, 3).reshape(T, B, -1)
+        return tp_ops.row_linear(o, self.out.weight)
 
 
 class _MoEMlp(nn.Module):
@@ -161,10 +200,11 @@ class _Block(nn.Module):
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: int,
                  backend: str, mlp: str = "dense", num_experts: int = 8,
                  moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
-                 device=None):
+                 ring_axis: str = "sp", mesh=None, device=None):
         super().__init__()
         self.ln1 = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
-        self.attn = _SelfAttention(d_model, num_heads, backend, device)
+        self.attn = _SelfAttention(d_model, num_heads, backend, ring_axis,
+                                   mesh, device)
         self.ln2 = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
         if mlp == "moe":
             self.moe = _MoEMlp(d_model, mlp_ratio, num_experts, moe_top_k,
@@ -184,6 +224,13 @@ class _Block(nn.Module):
             if aux is not None:
                 aux.append(layer_aux)
             return x + y
+        if tp_ops.is_sharded(self.mlp_in.weight):
+            # Column-parallel up-projection, row-parallel down (tp.py).
+            h = tp_ops.column_linear(self.ln2(x), self.mlp_in.weight,
+                                     self.mlp_in.bias)
+            h = F.gelu(h, approximate="tanh")
+            return x + tp_ops.row_linear(h, self.mlp_out.weight,
+                                         self.mlp_out.bias)
         h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
         return x + self.mlp_out(h)
 
@@ -194,7 +241,14 @@ class TransformerNet(nn.Module):
     ``obs_shape`` is one frame's shape: ``(H, W, C)`` for uint8 pixels or
     ``(F,)`` for float vectors (the reference infers it from the first
     call). ``mlp`` is ``"dense"`` or ``"moe"`` (``num_experts`` experts,
-    top-``moe_top_k`` routing at ``moe_capacity_factor``). Weights are
+    top-``moe_top_k`` routing at ``moe_capacity_factor``).
+    ``attention_backend`` is ``"auto"``, ``"dense"``, ``"blockwise"``,
+    ``"flash"``, or, sequence parallel over the ``ring_axis`` of
+    ``mesh`` (a ``DeviceMesh``, or that axis' process group),
+    ``"ring"`` or ``"zigzag"``: every rank then feeds its own T shard
+    of the unroll (in :func:`~moolib_tpu_torch.ops.ring_attention.
+    zigzag_order` layout for ``"zigzag"``) with the globally correct
+    ``segment_ids`` and ``positions`` of its rows. Weights are
     drawn from ``generator`` at construction; load converted reference
     weights with
     :func:`moolib_tpu_torch.models.convert.transformer_params_from_flax`.
@@ -207,6 +261,7 @@ class TransformerNet(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  mlp: str = "dense", num_experts: int = 8,
                  moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
+                 ring_axis: str = "sp", mesh=None,
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -214,11 +269,13 @@ class TransformerNet(nn.Module):
             raise ValueError(
                 f"unknown mlp type {mlp!r}; expected 'dense' or 'moe'"
             )
-        if attention_backend not in ("auto", "dense", "blockwise", "flash"):
-            raise NotImplementedError(
-                f"attention_backend {attention_backend!r} is not ported "
-                "(ROADMAP queue A: multi-device ring/zigzag attention)"
-            )
+        if attention_backend not in ("auto", "dense", "blockwise", "flash",
+                                     "ring", "zigzag"):
+            raise ValueError(
+                f"unknown attention backend {attention_backend!r}")
+        if attention_backend in _RING and mesh is None:
+            raise ValueError(f"the {attention_backend} backend needs the "
+                             f"mesh (or group) its {ring_axis!r} ring runs on")
         device = resolve_device(device)
         self.num_actions = num_actions
         self.obs_shape = tuple(obs_shape)
@@ -237,7 +294,8 @@ class TransformerNet(nn.Module):
         self.pos_emb = nn.Embedding(max_len, d_model, device=device)
         self.blocks = nn.ModuleList(
             _Block(d_model, num_heads, mlp_ratio, attention_backend, mlp,
-                   num_experts, moe_top_k, moe_capacity_factor, device)
+                   num_experts, moe_top_k, moe_capacity_factor, ring_axis,
+                   mesh, device)
             for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
@@ -293,11 +351,25 @@ class TransformerNet(nn.Module):
             x = x.mean(dim=(2, 3)).reshape(T, B, self.d_model)
         else:
             x = self.embed_in(x.float())
+        ring = self.attention_backend in _RING
         if positions is None:
+            if ring:
+                # A local arange would embed wrong positions on every
+                # shard past the first.
+                raise ValueError(
+                    f"{self.attention_backend} backend needs globally-"
+                    "correct positions for each local shard (zigzag: in "
+                    "zigzag_order layout)")
             positions = torch.arange(T, device=obs.device)
         pos = self.pos_emb(positions).to(self.compute_dtype)
         x = x + pos[:, None, :].float()
         if segment_ids is None:
+            if ring:
+                raise ValueError(
+                    f"{self.attention_backend} backend needs "
+                    "globally-correct segment_ids; compute them from the "
+                    "full done sequence and pass the local shard in "
+                    "(zigzag: in zigzag_order layout)")
             segment_ids = segment_ids_from_done(done)
         aux: List[dict] = []
         for block in self.blocks:

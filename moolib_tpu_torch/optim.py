@@ -25,14 +25,31 @@ from __future__ import annotations
 from typing import Iterable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from .parallel import collectives
 
 __all__ = ["ClippedAdam", "ClippedRMSprop", "global_norm"]
+
+
+def _square_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t``'s squares; for a sharded ``DTensor`` (tensor
+    parallelism) the sum over every rank's shard, so that every rank
+    holds the global value."""
+    if not isinstance(t, DTensor):
+        return torch.sum(t * t)
+    local = t.to_local()
+    total = torch.sum(local * local)
+    for dim, placement in enumerate(t.placements):
+        if placement.is_shard():
+            collectives.all_reduce_(total, t.device_mesh.get_group(dim))
+    return total
 
 
 def global_norm(tensors: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
     """sqrt of the sum of every element's square (``optax.global_norm``);
     ``None`` entries (parameters without a gradient) count as zeros."""
-    sums = [torch.sum(t * t) for t in tensors if t is not None]
+    sums = [_square_sum(t) for t in tensors if t is not None]
     if not sums:
         return torch.zeros(())
     return torch.sqrt(sum(sums))
@@ -77,6 +94,12 @@ class ClippedRMSprop(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
         self.max_norm = max_norm
 
+    def init_state(self) -> None:
+        """Create every parameter's state now (optax's ``init``)."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                self._nu(p)
+
     def _nu(self, p: torch.Tensor) -> torch.Tensor:
         state = self.state[p]
         if "nu" not in state:
@@ -118,6 +141,12 @@ class ClippedAdam(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
                                       eps_root=eps_root, count=0))
         self.max_norm = max_norm
+
+    def init_state(self) -> None:
+        """Create every parameter's state now (optax's ``init``)."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                self._moments(p)
 
     def _moments(self, p: torch.Tensor):
         state = self.state[p]

@@ -1,38 +1,35 @@
-"""The training services of the port: the elastic gradient
-``Accumulator``, the cluster-wide ``GlobalStatsAccumulator`` and the
-one-device mixture-of-experts FFN (``moe_params``, ``moe_ffn``); the
-counterpart of :mod:`moolib_tpu.parallel`. The device layouts of the
-reference's package (``mesh``, ``tp``, ``pipeline``, the expert-sharded
-``moe_ffn_sharded``) are not ported yet and raise, naming their roadmap
-item."""
+"""The training services and device layouts of the port; the counterpart
+of :mod:`moolib_tpu.parallel`: the elastic gradient ``Accumulator``, the
+cluster-wide ``GlobalStatsAccumulator``, the (dp, tp, sp, pp, ep) mesh on
+``torch.distributed`` (``mesh``, ``distributed``, ``collectives``),
+tensor parallelism (``tp``), pipelines (``pipeline``) and the
+mixture-of-experts FFN with its expert-sharded variant (``moe``).
 
-from .accumulator import Accumulator
-from .moe import moe_ffn, moe_ffn_sharded, moe_params
-from .stats import GlobalStatsAccumulator
+Imports are lazy: a name loads its module on first use."""
 
-__all__ = ["Accumulator", "GlobalStatsAccumulator", "moe_ffn",
-           "moe_ffn_sharded", "moe_params"]
+import importlib
 
-# Unported names of the reference's package -> ROADMAP.md queue A item.
-_NOT_PORTED = {
-    **dict.fromkeys(
-        ("make_mesh", "data_parallel_spec", "replicated_spec",
-         "psum_gradients", "pmean_gradients", "dp_average_grads",
-         "shard_batch", "count_sharded_leaves", "impala_tp_specs",
-         "shard_params", "sharded_init_opt_state", "transformer_tp_specs",
-         "MICRO_SPEC", "pipeline_apply", "shard_microbatches",
-         "stack_stage_params", "unshard_microbatches"),
-        "item 11, multi-device"),
+_EXPORTS = {
+    "Accumulator": "accumulator",
+    "GlobalStatsAccumulator": "stats",
+    **dict.fromkeys(("make_mesh", "data_parallel_spec", "replicated_spec",
+                     "psum_gradients", "pmean_gradients", "dp_average_grads",
+                     "shard_batch"), "mesh"),
+    **dict.fromkeys(("moe_ffn", "moe_ffn_sharded", "moe_params"), "moe"),
+    **dict.fromkeys(("MICRO_SPEC", "pipeline_apply", "pipeline_train_1f1b",
+                     "shard_microbatches", "stack_stage_params",
+                     "unshard_microbatches"), "pipeline"),
+    **dict.fromkeys(("count_sharded_leaves", "impala_tp_specs",
+                     "shard_params", "sharded_init_opt_state",
+                     "transformer_tp_specs"), "tp"),
 }
 
+__all__ = sorted(_EXPORTS)
 
-def __getattr__(name):
-    item = _NOT_PORTED.get(name)
-    if item is not None:
+
+def __getattr__(name: str):
+    mod = _EXPORTS.get(name)
+    if mod is None:
         raise AttributeError(
-            f"moolib_tpu_torch.parallel.{name} is not ported yet "
-            f"(ROADMAP queue A, {item})"
-        )
-    raise AttributeError(
-        f"module 'moolib_tpu_torch.parallel' has no attribute {name!r}"
-    )
+            f"module 'moolib_tpu_torch.parallel' has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{mod}"), name)

@@ -1,5 +1,5 @@
 """Mixture-of-experts FFN: the counterpart of
-:mod:`moolib_tpu.parallel.moe` on one device.
+:mod:`moolib_tpu.parallel.moe`.
 
 The standard Switch/GShard MoE, with the reference's semantics:
 
@@ -31,9 +31,8 @@ on one device and seats another device's calls of the same batch with
 them: it holds the expert math of two devices against each other apart
 from the route flips that their different summation orders cause.
 
-The expert-sharded variant (``moe_ffn_sharded``, an explicit
-all-to-all over an ``ep`` mesh axis) is not ported: it needs the
-multi-device layouts (ROADMAP.md queue A, item 11).
+:func:`moe_ffn_sharded` is the expert-parallel variant: an explicit
+all-to-all over an ``ep`` axis of a ``torch.distributed`` mesh.
 """
 
 from __future__ import annotations
@@ -202,11 +201,61 @@ class RouteReplay:
         return self._seating(seat)
 
 
-def moe_ffn_sharded(*args, **kwargs):
-    """The expert-parallel MoE (an explicit token-to-expert all-to-all over
-    an ``ep`` mesh axis) needs the multi-device layouts, which are not
-    ported yet."""
-    raise NotImplementedError(
-        "moe_ffn_sharded is not ported yet (ROADMAP queue A, item 11, "
-        "multi-device)"
-    )
+def moe_ffn_sharded(params: Dict[str, torch.Tensor], x_local: torch.Tensor,
+                    capacity: Optional[int] = None, *, mesh,
+                    axis_name: str = "ep", top_k: int = 1,
+                    capacity_factor: float = 1.25):
+    """Expert-parallel MoE with an explicit token-to-expert all-to-all
+    over ``axis_name`` of ``mesh`` (a ``DeviceMesh``, or the axis'
+    process group): rank g holds the token shard ``x_local``
+    [T_local, d_model] and the experts [g*E_local, (g+1)*E_local)
+    (``params``' ``w_up``/``w_down`` are its [E_local, ...] shards,
+    ``router`` replicated). Every rank holds as many tokens, so that the
+    ranks seat the same capacity.
+
+    Capacity is group-wise (each token shard owns ``capacity`` slots per
+    expert, GShard's grouped dispatch), so the result is ``moe_ffn``'s
+    on each shard's tokens alone, and ``moe_ffn``'s on all the tokens
+    whenever nothing is dropped. The exchanges are differentiable (the
+    backward sends the gradient back the inverse way).
+
+    Returns ([T_local, d_model], aux); the aux losses are averaged over
+    the axis (identical on every rank)."""
+    from .collectives import all_to_all, axis_group, pmean
+    from .mesh import local_value
+
+    group = axis_group(mesh, axis_name)
+    groups = torch.distributed.get_world_size(group)
+    w_up, w_down = local_value(params["w_up"]), local_value(params["w_down"])
+    T_local, d_model = x_local.shape
+    E_local = w_up.shape[0]
+    E = E_local * groups
+    if capacity is None:
+        capacity = int(math.ceil(capacity_factor * T_local * top_k / E))
+    capacity = min(capacity, T_local)
+    logits = x_local.float() @ local_value(params["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    dispatch, combine, kept_assignments, first_oh = _dispatch_combine(
+        probs, capacity, top_k, x_local.dtype)
+
+    # Slabs for every expert, [E, C, D] as [G, E_local, C, D]: row g goes
+    # to the rank holding experts g*E_local..., which gets every group's
+    # slab for its own experts.
+    xe = torch.einsum("tec,td->ecd", dispatch, x_local)
+    xe = all_to_all(xe.reshape(groups, E_local, capacity, d_model), group)
+    h = F.gelu(torch.einsum("gecd,edh->gech", xe, w_up.to(x_local.dtype)),
+               approximate="tanh")
+    ye = torch.einsum("gech,ehd->gecd", h, w_down.to(x_local.dtype))
+    # The reverse exchange: each group's tokens' outputs go home.
+    ye = all_to_all(ye, group).reshape(E, capacity, d_model)
+    y = torch.einsum("tec,ecd->td", combine.to(x_local.dtype), ye)
+
+    frac_tokens = pmean(first_oh.mean(dim=0), group)
+    frac_probs = pmean(probs.mean(dim=0), group)
+    aux = {
+        "load_balance_loss": E * torch.sum(frac_tokens * frac_probs),
+        "router_z_loss": pmean(
+            torch.mean(torch.logsumexp(logits, dim=-1) ** 2), group),
+        "drop_fraction": pmean(1.0 - kept_assignments / top_k, group),
+    }
+    return y, aux

@@ -1,6 +1,6 @@
 """Testing utilities: deterministic fault injection for the RPC stack,
-the env-worker tier and the disk, the seeded scenarios that drive it,
-and the dynamic tracers ``restrack`` (resource lifecycles) and
+the env-worker tier and the disk, the seeded scenarios that drive it, a world
+of SPMD worker processes (``spmd``) and the dynamic tracers ``restrack`` (resource lifecycles) and
 ``paritywatch`` (bitwise replay); the counterpart of
 :mod:`moolib_tpu.testing`.
 
@@ -26,6 +26,7 @@ _EXPORTS = {
     **dict.fromkeys(("ResourceLeak", "ResourceTracker"), "restrack"),
     "ChaosStepEnv": "chaos_env",
     "SCENARIOS": "scenarios",
+    "SpmdWorld": "spmd",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -1075,3 +1075,100 @@ def test_publish_from_statestore_into_a_card_replica(card, tmp_path):
                 obj.close()
         front.close()
         rep_rpc.close()
+
+
+# -- multi-device on one card --------------------------------------------------
+
+
+def test_nccl_world_of_one_dp_step_is_bitwise_the_plain_step(card, tmp_path):
+    """An NCCL world of 1 on the card: make_impala_train_step(mesh=...)
+    from a seeded state equals the plain step bit for bit (the all-reduce
+    of one rank is the identity, the mean divides by 1), the flash
+    kernels included."""
+    import torch.distributed as dist
+
+    from moolib_tpu_torch import (ClippedRMSprop, make_impala_train_step,
+                                  make_train_state)
+    from moolib_tpu_torch.parallel.mesh import make_mesh
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    T, B, A = 20, 8, 6
+    batch = {
+        "obs": torch.randint(0, 256, (T + 1, B, 84, 84, 4), generator=gen,
+                             device=card, dtype=torch.uint8),
+        "done": torch.rand((T + 1, B), generator=gen, device=card) < 0.05,
+        "rewards": torch.randn((T + 1, B), generator=gen, device=card),
+        "actions": torch.randint(0, A, (T, B), generator=gen, device=card),
+        "behavior_logits": torch.randn((T, B, A), generator=gen,
+                                       device=card),
+        "core_state": (),
+    }
+
+    def run(mesh):
+        net = TransformerNet(A, (84, 84, 4), compute_dtype=torch.bfloat16,
+                             device=card, generator=torch.Generator(
+                                 device=card).manual_seed(4))
+        opt = ClippedRMSprop(net.parameters(), 6e-4, decay=0.99, eps=0.01,
+                             max_norm=40.0)
+        state = make_train_state(net, opt)
+        step = make_impala_train_step(mesh=mesh)
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        return ({n: p.detach().clone() for n, p in net.named_parameters()},
+                {n: opt.state[p]["nu"].clone()
+                 for n, p in net.named_parameters()}, metrics)
+
+    plain = run(None)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        meshed = run(make_mesh(device=card))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(meshed, plain):
+        for k in b:
+            assert torch.equal(a[k], b[k]), k
+
+
+@pytest.fixture
+def card_world(card, tmp_path):
+    """4 gloo ranks sharing the card (exchanges through the host)."""
+    from moolib_tpu_torch.testing.spmd import SpmdWorld
+
+    with SpmdWorld(4, str(tmp_path / "spmd"), backend="gloo",
+                   device="cuda") as w:
+        yield w
+
+
+def _pipeline_memory(world, kind, **kw):
+    import torch_spmd_cases as cases
+
+    shape = dict(n_stages=4, mb=8, F=32, n_micro=16)
+    shape.update(kw)
+    return world.run(cases.pipeline_memory, kind, *shape.values())
+
+
+def test_remat_reduces_pipeline_backward_memory(card_world):
+    """The reference's test on XLA's compiled temp memory, on each rank's
+    peak card memory: remat keeps less for the backward."""
+    plain = _pipeline_memory(card_world, "gpipe")
+    remat = _pipeline_memory(card_world, "remat")
+    for p, r in zip(plain, remat):
+        assert r["temp"] < p["temp"], (r, p)
+
+
+def test_1f1b_peak_memory_leq_gpipe_remat(card_world):
+    gpipe = _pipeline_memory(card_world, "remat")
+    f1b = _pipeline_memory(card_world, "1f1b")
+    for g, f in zip(gpipe, f1b):
+        assert f["temp"] <= g["temp"], (f, g)
+
+
+def test_per_device_pipeline_memory_scales_with_shard_not_stream(card_world):
+    n_stages, mb, F, n_micro = 4, 8, 16, 32
+    shard_bytes = (n_micro // n_stages) * mb * F * 4
+    full_bytes = n_micro * mb * F * 4
+    budget = 6 * shard_bytes + 4 * n_stages * F * (F + 1)
+    for m in _pipeline_memory(card_world, "forward", F=F, n_micro=n_micro):
+        assert m["total"] < budget, (m, budget)
+        assert m["total"] < full_bytes, (m, full_bytes)

@@ -329,11 +329,55 @@ def test_train_step_runs_the_conv_backward_on_deterministic_algorithms():
         torch.backends.cudnn.deterministic = prev
 
 
-def test_unported_options_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlearner.make_impala_train_step(mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlearner.make_grad_step(batch_axes={"obs": 1})
+def test_unported_options_name_their_roadmap_item(tmp_path):
+    """``mesh`` and ``batch_axes`` once raised here, naming ROADMAP item 11;
+    they are ported (tests/test_torch_mesh.py holds the dp step on 2 and
+    4 ranks). Without a mesh ``batch_axes`` changes nothing, in both
+    packages; on a one-rank dp mesh the train step gives the reference's
+    mesh step (the tolerances of the module docstring)."""
+    import torch.distributed as dist
+
+    from moolib_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from moolib_tpu.parallel.mesh import shard_batch as jshard_batch
+    from moolib_tpu_torch.parallel.mesh import make_mesh
+
+    batch = _batch(6, pixels=False)
+    jnet, params, net = _pair(batch)
+    g_plain, _ = tlearner.make_grad_step()(net, _tbatch(batch))
+    g_axes, _ = tlearner.make_grad_step(batch_axes={"obs": 1})(
+        net, _tbatch(batch))
+    for name, g in g_plain.items():
+        assert torch.equal(g, g_axes[name]), name
+    jg, _ = jlearner.make_grad_step(jnet.apply, batch_axes={"obs": 1})(
+        params, _jbatch(batch))
+    want = _convert(jg)
+    for name, g in g_axes.items():
+        _close_rel(g, want[name], 1e-4, name)
+
+    opt = optax.chain(optax.clip_by_global_norm(40.0),
+                      optax.rmsprop(6e-4, decay=0.99, eps=0.01))
+    jmesh = jmake_mesh(dp=1, devices=jax.devices()[:1])
+    jdense = JaxTransformerNet(num_actions=A, attention_backend="dense",
+                               **SMALL)  # Pallas does not run in shard_map
+    jstate, jm = jlearner.make_impala_train_step(
+        jdense.apply, opt, mesh=jmesh, donate=False)(
+        jlearner.make_train_state(params, opt),
+        jshard_batch(jmesh, _jbatch(batch)))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        state = tlearner.make_train_state(net, ClippedRMSprop(
+            net.parameters(), 6e-4, decay=0.99, eps=0.01, max_norm=40.0))
+        state, tm = tlearner.make_impala_train_step(
+            mesh=make_mesh(device="cpu"))(state, _tbatch(batch))
+    finally:
+        dist.destroy_process_group()
+    for name in METRICS:
+        _close_rel(tm[name], jm[name], 1e-5, name)
+    want = _convert(jstate.params)
+    for name, p in net.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   rtol=0, atol=1e-6, err_msg=name)
 
 
 def _twins(seed=0):

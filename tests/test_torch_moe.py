@@ -15,11 +15,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import PartitionSpec as P
 
+import torch_spmd_cases as cases
 from moolib_tpu import learner as jlearner
 from moolib_tpu.models import TransformerNet as JaxTransformerNet
 from moolib_tpu.models import transformer as jtransformer
 from moolib_tpu.parallel import moe as jmoe
+from moolib_tpu.parallel.mesh import make_mesh
+from moolib_tpu.utils.jaxenv import shard_map
 from moolib_tpu_torch import learner as tlearner
 from moolib_tpu_torch.models import (
     TransformerNet,
@@ -28,9 +32,17 @@ from moolib_tpu_torch.models import (
 )
 from moolib_tpu_torch.optim import ClippedRMSprop
 from moolib_tpu_torch.parallel import moe as tmoe
+from moolib_tpu_torch.testing.spmd import SpmdWorld
 
 AUX = ("load_balance_loss", "router_z_loss", "drop_fraction")
 SMALL = dict(d_model=32, num_layers=2, num_heads=2, num_experts=4)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """4 gloo ranks for the expert-parallel tests (torch_spmd_cases.py)."""
+    with SpmdWorld(4, str(tmp_path_factory.mktemp("spmd"))) as w:
+        yield w
 
 
 def _close_rel(got, want, rel, err_msg=""):
@@ -211,7 +223,11 @@ def test_router_gets_gradients():
     assert float(tp["w_up"].grad.abs().sum()) > 0
 
 
-def test_moe_params_scaling_and_sharded_raises():
+def test_moe_params_scaling_and_sharded_raises(world):
+    """moe_params' scaling; moe_ffn_sharded (once a raise naming ROADMAP
+    item 11) is exported and needs its mesh, and at its default,
+    group-wise capacity it is moe_ffn on each rank's tokens alone, drops
+    included (4 gloo ranks, ep=4)."""
     gen = torch.Generator().manual_seed(0)
     p = tmoe.moe_params(64, 256, 8, device="cpu", generator=gen)
     assert p["router"].shape == (64, 8)
@@ -219,13 +235,20 @@ def test_moe_params_scaling_and_sharded_raises():
     assert p["w_down"].shape == (8, 256, 64)
     assert float(p["w_up"].std()) == pytest.approx(64 ** -0.5, rel=0.02)
     assert float(p["w_down"].std()) == pytest.approx(256 ** -0.5, rel=0.02)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="mesh"):
         tmoe.moe_ffn_sharded(p, torch.zeros(4, 64))
     from moolib_tpu_torch import parallel
 
     assert parallel.moe_ffn is tmoe.moe_ffn
-    with pytest.raises(NotImplementedError, match="item 11"):
-        parallel.moe_ffn_sharded(p, torch.zeros(4, 64))
+    assert parallel.moe_ffn_sharded is tmoe.moe_ffn_sharded
+    rng = np.random.default_rng(9)
+    params = _params(9, D=8, H=12, E=8)
+    x = rng.standard_normal((64, 8)).astype(np.float32)
+    for y, aux, _, g in world.run(cases.moe_sharded, params, x, None, 2):
+        xs = x[g * 16:(g + 1) * 16]
+        want, _ = jmoe.moe_ffn(params, jnp.asarray(xs), 5, top_k=2)
+        _close_rel(y, want, 1e-5)
+        assert 0 < aux["drop_fraction"] < 1  # ceil(1.25*16*2/8) = 5 seats
 
 
 # -- TransformerNet(mlp="moe") ------------------------------------------------
@@ -416,3 +439,47 @@ def test_vtrace_train_step_folds_the_aux_like_the_reference():
         np.asarray, new_params))
     for name, p in net.state_dict().items():
         _close_rel(p, want[name], 1e-5, name)
+
+
+# -- moe_ffn_sharded: the explicit all-to-all over ep -----------------------------
+
+
+def _jax_sharded(params, x, capacity, top_k, ep):
+    mesh = make_mesh(dp=1, ep=ep, devices=jax.devices()[:ep])
+    specs = {"router": P(), "w_up": P("ep", None, None),
+             "w_down": P("ep", None, None)}
+
+    def loss(p, x):
+        y, aux = shard_map(
+            lambda p, xs: jmoe.moe_ffn_sharded(
+                p, xs, capacity=capacity, top_k=top_k, axis_name="ep"),
+            mesh=mesh, in_specs=(specs, P("ep", None)),
+            out_specs=(P("ep", None), P()))(p, x)
+        return jnp.sum(y ** 2) + 0.01 * aux["load_balance_loss"], (y, aux)
+
+    (_, (y, aux)), grads = jax.value_and_grad(loss, has_aux=True)(
+        params, jnp.asarray(x))
+    return np.asarray(y), aux, grads
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_sharded_a2a_matches_replicated_and_the_reference(world, top_k):
+    """With capacity T_local nothing drops: the replicated moe_ffn's
+    output exactly (1e-5 of its max), and the reference's
+    moe_ffn_sharded's output, aux and gradients (the dry run's loss)."""
+    T, D, H, E, ep = 32, 8, 12, 4, 4
+    params = _params(8, D, H, E)
+    x = np.random.default_rng(8).standard_normal((T, D)).astype(np.float32)
+    ref, _ = jmoe.moe_ffn(params, jnp.asarray(x), capacity=T, top_k=top_k)
+    y_ref, aux_ref, g_ref = _jax_sharded(params, x, T // ep, top_k, ep)
+    outs = world.run(cases.moe_sharded, params, x, T // ep, top_k)
+    y = np.concatenate([o[0] for o in sorted(outs, key=lambda o: o[3])])
+    _close_rel(y, ref, 1e-5)
+    _close_rel(y, y_ref, 1e-5)
+    for y_g, aux, grads, g in outs:
+        assert aux["drop_fraction"] == 0.0
+        for k in AUX:
+            _close_rel(aux[k], aux_ref[k], 1e-5, k)
+        _close_rel(grads["router"], g_ref["router"], 1e-4, "router")
+        for k in ("w_up", "w_down"):
+            _close_rel(grads[k], np.asarray(g_ref[k])[g:g + 1], 1e-4, k)

@@ -141,14 +141,54 @@ def test_conv_torso_runs_without_tf32():
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def test_moe_and_ring_are_not_ported_yet():
-    """MoE blocks are ported (tests/test_torch_moe.py); ring attention
-    still raises, naming its roadmap item, and an unknown MLP is
-    refused."""
+def test_moe_and_ring_are_not_ported_yet(tmp_path):
+    """MoE blocks and the ring backends are ported (tests/test_torch_moe.py,
+    tests/test_torch_ring_attention.py; ring once raised here, naming its
+    roadmap item); an unknown MLP is refused, a ring backend without its
+    mesh too, and on a one-rank sp axis the ring backend gives the
+    reference's ring model's output under shard_map (1e-4)."""
     net = TransformerNet(4, (5,), mlp="moe", device="cpu", **SMALL)
     assert all(hasattr(b, "moe") for b in net.blocks)
     with pytest.raises(ValueError, match="mlp"):
         TransformerNet(4, (5,), mlp="sparse", device="cpu", **SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh"):
         TransformerNet(4, (5,), attention_backend="ring", device="cpu",
                        **SMALL)
+    import torch.distributed as dist
+    from jax.sharding import PartitionSpec as P
+
+    from moolib_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from moolib_tpu.utils.jaxenv import shard_map
+    from moolib_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(7)
+    T, B = 8, 2
+    obs = _obs(rng, False, T, B)
+    done = rng.random((T, B)) < 0.2
+    jnet, params, _ = _pair(obs, done, torch.float32)
+    jring = JaxTransformerNet(num_actions=6, attention_backend="ring",
+                              **SMALL)
+    seg = np.cumsum(done, axis=0, dtype=np.int32).T
+    fn = shard_map(
+        lambda p, o, d, s, t: jring.apply(p, o, d, (), segment_ids=s,
+                                          positions=t)[0],
+        mesh=jmake_mesh(dp=1, sp=1, devices=jax.devices()[:1]),
+        in_specs=(P(), P("sp"), P("sp"), P(None, "sp"), P("sp")),
+        out_specs=(P("sp"), P("sp")))
+    l_ref, b_ref = fn(params, obs, done, seg, jnp.arange(T))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        ring = TransformerNet(6, (5,), attention_backend="ring",
+                              mesh=make_mesh(device="cpu"), device="cpu",
+                              **SMALL)
+        ring.load_state_dict(transformer_params_from_flax(
+            jax.tree_util.tree_map(np.asarray, params)))
+        with torch.no_grad():
+            (l, b), _ = ring(torch.from_numpy(obs), torch.from_numpy(done),
+                             (), segment_ids=torch.from_numpy(seg),
+                             positions=torch.arange(T))
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(l.numpy(), np.asarray(l_ref), atol=1e-4)
+    np.testing.assert_allclose(b.numpy(), np.asarray(b_ref), atol=1e-4)
