@@ -22,7 +22,9 @@
 Each prints one JSON line per size with the reference's keys:
 {"plane", "peers", "mb", "ms", "gbps"}, where gbps is the algorithm
 bandwidth (each peer contributes and receives the whole buffer once a
-round). Rows for a trend store wait for ROADMAP queue A item 12.
+round). Each row with a rate also lands a perfwatch trend row
+(``allreduce_{plane}_gbps_{mb}mb``, the reference's name) when
+``MOOLIB_TRENDS`` names a store.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -39,9 +41,26 @@ SIZES = (2**16, 2**20, 2**23)
 ROUNDS = 5
 
 
-def _tree_worker(rank: int, n_peers: int, addr: str, sizes, out_q):
+def _trend(rows, cmd: str) -> None:
+    """The reference's trend row for each measured size; called once the
+    workers are done, so nothing of it runs beside them."""
+    from moolib_tpu_torch.bench.harness import append_device_trend
+
+    for row in rows:
+        append_device_trend(
+            f"allreduce_{row['plane']}_gbps_{row['mb']:g}mb", row["gbps"],
+            "GB/s", cmd,
+            extra={"plane": row["plane"], "peers": row["peers"],
+                   "mb": row["mb"]},
+        )
+
+
+def _tree_worker(rank: int, n_peers: int, addr: str, sizes, out_q, done):
     """One peer: join the group, then reduce each size once to warm up and
-    ROUNDS times timed; rank 0 reports the mean round time."""
+    ROUNDS times timed; rank 0 reports the mean round time. Every peer
+    leaves only after all have their last result (``done``, a barrier of
+    the peers): a peer that closes its Group while another still waits on
+    the final round changes the membership, which cancels that round."""
     import numpy as np
 
     import moolib_tpu_torch
@@ -85,9 +104,11 @@ def _tree_worker(rank: int, n_peers: int, addr: str, sizes, out_q):
                 raise RuntimeError(f"sum {result[0]} != {expect}")
             if rank == 0:
                 out_q.put(("result", size, dt))
+        done.wait(timeout=120)
     except (asyncio.CancelledError, concurrent.futures.CancelledError):
         raise  # never swallow task cancellation
     except Exception as e:
+        done.abort()  # the others must not wait for this peer
         out_q.put(("error", rank, f"{type(e).__name__}: {e}"))
     finally:
         stop.set()
@@ -117,8 +138,9 @@ def bench_rpc_tree(n_peers: int = 4, sizes=SIZES, timeout: float = 300.0):
     threading.Thread(target=pump, daemon=True).start()
     ctx = mp.get_context("spawn")
     out_q = ctx.Queue()
+    done = ctx.Barrier(n_peers)
     procs = [ctx.Process(target=_tree_worker,
-                         args=(i, n_peers, addr, tuple(sizes), out_q),
+                         args=(i, n_peers, addr, tuple(sizes), out_q, done),
                          daemon=True)
              for i in range(n_peers)]
     for p in procs:
@@ -144,6 +166,7 @@ def bench_rpc_tree(n_peers: int = 4, sizes=SIZES, timeout: float = 300.0):
                 p.join(timeout=10)
         stop.set()
         broker_rpc.close()
+    _trend(rows, f"python3 bench_allreduce_torch.py --peers {n_peers}")
     return rows
 
 
@@ -238,6 +261,7 @@ def bench_psum(backend: str = "nccl", n_ranks=None, sizes=PSUM_SIZES,
                 if p.is_alive():
                     p.terminate()
                     p.join(timeout=10)
+    _trend(rows, f"python3 bench_allreduce_torch.py --psum-backend {backend}")
     return rows
 
 

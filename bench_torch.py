@@ -2,6 +2,7 @@
 env-steps/s: the twin of ``bench.py``.
 
     python3 bench_torch.py        # on the card; raises without one
+    python3 bench_torch.py --device cpu
 
 The same step as ``bench.py``: the bf16 ``ImpalaNet`` (no LSTM) forward
 over uint8 rollouts [T+1=21, B, 84, 84, 4], V-trace, the backward and
@@ -15,6 +16,8 @@ Prints ONE JSON line: ``metric``, ``value``, ``unit``, ``vs_baseline``,
 ``mfu`` (analytic model FLOP/s over the card's dense bf16 peak),
 ``model_tflops_per_sec_per_chip`` and ``device_kind``. ``vs_baseline``
 is null: ``bench.py``'s north star is a figure for another kind of chip.
+The line also lands as the reference's perfwatch trend row when
+``MOOLIB_TRENDS`` names a store.
 """
 
 from __future__ import annotations
@@ -103,8 +106,21 @@ def main(device: Optional[Union[str, torch.device]] = None,
         "device_kind": kind,
     }
     print(json.dumps(line), flush=True)
+    from moolib_tpu_torch.bench.harness import append_device_trend
+
+    append_device_trend(
+        METRIC, env_steps_per_s, line["unit"], "python3 bench_torch.py",
+        stats={"n": 1, "timed_s": seconds, "iters": iters,
+               "frames_per_iter": T * B},
+        extra={k: v for k, v in line.items()
+               if k not in ("metric", "value", "unit")},
+    )
     return line
 
 
 if __name__ == "__main__":
-    main()
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None, help="default: the card")
+    main(device=ap.parse_args().device)

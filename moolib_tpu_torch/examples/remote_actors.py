@@ -140,11 +140,15 @@ def _make_model(cfg: RemoteConfig, device, generator):
 
 
 def run_learner(cfg: RemoteConfig, listen: str = "127.0.0.1:0",
-                log_fn=print, ready_fn=None, device=None) -> List[dict]:
+                log_fn=print, ready_fn=None, device=None,
+                stop_event: Optional[threading.Event] = None) -> List[dict]:
     """Serve inference, consume unrolls and train. ``ready_fn(addr)`` (if
     given) fires once every service is registered: use it to hand the
     bound address to actors race-free. ``device`` None means the card,
-    and raises without one."""
+    and raises without one. ``stop_event``, when set, ends the run like
+    ``cfg.max_seconds`` (a caller that lets its actors finish first: an
+    actor whose call is in flight when the learner closes waits out the
+    RPC timeout)."""
     from ..learner import (
         ImpalaConfig,
         make_impala_train_step,
@@ -211,7 +215,7 @@ def run_learner(cfg: RemoteConfig, listen: str = "127.0.0.1:0",
     try:
         while updates < cfg.total_updates and (
             cfg.max_seconds is None or time.monotonic() - t0 < cfg.max_seconds
-        ):
+        ) and not (stop_event is not None and stop_event.is_set()):
             try:
                 batch = batcher.get(timeout=0.1)
             except TimeoutError:

@@ -72,13 +72,24 @@ class AdoptError(RuntimeError):
     could not observe a majority of the live roles."""
 
 
+def _scale_model(p, x):
+    """The toy serving model of the fleet and of the chaos scenarios,
+    ``x * p["scale"]`` on ``x``'s device: a scale published over the
+    wire arrives as a 0-d numpy array, and ``tensor * ndarray`` is
+    numpy's multiply, which reads a card tensor back to the host and
+    fails."""
+    import torch
+
+    return x * torch.as_tensor(p["scale"], device=x.device)
+
+
 def default_model():
     """The canonical toy serving model (matches the chaos harness): a
     numpy scale so fleet machinery, not arithmetic, is measured."""
     import numpy as np
 
     params = {"scale": np.float32(2.0)}
-    return (lambda p, x: x * p["scale"]), params
+    return _scale_model, params
 
 
 class RoleHandle:

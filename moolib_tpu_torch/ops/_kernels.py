@@ -41,6 +41,7 @@ __all__ = [
     "KERNELS",
     "TILE_MAX",
     "build_all",
+    "build_count",
     "flash_bwd_design",
     "flash_bwd_dkdv",
     "flash_bwd_dq",
@@ -78,6 +79,9 @@ class CudaLibrary:
         self.source = _CSRC / source
         self.build_log = ""
         self.build_seconds: Optional[float] = None
+        #: First-use builds in this process (nvcc, or the kept library):
+        #: the port's counterpart of a jit's compile count.
+        self.builds = 0
         self._lock = threading.Lock()
         self._lib = None
 
@@ -107,7 +111,8 @@ class CudaLibrary:
     def _build(self) -> None:
         """Run ``nvcc`` unless the library is already built; either way
         ``build_log`` holds the compiler's output (kept beside the
-        library as ``.log``)."""
+        library as ``.log``). Each call counts in ``builds``."""
+        self.builds += 1
         out = self.library_path()
         if out.exists():
             log = out.with_suffix(".log")
@@ -232,6 +237,13 @@ def build_all() -> None:
             fut.result()
     for kern in KERNELS:
         kern.ensure_built()
+
+
+def build_count() -> int:
+    """First-use builds of every kernel library in this process so far
+    (:class:`~moolib_tpu_torch.testing.hotwatch.Hotwatch` counts them as
+    its compiles)."""
+    return sum(lib.builds for lib in LIBRARIES)
 
 
 def _check_attention(name: str, q, k, v, seg_q, seg_k, *more):

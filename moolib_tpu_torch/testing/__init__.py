@@ -1,7 +1,8 @@
 """Testing utilities: deterministic fault injection for the RPC stack,
 the env-worker tier and the disk, the seeded scenarios that drive it, a world
-of SPMD worker processes (``spmd``) and the dynamic tracers ``restrack`` (resource lifecycles) and
-``paritywatch`` (bitwise replay); the counterpart of
+of SPMD worker processes (``spmd``) and the dynamic tracers ``restrack``
+(resource lifecycles), ``paritywatch`` (bitwise replay) and ``hotwatch``
+(synchronous reads in a steady-state window); the counterpart of
 :mod:`moolib_tpu.testing`.
 
 Kept outside the production packages so importing
@@ -10,8 +11,7 @@ chaos machinery; see :mod:`moolib_tpu_torch.testing.chaos`. Every name
 is imported lazily, as the package root's are: an env worker unpickling
 :class:`~moolib_tpu_torch.testing.chaos_env.ChaosStepEnv` imports this
 package and must not pull in torch or the RPC stack. The reference's
-``hotwatch`` and ``locktrace`` are not ported yet: ROADMAP.md queue A,
-item 12.
+``locktrace`` is not ported yet: ROADMAP.md queue A, item 12.
 """
 
 import importlib
@@ -21,6 +21,8 @@ _EXPORTS = {
     **dict.fromkeys(("ChaosNet", "Event", "FaultPlan", "ProcChaos",
                      "ProcFaultPlan", "ResourceChaos", "ResourceFaultPlan"),
                     "chaos"),
+    **dict.fromkeys(("Hotwatch", "HotwatchViolation", "hotwatch_enabled"),
+                    "hotwatch"),
     **dict.fromkeys(("ParityViolation", "ParityWatch", "parity_enabled"),
                     "paritywatch"),
     **dict.fromkeys(("ResourceLeak", "ResourceTracker"), "restrack"),

@@ -30,6 +30,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..fleet.controller import _scale_model
 from ..rpc import Rpc, RpcError
 from ..rpc.broker import Broker
 from ..rpc.group import Group
@@ -1370,14 +1371,6 @@ def scenario_statestore_bitflip(seed: int,
 # -- serving tier ------------------------------------------------------------
 
 
-def _scaled(params, x):
-    """The serving scenarios' model, ``x * params["scale"]``, on ``x``'s
-    device: a scale published over the wire arrives as a 0-d numpy
-    array, and ``tensor * ndarray`` is numpy's multiply, which reads a
-    card tensor back to the host and fails."""
-    return x * torch.as_tensor(params["scale"], device=x.device)
-
-
 class ServingFleet:
     """Router + N replica peers, all in-process over loopback on
     OS-assigned ports — the canonical serving cohort for the chaos
@@ -1404,9 +1397,9 @@ class ServingFleet:
         for i in range(n_replicas):
             rpc = Rpc(f"rep{i}")
             rpc.listen("127.0.0.1:0")
-            rep = Replica(rpc, _scaled, params, version=1, service=service,
-                          batch_size=batch_size, max_queue=max_queue,
-                          device=device)
+            rep = Replica(rpc, _scale_model, params, version=1,
+                          service=service, batch_size=batch_size,
+                          max_queue=max_queue, device=device)
             self.replica_rpcs.append(rpc)
             self.replicas.append(rep)
         self.router_rpc = Rpc("router")
@@ -2084,7 +2077,7 @@ def _fleet_model(params, x):
     so a "bad build" is just a params publish away."""
     if params.get("poison"):
         raise RuntimeError("poisoned canary build")
-    return _scaled(params, x)
+    return _scale_model(params, x)
 
 
 def scenario_fleet_controller_kill(seed: int, *, requests: int = 240,

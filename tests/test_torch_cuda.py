@@ -1172,3 +1172,38 @@ def test_per_device_pipeline_memory_scales_with_shard_not_stream(card_world):
     for m in _pipeline_memory(card_world, "forward", F=F, n_micro=n_micro):
         assert m["total"] < budget, (m, budget)
         assert m["total"] < full_bytes, (m, full_bytes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attn_bench_head_width_kernels_match_plain(card, dtype):
+    """Every kernel of attn_bench's path at [1, 8, 512, 128], causal, no
+    segments (its head width, several 64-row tiles): flash_fwd, then
+    flash_bwd_dq and flash_bwd_dkdv on its o and lse with a seeded dO,
+    each held against its plain version at the tolerances above, each
+    launched once."""
+    gen = torch.Generator(device=card).manual_seed(128)
+    B, H, T, D = 1, 8, 512, 128
+    q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device=card)
+                   .to(dtype) for _ in range(4))
+    seg = torch.zeros((B, T), dtype=torch.int32, device=card)
+    kerns = (_kernels.FLASH_FWD, _kernels.FLASH_BWD_DQ,
+             _kernels.FLASH_BWD_DKDV)
+    before = [kern.launches for kern in kerns]
+    o, lse = _kernels.flash_fwd(q, k, v, seg, seg, True)
+    delta = tattn._flash_delta(o, do)
+    dq = _kernels.flash_bwd_dq(q, k, v, seg, seg, lse, delta, do, True)
+    dk, dv = _kernels.flash_bwd_dkdv(q, k, v, seg, seg, lse, delta, do,
+                                     True)
+    torch.cuda.synchronize()
+    assert [kern.launches - n for kern, n in zip(kerns, before)] == [1] * 3
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    o_ref, lse_ref = tattn._flash_forward_plain(q, k, v, seg, seg, True)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-4,
+                               rtol=rtol)
+    want = tattn._flash_backward_plain(q, k, v, seg, seg, o, lse, do, True)
+    for g, ref in zip((dq, dk, dv), want):
+        assert g.dtype == dtype
+        scale = float(ref.float().abs().max())
+        torch.testing.assert_close(g.float(), ref.float(),
+                                   atol=1e-4 * scale, rtol=rtol)

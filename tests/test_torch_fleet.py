@@ -319,3 +319,25 @@ def test_fleet_scenario_replays_its_pinned_log(name):
     fn = scenarios.SCENARIOS[name]
     assert fn(seed, device="cpu") == want
     assert fn(seed, device="cpu") == want
+
+
+def test_default_model_scales_on_the_requests_device():
+    """The Controller's default model (a fleet built without one, as the
+    perf suite's fleet_rollout_s row builds it) multiplies on the
+    request's device: a published scale arrives as a 0-d numpy array,
+    and ``tensor * ndarray`` reads a card tensor back to the host (a
+    meta tensor stands in for one: it has no host copy either)."""
+    import torch
+
+    from moolib_tpu_torch.fleet.controller import default_model
+
+    model, params = default_model()
+    x = torch.ones(4, device="meta")
+    scale = np.array(3.0, np.float32)
+    with pytest.raises((TypeError, NotImplementedError)):
+        x * scale  # noqa: B018
+    out = model({"scale": scale}, x)
+    assert out.device == x.device and out.dtype == torch.float32
+    assert torch.equal(model(params, torch.ones(2)), torch.full((2,), 2.0))
+    assert torch.equal(model({"scale": scale}, torch.ones(2)),
+                       torch.full((2,), 3.0))

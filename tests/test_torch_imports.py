@@ -76,7 +76,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "tools.serving_load", "parallel.mesh",
                 "parallel.distributed", "parallel.collectives",
                 "parallel.tp", "parallel.pipeline", "ops.ring_attention",
-                "testing.spmd", "tools.dryrun_multichip"):
+                "testing.spmd", "tools.dryrun_multichip", "bench.trends",
+                "bench.budgets", "bench.suite", "testing.hotwatch",
+                "ops.batchsizefinder", "tools.perf", "tools.telemetry_smoke",
+                "tools.attn_bench", "tools.perf_sweep", "tools.roofline",
+                "tools.envpool_bench", "tools.chip_session"):
         assert f"moolib_tpu_torch.{mod}" in got["modules"], mod
     assert got["bad"] == [], got["bad"]
 
@@ -183,7 +187,13 @@ print(json.dumps(sorted(
     "moolib_tpu_torch.testing.paritywatch",
     "moolib_tpu_torch.testing.chaos_env",
     "moolib_tpu_torch.tools.chaos_soak",
-    "moolib_tpu_torch.tools.serving_load"])
+    "moolib_tpu_torch.tools.serving_load", "moolib_tpu_torch.bench",
+    "moolib_tpu_torch.bench.suite", "moolib_tpu_torch.testing.hotwatch",
+    "moolib_tpu_torch.ops.batchsizefinder", "moolib_tpu_torch.tools.perf",
+    "moolib_tpu_torch.tools.telemetry_smoke",
+    "moolib_tpu_torch.tools.attn_bench", "moolib_tpu_torch.tools.perf_sweep",
+    "moolib_tpu_torch.tools.roofline", "moolib_tpu_torch.tools.envpool_bench",
+    "moolib_tpu_torch.tools.chip_session"])
 def test_durable_state_fault_engine_and_fleet_import_alone_cleanly(module):
     """Each of this slice's sub-packages and smokes, imported alone in a
     fresh interpreter, pulls in no JAX, no ml_dtypes and nothing of the
@@ -218,6 +228,29 @@ def test_chaos_step_env_module_imports_no_torch():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+_LIGHT_PERF = r"""
+import json, sys
+import moolib_tpu_torch.bench
+import moolib_tpu_torch.bench.suite
+import moolib_tpu_torch.tools.perf
+import moolib_tpu_torch.tools.envpool_bench
+print(json.dumps(sorted(m for m in ("torch", "jax", "moolib_tpu")
+                        if m in sys.modules)))
+"""
+
+
+def test_perfwatch_modules_that_spawn_env_workers_import_no_torch():
+    """The bench package (an EnvPool worker unpickles the suite's
+    TrivialEnv from it), the perf CLI and envpool_bench (their workers
+    import them again as the main module) pull in no torch at import."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _LIGHT_PERF], cwd=str(REPO_ROOT),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 def test_lazy_testing_exports_resolve():
     from moolib_tpu_torch import testing
     from moolib_tpu_torch.testing import chaos, paritywatch, restrack
@@ -225,6 +258,9 @@ def test_lazy_testing_exports_resolve():
     assert testing.FaultPlan is chaos.FaultPlan
     assert testing.ParityWatch is paritywatch.ParityWatch
     assert testing.ResourceTracker is restrack.ResourceTracker
+    from moolib_tpu_torch.testing import hotwatch
+
+    assert testing.Hotwatch is hotwatch.Hotwatch
     for name in testing.__all__:
         assert getattr(testing, name) is not None, name
     with pytest.raises(AttributeError):

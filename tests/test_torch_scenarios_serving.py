@@ -79,7 +79,7 @@ def test_toy_model_scales_on_the_requests_device():
     scale = np.array(3.0, np.float32)
     with pytest.raises((TypeError, NotImplementedError)):
         x * scale  # noqa: B018
-    out = scenarios._scaled({"scale": scale}, x)
+    out = scenarios._scale_model({"scale": scale}, x)
     assert out.device == x.device and out.dtype == torch.float32
     host = scenarios._fleet_model({"scale": scale}, torch.ones(4))
     assert torch.equal(host, torch.full((4,), 3.0))
