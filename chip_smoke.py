@@ -134,9 +134,10 @@ Phases, in order; any failure exits non-zero before the result line:
    on it held against the same step on the CPU at phase 6's
    tolerances; a pool with device="cuda" whose staged step equals the
    plain loop's. (b) train() of experiment.py, model=transformer, for
-   45 s with its defaults (32 envs, 2 workers, T=20, learn batch 32,
-   ClippedRMSprop, bf16), checkpointing at every chance into
-   build/e2e/, then a 10 s resume from it, then the same loop for 20 s
+   E2E_SECONDS with its defaults (32 envs, 2 workers, T=20, learn batch
+   32, ClippedRMSprop, bf16), checkpointing at every chance into
+   build/e2e/, then an E2E_RESUME_SECONDS resume from it, then the same
+   loop for E2E_PLAIN_SECONDS
    without a savedir, its updates [10, 13) traced by profile_dir
    (torch.profiler). Checks: at least 10 updates, finite losses, global
    env steps counted, model_version carried over, flash_fwd and
@@ -149,7 +150,8 @@ Phases, in order; any failure exits non-zero before the result line:
    without a savedir, its rates and ledger, the device's busy time and
    idle share in the traced window, and the
    host's heaviest CUDA runtime calls and operators there. (c)
-   bench_e2e_torch.py (the bf16 ImpalaNet loop at B=64, 30 s) in a
+   bench_e2e_torch.py (the bf16 ImpalaNet loop at B=64,
+   E2E_BENCH_SECONDS) in a
    process of its own: its JSON line, its ledger and its env worker
    deaths (none allowed) from the JSON line it prints on stderr, and its
    rate beside phase 8's bench_torch.py learner-only rate. [e2e] lines.
@@ -168,13 +170,14 @@ Phases, in order; any failure exits non-zero before the result line:
    the CPU on the card's routing (phase 6's tolerances); two flash_fwd
    and two flash_bwd_tile launches a step, dQ and dK/dV none; the step's
    time and one profiled step. (c) experiment.py's train() with
-   transformer_mlp=moe, no savedir, 20 s: at least 10 updates, finite
+   transformer_mlp=moe, no savedir, ZOO_E2E_SECONDS: at least 10
+   updates, finite
    losses, moe_drop_fraction logged. (d) NetHackNet's f32 grad step on
    a learn batch of config_nethack.yaml's shape against an f64 step
    (each tensor within the larger of 1e-3 and 3x the CPU f32 step's own
    distance), the same bounds failed by a trunk with TF32 convolutions
    and by a bf16 trunk; then
-   train() at config_nethack.yaml's settings for 20 s (4 actor
+   train() at config_nethack.yaml's settings for NETHACK_SECONDS (4 actor
    processes, not 8): updates, finite losses, no env worker death, the
    LSTM state carried into the unrolls. (e) examples/a2c.py on CartPole
    at LEARNING_r04.json's settings (80,000 steps): return > 100 in at
@@ -234,10 +237,12 @@ Phases, in order; any failure exits non-zero before the result line:
    rejoin, materialize, promote, rollback and adoption seconds, and
    requests/s and failed requests during each rollout.
 14. Chaos and parity. (a) The port's chaos soak in a child process,
-    ``python -m moolib_tpu_torch.tools.chaos_soak --smoke --restrack``:
-    all 18 scenarios must pass with no leaked thread, shm segment, Rpc
-    or gauge, the serving and fleet scenarios' replicas on the card
-    (its stderr in build/chaos_soak.log). (b) Three Replicas of phase
+    ``python -m moolib_tpu_torch.tools.chaos_soak --smoke --restrack
+    --locktrace --device cuda``: all 18 scenarios must pass with no
+    leaked thread, shm segment, Rpc or gauge, the serving and fleet
+    scenarios' replicas on the card (its stderr in
+    build/chaos_soak.log), and the observed lock-order edges must be
+    above 0, acyclic and inside static_package_edges() (phase 17 (e)). (b) Three Replicas of phase
     5's act step (32 envs at T=1, BATCH 4) on the card behind a port
     Router; after two warm-up waves of 8 requests through the Router
     (replies checked, not counted), 8 closed-loop clients send 240
@@ -315,7 +320,49 @@ Phases, in order; any failure exits non-zero before the result line:
     the disabled recorder's silence and the disabled-mode overhead under
     5% of the RPC echo. [perf] lines carry the card's name and power
     limit; the phase prints its seconds.
-17. The kernels line (with the ledgers, the bundles' summaries and the
+17. The operator plane (target 150 s). (a) ``python -m
+    moolib_tpu_torch.examples.launch local --peers 2`` starts the port's
+    broker and two experiment.py peers of the full-width TransformerNet
+    on the card (experiment.py's transformer width, phase 6's learn
+    batch [21, 32] in bf16, the synthetic env, tracing on), each bounded
+    by OPS_LAUNCH_SECONDS: both exit 0 with updates in one group, every
+    window that holds a local gradient step (its grad_steps column)
+    logs a finite loss and every window without one logs NaN (an empty
+    mean), at least two windows with steps a peer, and the flash_fwd
+    and flash_bwd_tile launches each peer prints at its end summed into
+    "launch transformer" (both must be above 0; the kernels' agreement
+    with their plain versions at these shapes is phases 3, 4 and 6's).
+    (b) While they train, telemetry_dump (--spans --prometheus
+    --bundle), incident_report and stepscope_report --connect dial the
+    broker's address alone: both peers found by each, the Prometheus
+    texts parse, every bundle validates, the merged timeline is in time
+    order with no handle span before its call, and each peer's
+    vtrace_learner ledger closes on its wall time (5%). (c) elastic_soak
+    with card peers, 102 s, a kill every 15 s (the reference's 25 s in
+    five minutes, scaled to fit), a 45 s stall window (the reference's):
+    its three criteria, which these settings make bite: the tool exempts
+    a replacement born within its last kill interval and 30 s, and the
+    replacement born at the second kill (the third kill takes the
+    other original peer) is born before that, so it must train; this
+    phase also requires that every replacement born before that line
+    and never killed reached its first update while the soak ran (its
+    seconds to it, rejoin_s, are a reading).
+    (d) config_matrix --seconds 10 on the card: all five configs with env
+    steps, updates and a finite loss (a child a config, all five at
+    once). (e) chaos_soak --smoke --locktrace --device cuda: phase 14's
+    soak, which runs under the lock tracer on a quiet host (beside this
+    phase's other parts two of its timed gates failed once): 18
+    scenarios, observed edges above 0, acyclic and inside
+    static_package_edges(). (c) starts with (a), (d) and (f) once (a)'s
+    peers have updated. (f) On the card
+    machine's host, beside the other parts: allreduce_decomp at its
+    defaults (the host's cpu_count reported), allreduce_latency_ab --mb
+    8 and env_packages_report (no network probe); gen_api_docs --check
+    and learning_curve's artifact keys need no card and are the CPU
+    tests' (tests/test_torch_tools_ops.py). [ops] lines carry the card's
+    name and power limit; outputs go under build/ops/; the phase prints
+    its seconds.
+18. The kernels line (with the ledgers, the bundles' summaries and the
     RPC, accumulate, e2e, zoo, statestore and chaos phases' readings;
     launches_by_path includes "rpc act" and "rpc context", the child's
     launches, "acc", both processes' launches in the accumulate phase's
@@ -325,7 +372,8 @@ Phases, in order; any failure exits non-zero before the result line:
     "statestore serve" and "fleet", and phase 14's "chaos replica
     kill", "parity kernels" and "parity train", and phase 15's "md dp
     nccl", "md sp nccl", "md dp", "md sp", "md tp", "md pp" and "md
-    ep", and phase 16's "attn bench", "bsf act" and "suite"; each attention
+    ep", phase 16's "attn bench", "bsf act" and "suite", and phase 17's
+    "launch transformer", the launched peers' sum; each attention
     kernel's row carries its phase 16 rows at D=128), the card line, and
     the result line.
 
@@ -334,7 +382,7 @@ observability checks and readings, [rpc] lines the RPC phase's, [acc]
 lines the accumulate phase's, [e2e] lines the e2e phase's, [zoo] lines
 the zoo phase's, [statestore] and [fleet] lines phase 13's, [chaos] and
 [parity] lines phase 14's, [md] lines phase 15's, [perf] lines phase
-16's.
+16's, [ops] lines phase 17's.
 
     python3 chip_smoke.py --races N
 
@@ -3572,13 +3620,13 @@ E2E_ENVS, E2E_WORKERS = 32, 2   # the data path's pool: 2 workers x 16 envs
 # The data path's episode length: odd, so that the resets fall in both
 # buffers (the two buffers step the same envs in turn).
 E2E_EPISODE = 7
-E2E_SECONDS = 45.0   # the transformer loop's run
-E2E_RESUME_SECONDS = 10.0
-E2E_PLAIN_SECONDS = 20.0  # the same loop without a savedir, profiled
+E2E_SECONDS = 18.0   # the transformer loop's run
+E2E_RESUME_SECONDS = 6.0
+E2E_PLAIN_SECONDS = 8.0  # the same loop without a savedir, profiled
 E2E_PROFILE_DIR = os.path.join("build", "e2e_profile")
 # Short: the whole script must stay well inside its 1200 s limit as it
 # grows, and the rate needs no longer window.
-E2E_BENCH_SECONDS = 30.0
+E2E_BENCH_SECONDS = 12.0
 E2E_BENCH_TIMEOUT_S = 300.0
 E2E_SAVEDIR = os.path.join("build", "e2e")
 # A uniform policy's episode return on the synthetic env: 200 steps, one
@@ -4037,8 +4085,8 @@ ROUTE_PROB_TOL = 1e-5
 ZOO_ACT_WAVES = [[0, 1, 2, 3], [4, 5, 6, 0]]   # checked act batches
 ZOO_CONTEXT_WAVES = [[0, 1, 2, 3]]             # the checked context batch
 ZOO_STEADY_WAVES = {"act": 16, "context": 4}   # unchecked, for the rates
-ZOO_E2E_SECONDS = 20.0
-NETHACK_SECONDS = 20.0  # short, as E2E_BENCH_SECONDS
+ZOO_E2E_SECONDS = 14.0
+NETHACK_SECONDS = 12.0  # short, as E2E_BENCH_SECONDS
 NETHACK_COND = 3.0  # the card's f32 gradients against the f64 step's
 # config_nethack.yaml asks for 8 actor processes; the card machine has 8
 # cores for them, the learner and the actor loop: 4.
@@ -4050,7 +4098,7 @@ NETHACK_ACTOR_PROCESSES = 4
 # learner window (20 s, the actors stopping 8 s before it) lost that race
 # to the actors' start-up (interpreter, imports, the pool's spawn) on a
 # loaded host.
-REMOTE_ACTOR_SECONDS = 12.0
+REMOTE_ACTOR_SECONDS = 8.0
 REMOTE_LEARNER_CAP_S = 150.0
 # (env, num_actions, actor processes, whether a forward must stack two
 # calls). Each actor has one call in flight, so two convoy against the
@@ -5513,12 +5561,13 @@ def plog(msg: str, smi: str) -> None:
 
 def _chaos_soak(smi) -> dict:
     """Phase 14 (a): every scenario of the port's chaos soak under the
-    resource tracker, in a child process whose serving and fleet
-    replicas sit on the card (the soak's default device). The child's
-    exit code decides; its stderr goes to SOAK_LOG."""
+    resource tracker and the lock tracer (phase 17 (e) reads the
+    latter), in a child process whose serving and fleet replicas sit on
+    the card. The child's exit code decides; its stderr goes to
+    SOAK_LOG."""
     os.makedirs("build", exist_ok=True)
     cmd = [sys.executable, "-m", "moolib_tpu_torch.tools.chaos_soak",
-           "--smoke", "--restrack",
+           "--smoke", "--restrack", "--locktrace", "--device", "cuda",
            "--incident-dir", os.path.join("build", "incidents")]
     t0 = time.perf_counter()
     with open(SOAK_LOG, "w") as err:
@@ -5541,10 +5590,12 @@ def _chaos_soak(smi) -> dict:
     except (IndexError, ValueError):
         report = {}
     passed = [ln for ln in lines if ln.startswith("ok ")]
+    locktrace = report.get("locktrace", {})
     if (proc.returncode != 0 or not report.get("ok")
             or report.get("runs") != SOAK_SCENARIOS
             or len(passed) != SOAK_SCENARIOS
-            or report.get("restrack", {}).get("leaked") != {}):
+            or report.get("restrack", {}).get("leaked") != {}
+            or not locktrace.get("edges") or "violation" in locktrace):
         with open(SOAK_LOG) as f:
             tail = f.read()[-4000:]
         raise RuntimeError(f"the chaos soak failed (exit {proc.returncode}"
@@ -5552,10 +5603,14 @@ def _chaos_soak(smi) -> dict:
                            f"{tail}")
     clog(f"soak: {len(passed)} scenarios passed, restrack "
          f"{report['restrack']['tracked']} acquisitions, none leaked; "
-         f"{seconds:.1f} s with the child's start", smi)
+         f"locktrace {locktrace['edges']} observed lock-order edges, "
+         f"acyclic, within static_package_edges(); {seconds:.1f} s with "
+         f"the child's start", smi)
     return dict(seconds=seconds, total_seconds=report["total_seconds"],
                 scenario_seconds=report["scenario_seconds"],
-                tracked=report["restrack"]["tracked"])
+                tracked=report["restrack"]["tracked"],
+                locktrace=dict(edges=locktrace["edges"], runs=len(passed),
+                               seconds=seconds))
 
 
 def _kill_requests():
@@ -7037,6 +7092,466 @@ def phase_perfwatch(smi: str, impala_mfu: float) -> dict:
                   "suite": suite["launches"]})
 
 
+# -- phase 17: the operator plane ---------------------------------------------
+
+OPS_DIR = os.path.join("build", "ops")
+OPS_LAUNCH_SECONDS = 20.0  # each transformer peer's train() after start-up
+OPS_LAUNCH_TIMEOUT_S = 300.0
+# 102 s, a kill every 15 s (a kill falls on the soak's first 2 s poll
+# past the interval: ~16, 33, 49, 66, 82, 98 s). elastic_soak exempts a
+# replacement born after its end less a kill interval and 30 s (~57 s),
+# and seed 0's victims (1, 2, 0, 4, 5, 6) leave the one born at the
+# second kill alive, so it must train within ~69 s of its spawn (32-57 s
+# on an H100 machine beside this phase's load); the one born at the
+# fourth kill is exempt by ~9 s (see _ops_soak).
+OPS_SOAK_MINUTES, OPS_SOAK_KILL_S = 1.7, 15.0
+OPS_SOAK_ARGS = ("--minutes", f"{OPS_SOAK_MINUTES:g}", "--peers", "2",
+                 "--kill-interval", f"{OPS_SOAK_KILL_S:g}",
+                 "--stall-window", "45")
+OPS_SOAK_EXEMPT_S = 30.0   # elastic_soak's start-up grace past a kill
+OPS_CONFIG_SECONDS = 10
+OPS_CHILD_TIMEOUT_S = 420.0
+OPS_CRAWL_DISCOVER_S = 3.0
+OPS_LEDGER_TOL = 0.05      # stepscope_report's ledger-closure tolerance
+OPS_TARGET_S = 150.0
+
+
+def olog(msg: str, smi: str) -> None:
+    """An [ops] line, with the card's name and power limit."""
+    log(f"[ops] {msg} | card: {smi}")
+
+
+class _OpsChild:
+    """A tool run as ``python -m`` in a session of its own (a failed
+    phase kills it with every process it started), its output in
+    ``OPS_DIR/<name>.log``; ``seconds`` is its wall time from start to
+    exit."""
+
+    def __init__(self, name: str, args):
+        self.name = name
+        self.path = os.path.join(OPS_DIR, f"{name}.log")
+        self._log = open(self.path, "w")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", *args], stdout=self._log,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        self.seconds = None
+
+        def reap():
+            self.proc.wait()
+            self.seconds = time.perf_counter() - t0
+
+        self._reaper = threading.Thread(target=reap, daemon=True)
+        self._reaper.start()
+
+    def wait(self, timeout: float) -> str:
+        """Its output once it exits; raises if it outlives ``timeout``."""
+        try:
+            self.proc.wait(timeout=max(1.0, timeout))
+        finally:
+            self.kill()
+        with open(self.path) as f:
+            return f.read()
+
+    def kill(self) -> None:
+        """End its session: it and whatever it started (an env worker
+        can outlive its peer's kill by a second). One still running gets
+        SIGTERM first, so that a tool whose own children sit in sessions
+        of their own (elastic_soak's peers) can end them."""
+        if self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, 15)
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                self.proc.wait(timeout=15)
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, 9)
+        self.proc.wait()
+        self._reaper.join()
+        self._log.close()
+
+    def last_json(self, out: str) -> dict:
+        for line in reversed(out.strip().splitlines()):
+            if line.startswith("{"):
+                return json.loads(line)
+        raise RuntimeError(f"{self.name} printed no JSON line:\n{out[-3000:]}")
+
+
+def _ops_launch_start(savedir: str):
+    """(a) ``launch local`` of two full-width TransformerNet peers on the
+    card (experiment.py's own width, phase 6's learn batch [21, 32] in
+    bf16, the synthetic env), tracing on; returns the launcher, its
+    output lines (read on a thread), and the broker's address (a dict)
+    with an event set once it is out."""
+    shutil.rmtree(savedir, ignore_errors=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "moolib_tpu_torch.examples.launch", "local",
+         "--peers", "2", "--savedir", savedir, "--", "model=transformer",
+         "env=synthetic", "seed=0", f"max_seconds={OPS_LAUNCH_SECONDS:g}",
+         "log_interval_steps=2000", "stats_interval=2.0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True, env={**os.environ, "MOOLIB_TPU_TRACE": "1"})
+    lines, broker, up = [], {}, threading.Event()
+
+    def read():
+        with open(os.path.join(OPS_DIR, "launch.log"), "w") as f:
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+                f.write(line)
+                if "listening on" in line and not up.is_set():
+                    broker["address"] = line.rsplit(" ", 1)[-1].strip()
+                    up.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return proc, lines, (broker, up), reader
+
+
+def _ops_peer_rows(savedir: str):
+    from moolib_tpu_torch.examples.plot import read_tsv
+
+    out = []
+    for i in range(2):
+        path = os.path.join(savedir, f"peer{i}", "logs.tsv")
+        out.append(read_tsv(path) if os.path.exists(path) else [])
+    return out
+
+
+def _ops_crawl(addr: str, smi: str) -> dict:
+    """(b) telemetry_dump --spans, incident_report and stepscope_report
+    --connect against the live cohort, each dialing the broker's address
+    alone; every peer found, the tools' own validation, and the
+    vtrace_learner ledgers closing."""
+    from moolib_tpu_torch.flightrec import load_bundle
+    from moolib_tpu_torch.tools import (incident_report, stepscope_report,
+                                        telemetry_dump)
+
+    out = {}
+    dump = os.path.join(OPS_DIR, "dump")
+    t0 = time.perf_counter()
+    rc = telemetry_dump.main([
+        "--connect", addr, "--spans", "--prometheus", "--bundle", "--out",
+        dump, "--discover-seconds", f"{OPS_CRAWL_DISCOVER_S:g}"])
+    out["telemetry_dump_s"] = time.perf_counter() - t0
+    with open(os.path.join(dump, "metrics.json")) as f:
+        metrics = json.load(f)
+    with open(os.path.join(dump, "trace.json")) as f:
+        trace = json.load(f)
+    peers = sorted(p for p in metrics if p.startswith("vtrace-"))
+    spans = sum(1 for e in trace["traceEvents"] if e.get("ph") == "X")
+    bundles = [load_bundle(os.path.join(dump, "bundles", n))
+               for n in sorted(os.listdir(os.path.join(dump, "bundles")))]
+    if rc != 0 or len(peers) != 2 or not spans \
+            or len(bundles) != len(metrics):
+        raise RuntimeError(f"telemetry_dump (exit {rc}) found {sorted(metrics)}"
+                           f", {spans} spans, {len(bundles)} bundles")
+    rep = os.path.join(OPS_DIR, "incident")
+    t0 = time.perf_counter()
+    rc = incident_report.main([
+        "--connect", addr, "--out", rep, "--discover-seconds",
+        f"{OPS_CRAWL_DISCOVER_S:g}"])
+    out["incident_report_s"] = time.perf_counter() - t0
+    with open(os.path.join(rep, "report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(rep, "timeline.jsonl")) as f:
+        timeline = [json.loads(line) for line in f]
+    for path in report["bundles"].values():
+        load_bundle(path)
+    calls = {r["trace_id"]: r["ts_us"] for r in timeline
+             if r["type"] == "span" and r["name"].startswith("call ")}
+    pairs = [(r["trace_id"], r["ts_us"]) for r in timeline
+             if r["type"] == "span" and r["name"].startswith("handle ")
+             and r["trace_id"] in calls]
+    late = [t for t, ts in pairs if ts < calls[t]]
+    stamps = [r["ts_us"] for r in timeline]
+    if (rc != 0 or [p for p in report["peers"] if p.startswith("vtrace-")]
+            != peers or not timeline or late or stamps != sorted(stamps)):
+        raise RuntimeError(f"incident_report (exit {rc}): peers "
+                           f"{report['peers']}, {len(timeline)} records, "
+                           f"{len(late)} handle spans before their call")
+    t0 = time.perf_counter()
+    ss = os.path.join(OPS_DIR, "stepscope")
+    rc = stepscope_report.main([
+        "--connect", addr, "--out", ss, "--discover-seconds",
+        f"{OPS_CRAWL_DISCOVER_S:g}"])
+    out["stepscope_report_s"] = time.perf_counter() - t0
+    with open(os.path.join(ss, "report.json")) as f:
+        summaries = json.load(f)["peers"]
+    closure = {}
+    for p in peers:
+        led = summaries.get(p, {}).get("vtrace_learner")
+        if rc != 0 or not led or not led["steps"]:
+            raise RuntimeError(f"stepscope_report (exit {rc}): no "
+                               f"vtrace_learner ledger of {p}: "
+                               f"{sorted(summaries)}")
+        closure[p] = stepscope_report.check_ledger_closure(
+            {"vtrace_learner": led}, OPS_LEDGER_TOL)
+        olog(f"(b) {p}'s vtrace_learner ledger: {led['steps']} steps, "
+             f"{led['wall_s']:.2f} s, phases "
+             f"{ {k: round(v, 3) for k, v in led['phases'].items()} }; "
+             f"closes within {closure[p]:.2e}", smi)
+    olog(f"(b) crawled from the broker {addr} alone: telemetry_dump "
+         f"{out['telemetry_dump_s']:.2f} s ({len(metrics)} peers, {spans} "
+         f"spans, {len(bundles)} bundles), incident_report "
+         f"{out['incident_report_s']:.2f} s ({len(timeline)} records, "
+         f"{len(pairs)} call/handle pairs in causal order, offsets "
+         f"{report['offsets_us']} us), stepscope_report "
+         f"{out['stepscope_report_s']:.2f} s", smi)
+    return dict(out, peers=len(metrics), spans=spans,
+                timeline_records=len(timeline), causal_pairs=len(pairs),
+                ledger_closure=closure)
+
+
+def _ops_launch_finish(proc, lines, reader, savedir: str, smi: str) -> dict:
+    """(a)'s checks once the launcher has exited."""
+    reader.join(timeout=30)
+    done = [json.loads(line) for line in lines
+            if line.startswith('{"updates"')]
+    rows = _ops_peer_rows(savedir)
+    if proc.returncode != 0 or len(done) != 2:
+        raise RuntimeError(f"launch local exited {proc.returncode} with "
+                           f"{len(done)} peer reports:\n"
+                           + "\n".join(lines[-40:]))
+    groups = set()
+    peers = []
+    for i, peer_rows in enumerate(rows):
+        with open(os.path.join(savedir, f"peer{i}", "metadata.json")) as f:
+            groups.add(json.load(f)["config"]["group"])
+        # A window in which this peer took no gradient step logs NaN (an
+        # empty mean: before its first step, or while its group
+        # re-formed); one that took a step must log a finite loss.
+        losses = [r["total_loss"] for r in peer_rows]
+        steps = [int(r["grad_steps"]) for r in peer_rows]
+        bad = [(n, v) for n, v in zip(steps, losses)
+               if (math.isfinite(v) if n == 0 else not math.isfinite(v))]
+        logged = [v for n, v in zip(steps, losses) if n]
+        if len(logged) < 2 or bad or not peer_rows[-1]["updates"]:
+            raise RuntimeError(f"peer{i}: {len(peer_rows)} rows, (grad "
+                               f"steps, loss) {list(zip(steps, losses))}")
+        rates = _rates(peer_rows)
+        peers.append(dict(rows=len(peer_rows),
+                          updates=peer_rows[-1]["updates"],
+                          global_env_steps=peer_rows[-1]["global_env_steps"],
+                          empty_windows=len(losses) - len(logged),
+                          grad_steps=sum(steps),
+                          **rates))
+    if len(groups) != 1:
+        raise RuntimeError(f"the peers trained in groups {groups}")
+    launches = {k: sum(d["kernel_launches"].get(k, 0) for d in done)
+                for k in done[0]["kernel_launches"]}
+    if not (launches.get("flash_fwd") and launches.get("flash_bwd_tile")):
+        raise RuntimeError(f"the launched peers did not run the flash "
+                           f"kernels: {done}")
+    for i, p in enumerate(peers):
+        olog(f"(a) peer{i}: {p['rows']} rows, {p['updates']:g} updates, "
+             f"{p['env_steps_per_s']:.1f} env-steps/s, "
+             f"{p['updates_per_s']:.2f} updates/s (first to last row), "
+             f"global env steps {p['global_env_steps']:g}, "
+             f"{p['grad_steps']} local gradient steps, "
+             f"{p['empty_windows']} windows without one (NaN loss)", smi)
+    olog(f"(a) launch local: 2 full-width TransformerNet peers, "
+         f"{OPS_LAUNCH_SECONDS:g} s each, group {groups.pop()!r}; the "
+         f"peers' flash launches {[d['kernel_launches'] for d in done]}",
+         smi)
+    return dict(peers=peers, launches=launches)
+
+
+def _ops_soak(child: _OpsChild, timeout: float, smi: str) -> dict:
+    """(c) elastic_soak's three criteria with card peers. The tool holds
+    a replacement to its first update only where it was born before its
+    end less a kill interval and OPS_SOAK_EXEMPT_S; here at least one
+    replacement that was never killed must be born before that line,
+    and every such one must have reached its first update while the
+    soak ran (``rejoin_s``)."""
+    out = child.wait(timeout)
+    rep = child.last_json(out)
+    with open(os.path.join(OPS_DIR, "soak.json")) as f:
+        art = json.load(f)
+    history = art["churn_history"]
+    killed = {h["killed"] for h in history}
+    line = (art["startup_s"] + OPS_SOAK_MINUTES * 60 - OPS_SOAK_KILL_S
+            - OPS_SOAK_EXEMPT_S)
+    held = [h["spawned"] for h in history
+            if h["t"] < line and h["spawned"] not in killed]
+    missing = [i for i in held if str(i) not in art["rejoin_s"]]
+    if child.proc.returncode != 0 or not rep["ok"] or not art["kills"] \
+            or not held or missing:
+        raise RuntimeError(f"elastic_soak (exit {child.proc.returncode}): "
+                           f"replacements held to their first update "
+                           f"{held}, without one {missing}: {rep}\n"
+                           f"{out[-3000:]}")
+    olog(f"(c) elastic_soak {' '.join(OPS_SOAK_ARGS)}: ok, {art['kills']} "
+         f"kills, replacements held to their first update {held}; "
+         f"replacements' seconds to their first update "
+         f"{art['rejoin_s']}, start-up {art['startup_s']} s, peak live "
+         f"updates {art['peak_live_updates_sum']}; {child.seconds:.1f} s",
+         smi)
+    return dict(kills=art["kills"], rejoin_s=art["rejoin_s"], held=held,
+                startup_s=art["startup_s"],
+                peak_live_updates_sum=art["peak_live_updates_sum"],
+                seconds=child.seconds)
+
+
+def _ops_configs_start() -> dict:
+    """(d) config_matrix --seconds OPS_CONFIG_SECONDS on the card, one
+    child a config (``--only``), all five at once: the configs share no
+    state, and their set-up (process, CUDA, env workers) is most of a
+    config's wall time."""
+    return {i: _OpsChild(f"config{i}", [
+        "moolib_tpu_torch.tools.config_matrix", "--seconds",
+        str(OPS_CONFIG_SECONDS), "--only", str(i), "--json",
+        os.path.join(OPS_DIR, f"config{i}.json")]) for i in range(1, 6)}
+
+
+def _ops_configs(children: dict, timeout: float, smi: str) -> dict:
+    """(d)'s checks: every config with env steps, updates and a finite
+    loss."""
+    configs, bad, seconds = {}, [], {}
+    for i, child in children.items():
+        out = child.wait(timeout)
+        seconds[i] = child.seconds
+        with open(os.path.join(OPS_DIR, f"config{i}.json")) as f:
+            res = json.load(f)["configs"][str(i)]
+        configs[str(i)] = res
+        runs = list(res["peers"].values()) if "peers" in res else [res]
+        if child.proc.returncode != 0 or not res.get("ok") or not all(
+                r.get("env_steps", 0) > 0 and r.get("updates", 0) > 0
+                and r.get("total_loss") is not None
+                and math.isfinite(r["total_loss"]) for r in runs):
+            bad.append((i, child.proc.returncode, out[-2000:]))
+        olog(f"(d) config {i} ({res['label']}): "
+             + "; ".join(f"{r.get('env_steps')} env steps, "
+                         f"{r.get('updates')} updates, loss "
+                         f"{r.get('total_loss')}" for r in runs)
+             + f"; the tool's wall {res['wall_s']} s, {child.seconds:.1f} s "
+             "with its process", smi)
+    if bad:
+        raise RuntimeError(f"config_matrix failed configs {bad}")
+    return dict(configs=configs, seconds=seconds)
+
+
+def _ops_locktrace(locktrace: dict, smi: str) -> dict:
+    """(e) chaos_soak --smoke --locktrace --device cuda: phase 14's soak
+    runs under the lock tracer (and the resource tracker) on a quiet
+    host, and that phase fails unless the observed edges are above 0,
+    acyclic and inside static_package_edges(). Beside this phase's
+    other parts, two of its timed gates (fleet_bad_canary's rollback
+    window, envpool_worker_kill's respawn) failed once."""
+    olog(f"(e) chaos_soak --smoke --restrack --locktrace --device cuda "
+         f"(phase 14's soak): {locktrace['runs']} scenarios ok, "
+         f"{locktrace['edges']} observed lock-order edges, acyclic, within "
+         f"static_package_edges(); {locktrace['seconds']:.1f} s", smi)
+    return locktrace
+
+
+def _ops_host_tools(smi: str) -> dict:
+    """(f) the host tools on the card machine's host (its cores, not the
+    card), beside the phase's other parts."""
+    from moolib_tpu_torch.tools import env_packages_report
+
+    out = {}
+    for name, args, timeout in (
+            ("decomp", ["moolib_tpu_torch.tools.allreduce_decomp", "--json",
+                        os.path.join(OPS_DIR, "decomp.json")], 300.0),
+            ("latency_ab", ["moolib_tpu_torch.tools.allreduce_latency_ab",
+                            "--mb", "8", "--json",
+                            os.path.join(OPS_DIR, "latency_ab.json")],
+             300.0)):
+        child = _OpsChild(name, args)
+        text = child.wait(timeout)
+        out[name] = dict(seconds=child.seconds,
+                         rc=child.proc.returncode, text=text)
+    for name in out:
+        if out[name]["rc"] != 0:
+            raise RuntimeError(f"{name} exited {out[name]['rc']}:\n"
+                               f"{out[name]['text'][-3000:]}")
+    with open(os.path.join(OPS_DIR, "decomp.json")) as f:
+        decomp = json.load(f)
+    with open(os.path.join(OPS_DIR, "latency_ab.json")) as f:
+        ab = json.load(f)
+    if decomp["cpu_count"] != os.cpu_count():
+        raise RuntimeError(f"allreduce_decomp's cpu_count: {decomp}")
+    envs = env_packages_report.report()
+    roof = decomp["single_core_tree_roofline"]
+    olog(f"(f) allreduce_decomp (4 peers, 32 MiB, {decomp['cpu_count']} "
+         f"cores): host {decomp['host_primitives']}, RPC small call "
+         f"{decomp['rpc_small_call_us']} us, roofline "
+         f"{roof['roofline_gbps']} GB/s, measured "
+         f"{decomp['measured']['gbps']} GB/s "
+         f"({decomp['measured_over_roofline']} of it); "
+         f"{out['decomp']['seconds']:.1f} s", smi)
+    olog(f"(f) allreduce_latency_ab (4 peers, 8 MiB, 100 Mbps links): "
+         f"unchunked {ab['unchunked_s']} s, chunked {ab['chunked_depth4_s']} "
+         f"s, speedup {ab['chunked_speedup']}x; "
+         f"{out['latency_ab']['seconds']:.1f} s", smi)
+    olog(f"(f) env_packages_report: installed "
+         f"{sorted(k for k, v in envs['packages'].items() if v['installed'])}",
+         smi)
+    return dict(
+        decomp={k: decomp[k] for k in decomp if k != "interpretation"},
+        latency_ab={k: ab[k] for k in ab if k != "note"},
+        env_packages={k: v["installed"] for k, v in envs["packages"].items()},
+        seconds={k: v["seconds"] for k, v in out.items()})
+
+
+def phase_ops(smi: str, locktrace: dict) -> dict:
+    """Phase 17: the operator plane (see the module docstring). (a) and
+    (c) first; (d) and (f) once both launched peers have updated (their
+    start-up is slowed by a busy host); (e) is phase 14's soak, whose
+    ``locktrace`` reading this phase reports."""
+    t0 = time.perf_counter()
+    shutil.rmtree(OPS_DIR, ignore_errors=True)
+    os.makedirs(OPS_DIR)
+    savedir = os.path.join(OPS_DIR, "launch")
+    children = {}
+    launcher = None
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        launcher, lines, (broker, up), reader = _ops_launch_start(savedir)
+        children["soak"] = _OpsChild(
+            "soak", ["moolib_tpu_torch.tools.elastic_soak", *OPS_SOAK_ARGS,
+                     "--json", os.path.join(OPS_DIR, "soak.json"),
+                     "--workdir", os.path.join(OPS_DIR, "soak")])
+        if not up.wait(60):
+            raise RuntimeError("launch local printed no broker address:\n"
+                               + "\n".join(lines))
+        deadline = time.monotonic() + OPS_LAUNCH_TIMEOUT_S
+        # (A row being written may lack its last columns.)
+        while not all(rows and rows[-1].get("updates", 0) > 0
+                      for rows in _ops_peer_rows(savedir)):
+            if launcher.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError("the launched peers never both "
+                                   "updated:\n" + "\n".join(lines[-40:]))
+            time.sleep(1.0)
+        others_start = time.perf_counter() - t0
+        configs_children = _ops_configs_start()
+        children.update(configs_children)
+        host_fut = pool.submit(_ops_host_tools, smi)
+        crawl = _ops_crawl(broker["address"], smi)
+        launcher.wait(timeout=max(1.0, deadline - time.monotonic()))
+        launch = _ops_launch_finish(launcher, lines, reader, savedir, smi)
+        configs = _ops_configs(configs_children, OPS_CHILD_TIMEOUT_S, smi)
+        host = host_fut.result(timeout=OPS_CHILD_TIMEOUT_S)
+        soak = _ops_soak(children["soak"], OPS_CHILD_TIMEOUT_S, smi)
+        locktrace = _ops_locktrace(locktrace, smi)
+    finally:
+        for child in children.values():
+            child.kill()
+        if launcher is not None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(launcher.pid, 9)
+            launcher.wait()
+        pool.shutdown(wait=True)
+    seconds = time.perf_counter() - t0
+    olog(f"phase took {seconds:.1f} s (target {OPS_TARGET_S:g} s); (a) and "
+         f"(c) from its start, (d) and (f) from {others_start:.1f} s (the "
+         f"launched peers' first updates)", smi)
+    return dict(launch={k: v for k, v in launch.items() if k != "launches"},
+                crawl=crawl, soak=soak, configs=configs,
+                locktrace=locktrace, host=host, seconds=seconds,
+                others_start=others_start,
+                launches={"launch transformer": launch["launches"]})
+
+
 BUNDLE_DIR = os.path.join("build", "flightrec")
 # The environment prefixes the port's bundles record (the reference's
 # MOOLIB, and the card's in place of JAX and XLA).
@@ -7114,6 +7629,7 @@ def main() -> int:
     chaos = phase_chaos(smi)
     md = phase_md(smi)
     perf = phase_perfwatch(smi, impala["bench"]["line"]["mfu"])
+    ops = phase_ops(smi, chaos["soak"]["locktrace"])
 
     launches_by_path = {
         path: counts for path, counts in
@@ -7123,7 +7639,8 @@ def main() -> int:
          ("impala", impala_launches), *acc["launches"].items(),
          *e2e["launches"].items(), *zoo["launches"].items(),
          *durable["launches"].items(), *chaos["launches"].items(),
-         *md["launches"].items(), *perf["launches"].items()]
+         *md["launches"].items(), *perf["launches"].items(),
+         *ops["launches"].items()]
     }
     never = [kname for kname in train["launches"]
              if not any(c[kname] for c in launches_by_path.values())]
@@ -7210,7 +7727,8 @@ def main() -> int:
                                 if k != "launches"},
                       "md": {k: md[k] for k in md if k != "launches"},
                       "perf": {k: perf[k] for k in perf
-                               if k not in ("launches", "d128")}}),
+                               if k not in ("launches", "d128")},
+                      "ops": {k: ops[k] for k in ops if k != "launches"}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

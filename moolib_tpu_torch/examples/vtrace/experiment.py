@@ -44,9 +44,12 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import json
 import os
+import sys
 import threading
 import time
+import typing
 from typing import List, Optional
 
 import numpy as np
@@ -548,6 +551,10 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
                     g = gsa.global_stats.results()
                     row = dict(
                         window.results(),
+                        # The local gradient steps whose metrics this
+                        # window holds: a window without one logs a NaN
+                        # loss (an empty mean), not a diverged one.
+                        grad_steps=int(window["total_loss"].count),
                         time=now,
                         env_steps=env_steps,
                         global_env_steps=g.get("env_steps", 0.0),
@@ -587,8 +594,13 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
 
 
 def _apply_overrides(cfg: VtraceConfig, overrides: List[str]) -> VtraceConfig:
-    """``key=value`` CLI overrides onto the dataclass."""
+    """``key=value`` CLI overrides onto the dataclass, typed by the
+    fields' declared types: an ``Optional[float]`` field such as
+    ``max_seconds`` takes a float (or ``none``). The reference types a
+    field by its current value, so an override of a field whose default
+    is None stays a string (``max_seconds=60`` then fails in ``train``)."""
     values = dataclasses.asdict(cfg)
+    hints = typing.get_type_hints(VtraceConfig)
     for item in overrides:
         if "=" not in item:
             raise SystemExit(f"override {item!r} is not key=value")
@@ -596,11 +608,15 @@ def _apply_overrides(cfg: VtraceConfig, overrides: List[str]) -> VtraceConfig:
         k = k.replace("-", "_")
         if k not in values:
             raise SystemExit(f"unknown config key {k!r}")
-        field_type = type(values[k]) if values[k] is not None else str
+        field_type = hints[k]
+        args = typing.get_args(field_type)
+        if type(None) in args:
+            if v.lower() in ("none", "null"):
+                values[k] = None
+                continue
+            (field_type,) = (a for a in args if a is not type(None))
         if field_type is bool:
             values[k] = v.lower() in ("1", "true", "yes")
-        elif values[k] is None:
-            values[k] = v
         else:
             values[k] = field_type(v)
     return VtraceConfig(**values)
@@ -638,10 +654,20 @@ def main():
                         "on the CPU)")
     p.add_argument("overrides", nargs="*",
                    help="key=value config overrides")
-    args = p.parse_args()
+    # Flags may come after overrides (a launcher puts its own
+    # ``broker=``/``savedir=`` first and the user's arguments after).
+    args = p.parse_intermixed_args()
     cfg = _load_config(args.config) if args.config else VtraceConfig()
     cfg = _apply_overrides(cfg, args.overrides)
-    train(cfg, device=args.device)
+    rows = train(cfg, device=args.device)
+    # The hand-written kernels this peer launched (none if it never
+    # loaded them): a launcher reads its peers' counts from this line.
+    kernels = sys.modules.get("moolib_tpu_torch.ops._kernels")
+    print(json.dumps({
+        "updates": int(rows[-1]["updates"]) if rows else 0,
+        "kernel_launches": {} if kernels is None else {
+            k.name: k.launches for k in kernels.KERNELS},
+    }), flush=True)
 
 
 if __name__ == "__main__":

@@ -840,11 +840,13 @@ class Rpc:
         _live_rpcs.add(self)
         # Export surface: every Rpc is scrapeable by any peer (JSON or
         # Prometheus text; see docs/observability.md for the scrape
-        # how-to and tools/telemetry_dump.py for a cohort-wide dump).
+        # how-to and moolib_tpu_torch.tools.telemetry_dump for a
+        # cohort-wide dump).
         self.define("__telemetry", self._serve_telemetry)
-        # Incident surface: any peer (tools/incident_report.py) can pull
-        # this peer's frozen flight bundle, sample its clock for offset
-        # estimation, or ask it to write a bundle to disk.
+        # Incident surface: any peer (moolib_tpu_torch.tools.
+        # incident_report) can pull this peer's frozen flight bundle,
+        # sample its clock for offset estimation, or ask it to write a
+        # bundle to disk.
         self.define("__flightrec", self._serve_flightrec)
 
     # -- loop plumbing -------------------------------------------------------
@@ -2454,7 +2456,8 @@ class Rpc:
         env pools, chaos plans, example loops) under this peer's own — so
         any peer's scrape shows the whole process — and ``peers`` lists
         this peer's dialable neighbours so a scraper can crawl the cohort
-        (tools/telemetry_dump.py). ``fmt="prometheus"`` returns the text
+        (:mod:`moolib_tpu_torch.tools.telemetry_dump`).
+        ``fmt="prometheus"`` returns the text
         exposition of the same merged view. With ``spans=True`` (JSON
         only) the Chrome-trace export of this peer's spans plus the
         process-global buffer rides along."""
@@ -2483,7 +2486,8 @@ class Rpc:
     def _serve_flightrec(self, op: str = "snapshot", trigger: str = "api",
                          detail: str = ""):
         """Handler for the auto-defined ``__flightrec`` endpoint — the
-        incident surface ``tools/incident_report.py`` crawls.
+        incident surface :mod:`moolib_tpu_torch.tools.incident_report`
+        crawls.
 
         - ``op="time"``: ``{"name", "time_us"}`` — a minimal wall-clock
           sample for NTP-style offset estimation (the caller brackets the

@@ -249,7 +249,7 @@ class Replica:
             "capacity": adm.capacity,
             "p50_service_s": adm.service_p50(),
             "draining": adm.draining,
-            "model_version": self._version,
+            "model_version": self._version,  # racelint: unguarded -- health must answer while a swap holds the model lock (staging the weights onto the card can take seconds); a one-probe-stale version is harmless
             "batch_size": self.batch_size,
         }
 

@@ -1,17 +1,16 @@
 """Testing utilities: deterministic fault injection for the RPC stack,
 the env-worker tier and the disk, the seeded scenarios that drive it, a world
-of SPMD worker processes (``spmd``) and the dynamic tracers ``restrack``
-(resource lifecycles), ``paritywatch`` (bitwise replay) and ``hotwatch``
-(synchronous reads in a steady-state window); the counterpart of
-:mod:`moolib_tpu.testing`.
+of SPMD worker processes (``spmd``) and the dynamic tracers ``locktrace``
+(lock order), ``restrack`` (resource lifecycles), ``paritywatch``
+(bitwise replay) and ``hotwatch`` (synchronous reads in a steady-state
+window); the counterpart of :mod:`moolib_tpu.testing`.
 
 Kept outside the production packages so importing
 :mod:`moolib_tpu_torch.rpc` never pays for (or accidentally enables)
 chaos machinery; see :mod:`moolib_tpu_torch.testing.chaos`. Every name
 is imported lazily, as the package root's are: an env worker unpickling
 :class:`~moolib_tpu_torch.testing.chaos_env.ChaosStepEnv` imports this
-package and must not pull in torch or the RPC stack. The reference's
-``locktrace`` is not ported yet: ROADMAP.md queue A, item 12.
+package and must not pull in torch or the RPC stack.
 """
 
 import importlib
@@ -23,6 +22,7 @@ _EXPORTS = {
                     "chaos"),
     **dict.fromkeys(("Hotwatch", "HotwatchViolation", "hotwatch_enabled"),
                     "hotwatch"),
+    **dict.fromkeys(("LockOrderViolation", "LockTrace"), "locktrace"),
     **dict.fromkeys(("ParityViolation", "ParityWatch", "parity_enabled"),
                     "paritywatch"),
     **dict.fromkeys(("ResourceLeak", "ResourceTracker"), "restrack"),

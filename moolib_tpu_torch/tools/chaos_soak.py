@@ -32,7 +32,11 @@ the failing run), so a rare soak failure leaves evidence even when the
 replay does not reproduce it. The runner enables flightrec auto-capture
 for its whole pass (``--incident-dir``), so in-stack triggers (breaker
 open, round-failure storm, worker budget exhaustion) also capture while
-scenarios run. ``--restrack`` runs every scenario under the
+scenarios run. ``--locktrace`` runs the pass under instrumented locks
+(:class:`~moolib_tpu_torch.testing.locktrace.LockTrace`): the observed
+acquires-while-holding graph must be acyclic and inside
+:func:`~moolib_tpu_torch.testing.locktrace.static_package_edges`, or the
+pass fails. ``--restrack`` runs every scenario under the
 :class:`~moolib_tpu_torch.testing.restrack.ResourceTracker`: a scenario
 that leaves a thread, shm segment, Rpc or gauge registration of the
 port unreleased fails. The JSON report aggregates per-scenario wall time
@@ -42,6 +46,7 @@ Usage::
 
     python -m moolib_tpu_torch.tools.chaos_soak --smoke [--device cpu]
     python -m moolib_tpu_torch.tools.chaos_soak --smoke --restrack
+    python -m moolib_tpu_torch.tools.chaos_soak --smoke --locktrace
     python -m moolib_tpu_torch.tools.chaos_soak --smoke --scenario 'broker_*'
     python -m moolib_tpu_torch.tools.chaos_soak --seed 7 --minutes 10
 """
@@ -99,7 +104,11 @@ def main(argv=None):
                              "auto-capture trigger that fires during the "
                              "pass")
     parser.add_argument("--locktrace", action="store_true",
-                        help="run under instrumented locks (not ported)")
+                        help="run under instrumented locks "
+                             "(moolib_tpu_torch.testing.locktrace): record "
+                             "the real acquires-while-holding graph, then "
+                             "assert it is acyclic AND inside racelint's "
+                             "static over-approximation")
     parser.add_argument("--restrack", action="store_true",
                         help="run under the resource tracker "
                              "(moolib_tpu_torch.testing.restrack): every "
@@ -108,9 +117,6 @@ def main(argv=None):
                              "must be released by its end; a leak fails the "
                              "scenario with the acquisition-site stack")
     args = parser.parse_args(argv)
-    if args.locktrace:
-        parser.error("--locktrace: testing/locktrace.py is not ported yet "
-                     "(ROADMAP.md queue A, item 12)")
 
     if args.scenario:
         names = sorted(n for n in SCENARIOS
@@ -127,6 +133,13 @@ def main(argv=None):
     # worker exhausting its restart budget mid-scenario freezes a bundle
     # even when the scenario itself goes on to pass.
     enable_auto_capture(args.incident_dir)
+
+    trace = None
+    if args.locktrace:
+        from ..testing.locktrace import LockTrace
+
+        trace = LockTrace()
+        trace.activate()
 
     tracker = None
     if args.restrack:
@@ -210,6 +223,23 @@ def main(argv=None):
         }
         print(f"restrack: {restrack_report['tracked']} tracked "
               f"acquisition(s), leaked={restrack_report['leaked'] or 0}")
+    locktrace_report = None
+    if trace is not None:
+        trace.deactivate()
+        from ..testing.locktrace import (LockOrderViolation,
+                                         static_package_edges)
+
+        locktrace_report = {"edges": len(trace.edges())}
+        try:
+            trace.assert_acyclic()
+            trace.assert_within(static_package_edges())
+        except LockOrderViolation as e:
+            ok = False
+            locktrace_report["violation"] = str(e)
+            print(f"FAIL locktrace: {e}")
+        else:
+            print(f"locktrace: {locktrace_report['edges']} observed "
+                  "lock-order edge(s), acyclic, within the static graph")
     scenario_seconds = {}
     for r in runs:
         scenario_seconds[r["scenario"]] = round(
@@ -221,6 +251,7 @@ def main(argv=None):
         "failed": [r for r in runs if not r["ok"]],
         "total_seconds": round(time.monotonic() - t_start, 1),
         "scenario_seconds": scenario_seconds,
+        **({"locktrace": locktrace_report} if locktrace_report else {}),
         **({"restrack": restrack_report} if restrack_report else {}),
     }), flush=True)
     return 0 if ok else 1

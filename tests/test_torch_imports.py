@@ -80,7 +80,15 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "bench.budgets", "bench.suite", "testing.hotwatch",
                 "ops.batchsizefinder", "tools.perf", "tools.telemetry_smoke",
                 "tools.attn_bench", "tools.perf_sweep", "tools.roofline",
-                "tools.envpool_bench", "tools.chip_session"):
+                "tools.envpool_bench", "tools.chip_session",
+                "examples.launch", "examples.plot", "tools.learning_curve",
+                "tools.env_packages_report", "tools.config_matrix",
+                "tools.elastic_soak", "tools.allreduce_decomp",
+                "tools.allreduce_latency_ab", "tools.telemetry_dump",
+                "tools.incident_report", "tools.stepscope_report",
+                "tools.gen_api_docs", "analysis", "analysis.engine",
+                "analysis.rules_race", "testing.locktrace",
+                "tools.locktrace_cost"):
         assert f"moolib_tpu_torch.{mod}" in got["modules"], mod
     assert got["bad"] == [], got["bad"]
 
@@ -193,7 +201,19 @@ print(json.dumps(sorted(
     "moolib_tpu_torch.tools.telemetry_smoke",
     "moolib_tpu_torch.tools.attn_bench", "moolib_tpu_torch.tools.perf_sweep",
     "moolib_tpu_torch.tools.roofline", "moolib_tpu_torch.tools.envpool_bench",
-    "moolib_tpu_torch.tools.chip_session"])
+    "moolib_tpu_torch.tools.chip_session",
+    "moolib_tpu_torch.examples.launch", "moolib_tpu_torch.examples.plot",
+    "moolib_tpu_torch.tools.learning_curve",
+    "moolib_tpu_torch.tools.env_packages_report",
+    "moolib_tpu_torch.tools.config_matrix",
+    "moolib_tpu_torch.tools.elastic_soak",
+    "moolib_tpu_torch.tools.allreduce_decomp",
+    "moolib_tpu_torch.tools.allreduce_latency_ab",
+    "moolib_tpu_torch.tools.telemetry_dump",
+    "moolib_tpu_torch.tools.incident_report",
+    "moolib_tpu_torch.tools.stepscope_report",
+    "moolib_tpu_torch.tools.gen_api_docs", "moolib_tpu_torch.analysis",
+    "moolib_tpu_torch.testing.locktrace"])
 def test_durable_state_fault_engine_and_fleet_import_alone_cleanly(module):
     """Each of this slice's sub-packages and smokes, imported alone in a
     fresh interpreter, pulls in no JAX, no ml_dtypes and nothing of the
@@ -251,6 +271,34 @@ def test_perfwatch_modules_that_spawn_env_workers_import_no_torch():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+_LIGHT_TOOLS = r"""
+import json, sys
+import moolib_tpu_torch.tools.config_matrix
+import moolib_tpu_torch.tools.elastic_soak
+import moolib_tpu_torch.tools.learning_curve
+import moolib_tpu_torch.tools.env_packages_report
+import moolib_tpu_torch.examples.launch
+import moolib_tpu_torch.examples.plot
+import moolib_tpu_torch.analysis
+import moolib_tpu_torch.testing.locktrace
+print(json.dumps(sorted(m for m in ("torch", "jax", "moolib_tpu")
+                        if m in sys.modules)))
+"""
+
+
+def test_operator_tools_whose_workers_import_them_import_no_torch():
+    """config_matrix (its EnvPools' spawn workers and its spawn peers
+    import it as their main module), elastic_soak and learning_curve
+    import torch only inside their functions; the launcher, the plotter,
+    the lint engine and locktrace import none at all."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _LIGHT_TOOLS], cwd=str(REPO_ROOT),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 def test_lazy_testing_exports_resolve():
     from moolib_tpu_torch import testing
     from moolib_tpu_torch.testing import chaos, paritywatch, restrack
@@ -258,9 +306,10 @@ def test_lazy_testing_exports_resolve():
     assert testing.FaultPlan is chaos.FaultPlan
     assert testing.ParityWatch is paritywatch.ParityWatch
     assert testing.ResourceTracker is restrack.ResourceTracker
-    from moolib_tpu_torch.testing import hotwatch
+    from moolib_tpu_torch.testing import hotwatch, locktrace
 
     assert testing.Hotwatch is hotwatch.Hotwatch
+    assert testing.LockTrace is locktrace.LockTrace
     for name in testing.__all__:
         assert getattr(testing, name) is not None, name
     with pytest.raises(AttributeError):

@@ -138,12 +138,3 @@ def test_chaos_soak_failure_prints_replay_and_captures_bundle(
     bundle = load_bundle(failure["bundle"])
     assert bundle["trigger"]["kind"] == "scenario_failure"
     assert "zz_fail" in bundle["trigger"]["detail"]
-
-
-def test_chaos_soak_refuses_locktrace_naming_the_roadmap_item(capsys):
-    from moolib_tpu_torch.tools import chaos_soak as soak
-
-    with pytest.raises(SystemExit) as e:
-        soak.main(["--smoke", "--locktrace"])
-    assert e.value.code == 2
-    assert "item 12" in capsys.readouterr().err
