@@ -207,7 +207,7 @@ def _psum_worker(rank: int, n: int, store_path: str, backend: str, sizes,
             if rank == 0:
                 out_q.put(("result", size, dt))
         dist.destroy_process_group()
-    except Exception as e:  # reported to the parent, which raises
+    except Exception as e:  # moolint: disable=swallow-cancelled -- reported to the parent, which raises; no event loop in this worker
         out_q.put(("error", rank, f"{type(e).__name__}: {e}"))
 
 

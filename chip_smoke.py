@@ -678,10 +678,20 @@ def _sass_counts(library) -> dict:
 
 
 def phase_build():
+    from moolib_tpu_torch.analysis import RecompileGuard, guarded_jit
     from moolib_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
-    _kernels.build_all()
+    # recompile_guard on the kernel builds: building every source must
+    # be exactly one first-use build per library (none was built before).
+    build_all = guarded_jit(_kernels.build_all)
+    with RecompileGuard(build_all, max_compiles=len(_kernels.LIBRARIES),
+                        label="build_all") as guard:
+        build_all()
+    if guard.compiles != len(_kernels.LIBRARIES):
+        raise RuntimeError(f"build_all made {guard.compiles} library builds; "
+                           f"want one per source "
+                           f"({len(_kernels.LIBRARIES)})")
     log(f"[build] {len(_kernels.KERNELS)} kernels from "
         f"{len(_kernels.LIBRARIES)} sources ready in "
         f"{time.perf_counter() - t0:.1f}s (nvcc in parallel: "
@@ -715,7 +725,7 @@ def phase_build():
             raise RuntimeError(f"{kernel}'s instantiations lack tensor-core "
                                f"instructions: "
                                f"{ {n: counts[n] for n in found} }")
-    return counts
+    return counts, guard.compiles
 
 
 def _compare(o, lse, o_ref, lse_ref, o_tol_fn):
@@ -2259,6 +2269,7 @@ def phase_train(tel):
         make_impala_train_step,
         make_train_state,
     )
+    from moolib_tpu_torch.analysis import guarded_jit, recompile_budget
     from moolib_tpu_torch.learner import call_model
     from moolib_tpu_torch.ops import attention as attention_ops
     from moolib_tpu_torch.ops._kernels import KERNELS
@@ -2353,7 +2364,7 @@ def phase_train(tel):
         for i, batch in enumerate(batches):
             before = [kern.launches for kern in KERNELS]
             state, m = step(state, batch)
-            metrics.append({k: float(m[k]) for k in METRICS})
+            metrics.append({k: float(m[k]) for k in METRICS})  # hotlint: sync -- the smoke reads each step's metrics to hold them to the CPU's
             per_step.append([kern.launches - n for kern, n in
                              zip(KERNELS, before)])
             if i == 0:
@@ -2374,7 +2385,7 @@ def phase_train(tel):
                            f"delta op; got {per_step}, {delta_calls}")
     for batch in batches:
         ref_state, m = ref_step(ref_state, _to_cpu(batch))
-        ref_metrics.append({k: float(m[k]) for k in METRICS})
+        ref_metrics.append({k: float(m[k]) for k in METRICS})  # hotlint: sync -- the CPU reference's metrics, read to compare
     for i, (m, r) in enumerate(zip(metrics, ref_metrics)):
         errs = {k: abs(m[k] - r[k]) / max(abs(r[k]), 1e-30) for k in METRICS}
         log(f"[train] step {i + 1}: "
@@ -2417,20 +2428,27 @@ def phase_train(tel):
         raise RuntimeError("the grad/apply split differs from the fused "
                            "train step")
 
-    # Steady state: more steps on the same batches, timed.
+    # Steady state: more steps on the same batches, timed. The steps
+    # after the first are under recompile_guard: none may build a kernel
+    # library (every one was built before the first step).
     event_ms, host_ms = [], []
-    for i in range(8):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        state, m = step(state, batches[i % TRAIN_STEPS])
-        end.record()
-        float(m["total_loss"])  # the step's result, on the host
-        end.synchronize()
-        host_ms.append(1e3 * (time.perf_counter() - t0))
-        event_ms.append(start.elapsed_time(end))
+    steady_step = guarded_jit(step)
+    with recompile_budget(steady_step, max_compiles=0,
+                          label="steady train steps") as steady_guard:
+        for i in range(8):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()  # hotlint: sync -- a timing barrier: each step is timed alone
+            t0 = time.perf_counter()
+            start.record()
+            state, m = steady_step(state, batches[i % TRAIN_STEPS])
+            end.record()
+            float(m["total_loss"])  # hotlint: sync -- the step's result, on the host: the host clock's end
+            end.synchronize()
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            event_ms.append(start.elapsed_time(end))
+    log(f"[train] recompile_budget(max_compiles=0) over the 8 steady steps: "
+        f"{steady_guard.compiles} kernel-library builds")
     log(f"[train] step time ms (CUDA events) "
         f"{[round(x, 3) for x in event_ms]}")
     log(f"[train] step time ms (host clock, to the loss on the host) "
@@ -2466,6 +2484,7 @@ def phase_train(tel):
                 breakdown=breakdown, ledgers=ledgers,
                 tf32_grad_err={n: tf32_errs[n] for n in CONV_PARAMS},
                 param_err=param_err, split_err=split_err,
+                steady_builds=steady_guard.compiles,
                 step_ms=float(np.median(steady)),
                 step_host_ms=float(np.median(host_ms[2:])))
 
@@ -2566,8 +2585,8 @@ def _impala_train(dtype, tel) -> dict:
     for i, batch in enumerate(batches):
         state, m = step(state, batch)
         ref_state, r = ref_step(ref_state, _to_cpu(batch))
-        m = {k: float(m[k]) for k in METRICS}
-        r = {k: float(r[k]) for k in METRICS}
+        m = {k: float(m[k]) for k in METRICS}  # hotlint: sync -- the smoke reads each step's metrics to hold them to the CPU's
+        r = {k: float(r[k]) for k in METRICS}  # hotlint: sync -- the CPU reference's metrics, read to compare
         errs = {k: abs(m[k] - r[k]) / max(abs(r[k]), 1e-2) for k in METRICS}
         ref_params = cpu.state_dict()
         param_err = max(float((p.cpu() - ref_params[n]).abs().max())
@@ -2575,7 +2594,7 @@ def _impala_train(dtype, tel) -> dict:
         metric_errs.append(max(errs.values()))
         param_errs.append(param_err)
         log(f"[{tag}] step {i + 1}: "
-            + " ".join(f"{k} {m[k]:.6g}" for k in METRICS)
+            + " ".join(f"{k} {m[k]:.6g}" for k in METRICS)  # hotlint: sync -- logged once per checked step
             + f" | max error vs CPU (relative to max(|value|, 0.01)) "
             f"{max(errs.values()):.3e} (tol {tol['metric']}) | parameters "
             f"max|card-CPU| {param_err:.3e} (tol {tol['param']})")
@@ -2607,12 +2626,12 @@ def _impala_train(dtype, tel) -> dict:
     for i in range(8):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # hotlint: sync -- a timing barrier: each step is timed alone
         t0 = time.perf_counter()
         start.record()
         state, m = step(state, batches[i % TRAIN_STEPS])
         end.record()
-        float(m["total_loss"])
+        float(m["total_loss"])  # hotlint: sync -- the host clock times the step to its loss on the host
         end.synchronize()
         host_ms.append(1e3 * (time.perf_counter() - t0))
         event_ms.append(start.elapsed_time(end))
@@ -2670,13 +2689,13 @@ def _impala_act(dtype, tel) -> dict:
     cpu.load_state_dict(net.state_dict())
     act, ref_act = make_act_step(net), make_act_step(cpu)
     sample = torch.Generator(device="cuda").manual_seed(6)
-    ref_sample = torch.Generator().manual_seed(6)
+    ref_sample = torch.Generator().manual_seed(6)  # numlint: prng-key-reuse -- the CPU reference must draw the card's samples
     state, ref_state = net.initial_state(ACT_ENVS), cpu.initial_state(ACT_ENVS)
     errs, ms = [], []
     for t in range(IMPALA_ACT_STEPS):
         obs = torch.randint(0, 256, (ACT_ENVS, 84, 84, 4), generator=gen,
                             device="cuda", dtype=torch.uint8)
-        done = torch.zeros(ACT_ENVS, dtype=torch.bool, device="cuda")
+        done = torch.zeros(ACT_ENVS, dtype=torch.bool, device="cuda")  # hotlint: sync -- a fresh mask each step: step 2 writes resets into it
         if t == 2:
             done[: ACT_ENVS // 4] = True
         start = torch.cuda.Event(enable_timing=True)
@@ -2688,9 +2707,9 @@ def _impala_act(dtype, tel) -> dict:
         ms.append(start.elapsed_time(end))
         _, ref_logits, ref_state = ref_act(obs.cpu(), done.cpu(), ref_state,
                                            ref_sample)
-        if actions.shape != (ACT_ENVS,) or not bool(
+        if actions.shape != (ACT_ENVS,) or not bool(  # hotlint: sync -- the smoke checks every step's actions
                 ((actions >= 0) & (actions < 6)).all()):
-            raise RuntimeError(f"{tag}: bad actions {actions}")
+            raise RuntimeError(f"{tag}: bad actions {actions}")  # hotlint: sync -- only on the failure path
         for got, want in ((logits, ref_logits), *zip(state, ref_state)):
             if not bool(torch.isfinite(got).all()):
                 raise RuntimeError(f"{tag}: non-finite output")
@@ -2849,7 +2868,7 @@ class _Learner:
         self.error = None
         self.stop = threading.Event()
         self._before_run()
-        self.thread = threading.Thread(target=self._run, daemon=True,
+        self.thread = threading.Thread(target=self._run, daemon=True,  # lifelint: intentional -- close() stops and joins it; a learner lives for one phase
                                        name=f"learner {name}")
         self.thread.start()
 
@@ -2885,8 +2904,8 @@ class _Learner:
             while not self.stop.is_set():
                 self.acc.update()
                 busy = False
-                if self.state.step < self.target and \
-                        self.acc.wants_gradients():
+                if (self.state.step < self.target  # racelint: unguarded -- this thread is the state's only writer but for set_state, which the Accumulator runs before the learner contributes
+                        and self.acc.wants_gradients()):
                     if self.sent:
                         self.acc.skip_gradients()
                     else:
@@ -2897,13 +2916,13 @@ class _Learner:
                     busy = True
                 if not busy:
                     time.sleep(0.0005)
-        except BaseException as e:  # reported by status(), fails the phase
+        except BaseException as e:  # moolint: disable=swallow-cancelled -- reported by status(), fails the phase
             self.error = f"{type(e).__name__}: {e}"
 
     def _contribute(self):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        grads, _ = self.grad_step(self.state.model, self.batch)
+        grads, _ = self.grad_step(self.state.model, self.batch)  # racelint: unguarded -- this thread is the state's only writer but for set_state, which the Accumulator runs before the learner contributes
         ev[1].record()
         t0 = time.perf_counter()
         with _SYNC_MODE_LOCK:
@@ -2936,8 +2955,8 @@ class _Learner:
             t=time.perf_counter(), wall=time.time(), reduce_ms=(
                 None if self.t_sent is None
                 else 1e3 * (t_result - self.t_sent)),
-            checksum=_checksums(self.state.model.parameters())))
-        self.done_step = self.state.step
+            checksum=_checksums(self.state.model.parameters())))  # racelint: unguarded -- this thread is the state's only writer but for set_state, which the Accumulator runs before the learner contributes
+        self.done_step = self.state.step  # racelint: unguarded -- this thread is the state's only writer but for set_state, which the Accumulator runs before the learner contributes
 
     def state_checksum(self) -> list:
         """Checksums of the params and the optimizer's nu, read back."""
@@ -2999,7 +3018,7 @@ class _Learner:
 
     def close(self):
         self.stop.set()
-        self.thread.join(timeout=30)
+        self.thread.join(timeout=30)  # lifelint: intentional -- a second join of a finished thread returns at once
         self.acc.close()
         self.group.close()
         self.rpc.close()
@@ -3166,7 +3185,7 @@ class _AccRun:
         self.addr = self.broker_rpc.debug_info()["listen"][0]
         self.broker = Broker(self.broker_rpc)
         self.stop = threading.Event()
-        self.pump = threading.Thread(target=self._pump, daemon=True)
+        self.pump = threading.Thread(target=self._pump, daemon=True)  # lifelint: intentional -- close() stops and joins it; the run lives for one phase
         self.pump.start()
         here = os.path.dirname(os.path.abspath(__file__))
         self.child = subprocess.Popen(
@@ -3195,7 +3214,7 @@ class _AccRun:
         here = _thread_stacks()
         try:
             there = self.ctl("stacks")
-        except Exception as e:  # the evidence is best effort
+        except Exception as e:  # moolint: disable=swallow-cancelled -- the evidence is best effort; no event loop in this thread
             there = f"(the child's stacks: {type(e).__name__}: {e})"
         print(f"=== status {self.status()}\n=== stacks here\n{here}\n"
               f"=== stacks in the child\n{there}", file=sys.stderr,
@@ -3258,7 +3277,7 @@ class _AccRun:
             try:
                 code = self.child.wait(timeout=60)
             except subprocess.TimeoutExpired:
-                self.child.kill()
+                self.child.kill()  # lifelint: intentional -- killing an exited child is a no-op
                 self.child.wait(timeout=30)
                 raise RuntimeError("the accumulate child did not exit") \
                     from None
@@ -4310,15 +4329,15 @@ def _zoo_moe_train(smi) -> dict:
         before = {k.name: k.launches for k in KERNELS}
         with routes.record():
             state, m = step(state, batch)
-            m = {k: float(m[k]) for k in names}
+            m = {k: float(m[k]) for k in names}  # hotlint: sync -- the smoke reads each step's metrics to hold them to the CPU's
         per_step.append({k.name: k.launches - before[k.name]
                          for k in KERNELS})
         with routes.replay():
             ref_state, rm = step(ref_state, _to_cpu(batch))
         if not all(np.isfinite(v) for v in m.values()):
-            raise RuntimeError(f"moe train: non-finite metrics {m}")
+            raise RuntimeError(f"moe train: non-finite metrics {m}")  # hotlint: sync -- only on the failure path
         metric_err = max(metric_err, max(
-            abs(m[k] - float(rm[k])) / max(abs(float(rm[k])), 1.0)
+            abs(m[k] - float(rm[k])) / max(abs(float(rm[k])), 1.0)  # hotlint: sync -- the CPU reference's metrics, read to compare
             for k in names))
     launches = {k.name: k.launches for k in KERNELS}
     param_err = max(float((p.cpu() - cpu.state_dict()[n]).abs().max())
@@ -4962,7 +4981,7 @@ class _SsCohort:
         self.addr = self.broker_rpc.debug_info()["listen"][0]
         self.broker = Broker(self.broker_rpc)
         self.stop = threading.Event()
-        self.pump = threading.Thread(target=self._pump, daemon=True)
+        self.pump = threading.Thread(target=self._pump, daemon=True)  # lifelint: intentional -- close() stops and joins it; the cohort lives for one phase
         self.pump.start()
         self.client = Rpc("ss-client")
         self.client.set_timeout(SS_BUDGET_S)
@@ -5031,7 +5050,7 @@ class _SsCohort:
             for name in list(self.children):
                 try:
                     self.ctl(name, "close")
-                except Exception as e:  # the exit code below decides
+                except Exception as e:  # moolint: disable=swallow-cancelled -- the exit code below decides; no event loop in this thread
                     log(f"[statestore] closing {name}: {e}")
         finally:
             codes = {}
@@ -5040,7 +5059,7 @@ class _SsCohort:
                 try:
                     codes[name] = proc.wait(timeout=60)
                 except subprocess.TimeoutExpired:
-                    proc.kill()
+                    proc.kill()  # lifelint: intentional -- killing an exited child is a no-op
                     proc.wait(timeout=30)
                     codes[name] = "killed"
             self.children = {}
@@ -5363,7 +5382,7 @@ class _FleetLoad:
                 ok = (np.asarray(out["action"]).shape == (ACT_ENVS,)
                       and bool(np.isfinite(np.asarray(out["logits"])).all()))
                 rec = "ok" if ok else "malformed reply"
-            except Exception as e:  # recorded; the phase fails on it
+            except Exception as e:  # moolint: disable=swallow-cancelled -- recorded; the phase fails on it; no event loop in this thread
                 rec = f"{error_kind(e)}: {e}"
             with self.lock:
                 self.outcomes.append(rec)
@@ -5691,7 +5710,7 @@ def _chaos_replica_kill(smi) -> dict:
                 try:
                     got = router.infer(reqs[i], budget_s=KILL_BUDGET_S)
                     ok = True
-                except Exception as e:  # recorded; checked after the run
+                except Exception as e:  # moolint: disable=swallow-cancelled -- recorded; checked after the run; no event loop in this thread
                     got, ok = f"{error_kind(e)}: {e}", False
                 lat = time.monotonic() - t0
                 with lock:
@@ -7130,7 +7149,7 @@ class _OpsChild:
     def __init__(self, name: str, args):
         self.name = name
         self.path = os.path.join(OPS_DIR, f"{name}.log")
-        self._log = open(self.path, "w")
+        self._log = open(self.path, "w")  # lifelint: intentional -- the reaper closes it when the child exits
         t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", *args], stdout=self._log,
@@ -7141,7 +7160,7 @@ class _OpsChild:
             self.proc.wait()
             self.seconds = time.perf_counter() - t0
 
-        self._reaper = threading.Thread(target=reap, daemon=True)
+        self._reaper = threading.Thread(target=reap, daemon=True)  # lifelint: intentional -- it ends with the child it waits for
         self._reaper.start()
 
     def wait(self, timeout: float) -> str:
@@ -7601,10 +7620,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA H100", file=sys.stderr)
         return 2
-    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.ops._kernels import KERNELS, LIBRARIES
 
     name, smi = phase_device()
-    phase_build()
+    _, library_builds = phase_build()
     fwd_results, fwd_timings = phase_kernel_vs_plain()
     bwd_results, bwd_timings = phase_backward_vs_plain()
     tels = {kind: _telemetry(kind) for kind in ("serve", "train", "impala")}
@@ -7730,6 +7749,10 @@ def main() -> int:
                                if k not in ("launches", "d128")},
                       "ops": {k: ops[k] for k in ops if k != "launches"}}),
           flush=True)
+    log(f"[lint] recompile_guard: build_all made {library_builds} "
+        f"kernel-library builds (want {len(LIBRARIES)}, one per source); "
+        f"the steady train steps made {train['steady_builds']} (budget 0) "
+        f"| card: {smi}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -7764,7 +7787,7 @@ def races(reps: int) -> int:
                     fn()
                     passes[key][load] += 1
                     verdict = "pass"
-                except Exception as e:  # counted and reported
+                except Exception as e:  # moolint: disable=swallow-cancelled -- counted and reported; no event loop in this process
                     verdict = f"FAIL {type(e).__name__}: {e}"[:2000]
                 log(f"[races] {key} run {rep + 1}/{reps} ({load}, {len(hog)} "
                     f"busy processes): {verdict} in "

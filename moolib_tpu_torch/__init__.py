@@ -41,7 +41,26 @@ reference each ported part is tested against. The slices so far:
   chunked bundles, push replication, quorum restore) and its
   ``Replicator`` on the ``Accumulator``, the seeded chaos engine
   (``testing``), and the fleet controller (``fleet``: spec, supervision,
-  standby adoption, canary rollout).
+  standby adoption, canary rollout);
+- the rest of the fault engine's scenarios and the runtime tracers
+  (``testing.restrack``, ``testing.paritywatch``), with the
+  ``chaos_soak`` and ``serving_load`` tools;
+- multi-device layouts on ``torch.distributed``: the ``(dp, tp, sp, pp,
+  ep)`` ``DeviceMesh`` (``parallel.mesh``), its collectives, the
+  data-parallel learner step, ring and zigzag attention
+  (``ops.ring_attention``), tensor and pipeline parallelism and the
+  sharded MoE FFN;
+- the perfwatch plane: the bench harness, trend store and budgets
+  (``bench``), the ``perf`` CLI and its suites, ``testing.hotwatch``
+  and the batch-size finder;
+- the operator plane: the launcher and plotter (``examples.launch``,
+  ``examples.plot``) and the operator tools (``tools``), with
+  ``testing.locktrace``;
+- static analysis (``analysis``): the moolint engine, its ten rule
+  families (the reference's six that never touched JAX, and torch
+  counterparts of its four JAX families), the ``moolint`` CLI
+  (``python -m moolib_tpu_torch.tools.moolint``) and
+  ``analysis.recompile_guard`` on kernel-library builds.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -89,7 +108,9 @@ _EXPORTS = {
                      "set_logging"), "moolib_tpu_torch.utils"),
 }
 
-__all__ = sorted([*_EXPORTS, "create_uid", "get_max_threads",
+__version__ = "0.1.0"
+
+__all__ = sorted([*_EXPORTS, "__version__", "create_uid", "get_max_threads",
                   "set_max_threads"])
 
 

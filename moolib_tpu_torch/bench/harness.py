@@ -18,7 +18,9 @@ protocol and leaves as one machine-readable row:
   ``bench_allreduce_torch.py`` and the ``tools/`` benches).
 
 The card-side timing primitives (``time_train_step``,
-``time_chained``) live in :mod:`moolib_tpu_torch.utils.benchmark`:
+``time_chained``) live in :mod:`moolib_tpu_torch.utils.benchmark`; this
+module re-exports them, as the reference's does (one import surface for
+benchmark authors), but resolves them only when first asked for:
 importing this module imports no torch.
 """
 
@@ -46,8 +48,23 @@ __all__ = [
     "maybe_append_trend",
     "measure",
     "parse_result",
+    "time_chained",
+    "time_train_step",
     "trimmed_stats",
 ]
+
+#: Names re-exported from :mod:`moolib_tpu_torch.utils.benchmark`, which
+#: imports torch: resolved on first access.
+_DEVICE_PROTOCOL = ("time_chained", "time_train_step")
+
+
+def __getattr__(name: str):
+    if name in _DEVICE_PROTOCOL:
+        from ..utils import benchmark
+
+        return getattr(benchmark, name)
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")
 
 SCHEMA_VERSION = 1
 

@@ -663,11 +663,17 @@ def main():
     # The hand-written kernels this peer launched (none if it never
     # loaded them): a launcher reads its peers' counts from this line.
     kernels = sys.modules.get("moolib_tpu_torch.ops._kernels")
-    print(json.dumps({
+    report = json.dumps({
         "updates": int(rows[-1]["updates"]) if rows else 0,
         "kernel_launches": {} if kernels is None else {
             k.name: k.launches for k in kernels.KERNELS},
-    }), flush=True)
+    })
+    # One write, line and newline together: a launcher's peers share its
+    # stdout, and print() writes the two apart on an unbuffered stream,
+    # where another peer's line can land between them.
+    sys.stdout.flush()
+    sys.stdout.write(report + "\n")
+    sys.stdout.flush()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""Ops of the port: attention, V-trace, the Batcher and batch staging."""
+"""Ops of the port: attention, ring attention, V-trace, the Batcher and
+batch staging."""
 
-from . import attention, vtrace
+from . import attention, ring_attention, vtrace
 from .batcher import Batcher, stage_batch
 
-__all__ = ["Batcher", "attention", "stage_batch", "vtrace"]
+__all__ = ["Batcher", "attention", "ring_attention", "stage_batch", "vtrace"]

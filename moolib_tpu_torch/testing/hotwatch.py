@@ -54,7 +54,9 @@ thread-scoped counting stands alone, as on the CPU.
 
 Compiles: the port has no jit. Its compiles are the first-use builds of
 its CUDA kernel libraries (``ops/_kernels.py:CudaLibrary._build``,
-process-wide); ``compile_delta`` counts those made inside the window and
+process-wide, read through
+:func:`moolib_tpu_torch.analysis.recompile_guard.kernel_builds`);
+``compile_delta`` counts those made inside the window and
 ``max_compiles`` bounds them. ``jits=`` is accepted for the reference's
 signature and not read.
 
@@ -242,9 +244,9 @@ class Hotwatch:
     @property
     def compile_delta(self) -> int:
         """Kernel-library builds since entry."""
-        from ..ops._kernels import build_count
+        from ..analysis.recompile_guard import kernel_builds
 
-        return max(0, build_count() - self._compile_start)
+        return max(0, kernel_builds() - self._compile_start)
 
     # -- the counting core ----------------------------------------------------
 
@@ -399,11 +401,11 @@ class Hotwatch:
     def __enter__(self) -> "Hotwatch":
         if not self.enabled:
             return self
-        from ..ops._kernels import build_count
+        from ..analysis.recompile_guard import kernel_builds
 
         self.device = resolve_device(self._device_arg)
         self._tid = threading.get_ident()
-        self._compile_start = build_count()
+        self._compile_start = kernel_builds()
         self._activate()
         self._active = True
         return self

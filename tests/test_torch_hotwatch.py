@@ -255,8 +255,8 @@ def test_example_actor_loop_designed_syncs_exactly_budgeted():
                  enabled=True) as hw:
         for _ in range(n):
             a, logits, core = act(obs, done, core, gen)
-            host_a = np.asarray(a)       # designed: feeds the envs NOW
-            host_l = np.asarray(logits)  # designed: rides the unroll buf
+            host_a = np.asarray(a)  # hotlint: sync -- designed: feeds the envs NOW
+            host_l = np.asarray(logits)  # hotlint: sync -- designed: rides the unroll buf
     assert hw.d2h == 2 * n
     assert hw.compile_delta == 0
     assert host_a.shape == (b_dim,)

@@ -127,6 +127,34 @@ def test_launch_local_runs_two_cpu_peers_to_their_end(tmp_path):
     assert groups == {"vtrace"}
 
 
+def test_a_peers_report_line_is_one_write(monkeypatch):
+    """The report line a launcher reads leaves in one write, newline
+    included: the peers share the launcher's stdout, and on an
+    unbuffered stream print() writes a line and its newline apart, so
+    another peer's line can land between them (on the card, a report
+    line with a second peer's JSON glued to its end)."""
+    from moolib_tpu_torch.examples.vtrace import experiment
+
+    writes = []
+
+    class Stream:
+        def write(self, s):
+            writes.append(s)
+            return len(s)
+
+        def flush(self):
+            pass
+
+    monkeypatch.setattr(experiment, "train",
+                        lambda cfg, device=None: [{"updates": 7}])
+    monkeypatch.setattr(sys, "argv", ["experiment", "--device", "cpu"])
+    monkeypatch.setattr(sys, "stdout", Stream())
+    experiment.main()
+    reports = [w for w in writes if w.startswith('{"updates"')]
+    assert len(reports) == 1 and reports[0].endswith("}\n"), writes
+    assert json.loads(reports[0])["updates"] == 7
+
+
 def test_launch_local_returns_a_peers_error_without_a_card(tmp_path):
     """Without ``--device cpu`` a peer resolves the card, raises, and
     the launcher returns its exit code, as the reference's does."""
