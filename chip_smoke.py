@@ -180,12 +180,14 @@ Phases, in order; any failure exits non-zero before the result line:
    train() at config_nethack.yaml's settings for NETHACK_SECONDS (4 actor
    processes, not 8): updates, finite losses, no env worker death, the
    LSTM state carried into the unrolls. (e) examples/a2c.py on CartPole
-   at LEARNING_r04.json's settings (80,000 steps): return > 100 in at
+   at LEARNING_r04.json's settings (80,000 steps; bench_a2c_torch.py
+   --seeds 0 in a child process): return > 100 in at
    least 10 of the last 20 windows and the last 10 windows' entropy in
    (0.05, 0.69); its curve; then the pixel A2C smoke (bf16 ImpalaNet).
    (f) examples/remote_actors.py: run_learner on the card (synthetic
    env, the f32 ImpalaNet; then CartPole) fed by three run_actor child
-   processes for 12 s each, stopped once they have exited: updates, and
+   processes for REMOTE_ACTOR_SECONDS each, stopped once they have
+   exited: updates, and
    an infer forward stacking more than
    one actor call (the learner Rpc's rpc_batch_fill_fraction); then the
    synthetic learner fed by two (each with one call in flight, they may
@@ -294,6 +296,22 @@ Phases, in order; any failure exits non-zero before the result line:
     and power limit; each says that the ranks share one card and gloo's
     transport goes through the host: no interconnect measurement.
     flash_fwd and flash_bwd_tile must launch on "md dp".
+15b. The experiment's data-parallel learner ([dp] lines):
+    train(model=transformer) at experiment.py's defaults (32 envs, T=20,
+    learn batch 32, bf16) on devices=["cuda:0", "cuda:0"], a dp world of
+    two ranks sharing the card (parallel/local_dp.py, gloo, the second
+    rank a spawned follower), for DP_SECONDS. (a) Its first GRAD: rank
+    0's dp-mean gradients held against the dp=1 grad step on the same
+    learn batch [21, 32] and parameters at phase 6's gradient
+    tolerances (rank 0's launches of that check are not counted). (b)
+    The run: env-steps/s and
+    updates/s beside phase 11's dp=1 loop without a savedir, each
+    command's send ms (GRAD, APPLY, STATE, STOP), each rank's flash_fwd
+    and flash_bwd_tile launches (both ranks must launch both; their sum
+    is the "dp train" path), the follower's updates equal to rank 0's
+    and the ranks' parameter checksums equal (difference exactly 0).
+    Every [dp] line says the ranks share one card: no figure there is an
+    interconnect figure.
 16. Perfwatch (about 90 s). (a) attn_bench's flash validation at
     [2, 2, 512, 128] bf16 causal against the dense oracle (its
     tolerances: forward 0.05, gradients 1.0) and its rows: dense at
@@ -372,7 +390,7 @@ Phases, in order; any failure exits non-zero before the result line:
     "statestore serve" and "fleet", and phase 14's "chaos replica
     kill", "parity kernels" and "parity train", and phase 15's "md dp
     nccl", "md sp nccl", "md dp", "md sp", "md tp", "md pp" and "md
-    ep", phase 16's "attn bench", "bsf act" and "suite", and phase 17's
+    ep", phase 15b's "dp train" (both ranks' sum), phase 16's "attn bench", "bsf act" and "suite", and phase 17's
     "launch transformer", the launched peers' sum; each attention
     kernel's row carries its phase 16 rows at D=128), the card line, and
     the result line.
@@ -381,8 +399,9 @@ Lines tagged [telemetry], [stepscope] and [flightrec] carry the
 observability checks and readings, [rpc] lines the RPC phase's, [acc]
 lines the accumulate phase's, [e2e] lines the e2e phase's, [zoo] lines
 the zoo phase's, [statestore] and [fleet] lines phase 13's, [chaos] and
-[parity] lines phase 14's, [md] lines phase 15's, [perf] lines phase
-16's, [ops] lines phase 17's.
+[parity] lines phase 14's, [md] lines phase 15's, [dp] lines phase
+15b's, [perf] lines phase 16's, [ops] lines phase 17's; a [total] line
+gives the script's seconds.
 
     python3 chip_smoke.py --races N
 
@@ -3639,13 +3658,15 @@ E2E_ENVS, E2E_WORKERS = 32, 2   # the data path's pool: 2 workers x 16 envs
 # The data path's episode length: odd, so that the resets fall in both
 # buffers (the two buffers step the same envs in turn).
 E2E_EPISODE = 7
-E2E_SECONDS = 18.0   # the transformer loop's run
-E2E_RESUME_SECONDS = 6.0
-E2E_PLAIN_SECONDS = 8.0  # the same loop without a savedir, profiled
+# The loops of phases 11 and 12 are short enough to pay for phase 15b's
+# seconds inside the script's time limit.
+E2E_SECONDS = 10.0   # the transformer loop's run
+E2E_RESUME_SECONDS = 4.0
+E2E_PLAIN_SECONDS = 6.0  # the same loop without a savedir, profiled
 E2E_PROFILE_DIR = os.path.join("build", "e2e_profile")
 # Short: the whole script must stay well inside its 1200 s limit as it
 # grows, and the rate needs no longer window.
-E2E_BENCH_SECONDS = 12.0
+E2E_BENCH_SECONDS = 8.0
 E2E_BENCH_TIMEOUT_S = 300.0
 E2E_SAVEDIR = os.path.join("build", "e2e")
 # A uniform policy's episode return on the synthetic env: 200 steps, one
@@ -4104,8 +4125,8 @@ ROUTE_PROB_TOL = 1e-5
 ZOO_ACT_WAVES = [[0, 1, 2, 3], [4, 5, 6, 0]]   # checked act batches
 ZOO_CONTEXT_WAVES = [[0, 1, 2, 3]]             # the checked context batch
 ZOO_STEADY_WAVES = {"act": 16, "context": 4}   # unchecked, for the rates
-ZOO_E2E_SECONDS = 14.0
-NETHACK_SECONDS = 12.0  # short, as E2E_BENCH_SECONDS
+ZOO_E2E_SECONDS = 8.0
+NETHACK_SECONDS = 10.0  # short, as E2E_BENCH_SECONDS
 NETHACK_COND = 3.0  # the card's f32 gradients against the f64 step's
 # config_nethack.yaml asks for 8 actor processes; the card machine has 8
 # cores for them, the learner and the actor loop: 4.
@@ -4117,7 +4138,7 @@ NETHACK_ACTOR_PROCESSES = 4
 # learner window (20 s, the actors stopping 8 s before it) lost that race
 # to the actors' start-up (interpreter, imports, the pool's spawn) on a
 # loaded host.
-REMOTE_ACTOR_SECONDS = 8.0
+REMOTE_ACTOR_SECONDS = 5.0
 REMOTE_LEARNER_CAP_S = 150.0
 # (env, num_actions, actor processes, whether a forward must stack two
 # calls). Each actor has one call in flight, so two convoy against the
@@ -4127,6 +4148,7 @@ REMOTE_LEARNER_CAP_S = 150.0
 REMOTE_RUNS = (("synthetic", 6, 3, True), ("cartpole", 2, 3, True),
                ("synthetic", 6, 2, False))
 REMOTE_CHILD_TIMEOUT_S = 120.0
+A2C_CHILD_TIMEOUT_S = 400.0  # bench_a2c_torch.py --seeds 0: 32-80 s seen
 
 
 def zlog(msg: str, smi: str) -> None:
@@ -4612,19 +4634,44 @@ def _zoo_nethack(smi) -> dict:
                 launches=launches)
 
 
+def _zoo_a2c_bar() -> dict:
+    """bench_a2c_torch.py's run at seed 0 in a child process, and this
+    process's CPU seconds and threads meanwhile. The loop's timing enters
+    its trajectory (when the Accumulator first connects, whether a reduce
+    lands an iteration late), and this process carries the threads the
+    earlier phases left: run in it, seed 0 missed the bar in three smoke
+    runs of three on an H100 machine, where run alone it met the bar in
+    four of four."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cpu0, threads = sum(os.times()[:2]), threading.active_count()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "bench_a2c_torch.py"),
+         "--seeds", "0"], cwd=here, capture_output=True, text=True,
+        timeout=A2C_CHILD_TIMEOUT_S)
+    cpu = sum(os.times()[:2]) - cpu0
+    if proc.returncode:
+        raise RuntimeError(f"bench_a2c_torch.py exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    (res,) = [json.loads(line) for line in proc.stdout.splitlines()
+              if line.startswith('{"seed"')]
+    return dict(res, parent_cpu_s=cpu, parent_threads=threads)
+
+
 def _zoo_a2c(smi) -> dict:
     """(e) A2C on CartPole at LEARNING_r04.json's settings (80,000 steps,
     log windows of 4,000), gated on its bar (bench_a2c_torch.py's run at
-    seed 0); then the pixel A2C smoke."""
+    seed 0, in a child process); then the pixel A2C smoke."""
     import bench_a2c_torch as bar_bench
     from moolib_tpu_torch.examples import a2c
     from moolib_tpu_torch.ops._kernels import KERNELS
 
     for kern in KERNELS:
         kern.launches = 0
-    res = bar_bench.run(0)
+    res = _zoo_a2c_bar()
     bar, need, _ = bar_bench.BAR
-    zlog(f"(e) a2c cartpole, {bar_bench.STEPS} steps: wall "
+    zlog(f"(e) a2c cartpole (bench_a2c_torch.py --seeds 0, a child; this "
+         f"process meanwhile {res['parent_cpu_s']:.1f} CPU s over "
+         f"{res['parent_threads']} threads), {bar_bench.STEPS} steps: wall "
          f"{res['wall_s']:.1f} s, {res['updates']:g} updates, dropped "
          f"unrolls {res['dropped_unrolls']:g}; bar: return > {bar:g} in "
          f"{res['hits']} of the last {res['windows']} windows (need "
@@ -6719,6 +6766,162 @@ def phase_md(smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15b: the experiment's data-parallel learner (train(devices=...))
+# ---------------------------------------------------------------------------
+
+DP_DEVICES = ["cuda:0", "cuda:0"]  # dp = 2 over gloo, the ranks share the card
+DP_SECONDS = 10.0                  # train()'s run
+
+
+def dplog(msg: str, smi: str) -> None:
+    log(f"[dp] {msg} | the ranks share one card, gloo through the host: no "
+        f"figure here is an interconnect figure | card: {smi}")
+
+
+def _dp_cfg(**kw):
+    from moolib_tpu_torch.examples.vtrace import experiment
+
+    return experiment.VtraceConfig(env="synthetic", model="transformer",
+                                   seed=0, **kw)
+
+
+def _dp_grad_check(plain, plain_step, grads, model, batch) -> dict:
+    """(a) rank 0's dp-mean gradients of one GRAD against the dp=1 grad
+    step (``plain``'s learner) on the same learn batch and parameters."""
+    from moolib_tpu_torch.ops import stage_batch
+
+    plain.model.load_state_dict(model.state_dict())
+    want, _ = plain_step(plain.model, stage_batch(batch, "cuda:0"))
+    errs = {n: _rel(grads[n], want[n]) for n in want}
+    return dict(
+        bad={n: e for n, e in errs.items()
+             if not e <= BF16_GRAD_TOL.get(n, TRAIN_GRAD_TOL)},
+        grad_err=max(e for n, e in errs.items() if n not in BF16_GRAD_TOL),
+        pos_emb_err=errs["pos_emb.weight"],
+        shape=list(batch["obs"].shape[:2]))
+
+
+def _dp_recording_class(plain, plain_step):
+    """A LocalDP that keeps every world it makes and holds the first GRAD
+    sent on it against the dp=1 grad step (:func:`_dp_grad_check`); rank
+    0's launches in that check (the dp=1 step's) are taken back out of
+    its counts. The follower runs nothing but the world's commands."""
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.parallel.local_dp import LocalDP
+
+    class Recording(LocalDP):
+        made: list = []
+        check: dict = {}
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            Recording.made.append(self)
+
+        def grad(self, grad_step, model, batch, reuse=False):
+            grads, metrics = super().grad(grad_step, model, batch, reuse)
+            if not Recording.check:
+                counts = {kern: kern.launches for kern in KERNELS}
+                try:
+                    Recording.check.update(_dp_grad_check(
+                        plain, plain_step, grads, model, batch))
+                finally:
+                    for kern, n in counts.items():
+                        kern.launches = n
+            return grads, metrics
+
+    return Recording
+
+
+def phase_dp_train(smi, dp1: dict) -> dict:
+    """Phase 15b: the experiment's data-parallel learner (see the module
+    docstring); ``dp1`` is phase 11's no-savedir loop (its rates)."""
+    from moolib_tpu_torch.examples.vtrace import experiment
+    from moolib_tpu_torch.ops._kernels import KERNELS
+    from moolib_tpu_torch.parallel import local_dp
+
+    t0 = time.perf_counter()
+    cfg = _dp_cfg(max_seconds=DP_SECONDS, log_interval_steps=1280,
+                  stats_interval=2.0)
+    _, plain, plain_step, _ = experiment._learner(cfg, "cuda:0")
+    recording = _dp_recording_class(plain, plain_step)
+    saved = local_dp.LocalDP
+    local_dp.LocalDP = recording
+    for kern in KERNELS:
+        kern.launches = 0
+    lines = []
+    try:
+        t1 = time.perf_counter()
+        rows = experiment.train(cfg, log_fn=lines.append,
+                                devices=DP_DEVICES)
+        wall = time.perf_counter() - t1
+    finally:
+        local_dp.LocalDP = saved
+    rank0 = {kern.name: kern.launches for kern in KERNELS}
+    for line in lines:
+        log(f"[dp] train: {line}")
+    (world,) = recording.made
+    (report,) = world.reports
+    check = recording.check
+    if not check:
+        raise RuntimeError("the dp loop sent no GRAD")
+    dplog(f"(a) train()'s first GRAD at dp=2 against the dp=1 grad step "
+          f"on the same learn batch {check['shape']} and parameters: "
+          f"largest gradient error {check['grad_err']:.3e} of its tensor's "
+          f"max (tolerance {TRAIN_GRAD_TOL:g}; pos_emb "
+          f"{check['pos_emb_err']:.3e}, tolerance "
+          f"{BF16_GRAD_TOL['pos_emb.weight']:g})", smi)
+    if check["bad"]:
+        raise RuntimeError(f"dp GRAD: gradients off {check['bad']}")
+    check = {k: check[k] for k in ("grad_err", "pos_emb_err")}
+    rank1 = report["launches"]
+    if len(rows) < 2:
+        raise RuntimeError(f"the dp loop logged {len(rows)} rows")
+    rates = _rates(rows)
+    # A window without a local gradient step logs a NaN loss (an empty
+    # mean); every other must be finite.
+    losses = [r["total_loss"] for r in rows if r["grad_steps"]]
+    updates = len(world.send_ms["APPLY"])  # the last row may lag the end
+    sends = {cmd: dict(n=len(v), median_ms=float(np.median(v)),
+                       max_ms=max(v))
+             for cmd, v in world.send_ms.items() if v}
+    dplog(f"(b) train(model=transformer, bf16, 32 envs, T={UNROLL}, learn "
+          f"batch {LEARN_B}, devices={DP_DEVICES}) for {DP_SECONDS:g} s: "
+          f"dp {world.dp} over {world.backend}, {len(rows)} rows in "
+          f"{wall:.1f} s (the world up in {world.start_s:.1f} s: spawn, "
+          f"rendezvous, the follower's learner built); "
+          f"{rates['env_steps_per_s']:.1f} env-steps/s, "
+          f"{rates['updates_per_s']:.2f} updates/s (first to last row) "
+          f"beside phase 11's dp=1 loop without a savedir in this run: "
+          f"{dp1['env_steps_per_s']:.1f} env-steps/s, "
+          f"{dp1['updates_per_s']:.2f} updates/s; {updates} updates, the "
+          f"follower's {report['updates']}", smi)
+    dplog("(b) command sends, host ms (header and payload; n, median, max): "
+          + "; ".join(f"{cmd} {d['n']}, {d['median_ms']:.3f}, "
+                      f"{d['max_ms']:.3f}" for cmd, d in sends.items()), smi)
+    dplog(f"(b) launches: rank 0 {rank0}, rank 1 {rank1}; the ranks' "
+          f"parameter checksums differ by {world.checksum_diff}; phase "
+          f"{time.perf_counter() - t0:.1f} s", smi)
+    if updates < 3 or not losses or not all(np.isfinite(losses)):
+        raise RuntimeError(f"the dp loop made {updates} updates, losses "
+                           f"{losses}")
+    if report["updates"] != updates or world.checksum_diff != 0:
+        raise RuntimeError(f"the dp ranks diverged: follower updates "
+                           f"{report['updates']} of {updates}, checksums "
+                           f"differ by {world.checksum_diff}")
+    for name, counts in (("rank 0", rank0), ("rank 1", rank1)):
+        if not (counts.get("flash_fwd") and counts.get("flash_bwd_tile")):
+            raise RuntimeError(f"dp train: {name} did not launch the flash "
+                               f"kernels: {counts}")
+    return dict(check, updates=updates, **rates, dp1=dp1, sends=sends,
+                wall_s=wall, start_s=world.start_s,
+                checksum_diff=world.checksum_diff,
+                ranks={"0": rank0, "1": rank1},
+                seconds=time.perf_counter() - t0,
+                launches={"dp train": {k: rank0.get(k, 0) + rank1.get(k, 0)
+                                       for k in rank0}})
+
+
+# ---------------------------------------------------------------------------
 # Phase 16: perfwatch
 # ---------------------------------------------------------------------------
 
@@ -7622,6 +7825,7 @@ def main() -> int:
         return 2
     from moolib_tpu_torch.ops._kernels import KERNELS, LIBRARIES
 
+    t_start = time.perf_counter()
     name, smi = phase_device()
     _, library_builds = phase_build()
     fwd_results, fwd_timings = phase_kernel_vs_plain()
@@ -7647,6 +7851,7 @@ def main() -> int:
     durable = phase_statestore(smi)
     chaos = phase_chaos(smi)
     md = phase_md(smi)
+    dp = phase_dp_train(smi, e2e["transformer"]["without_savedir"])
     perf = phase_perfwatch(smi, impala["bench"]["line"]["mfu"])
     ops = phase_ops(smi, chaos["soak"]["locktrace"])
 
@@ -7658,7 +7863,8 @@ def main() -> int:
          ("impala", impala_launches), *acc["launches"].items(),
          *e2e["launches"].items(), *zoo["launches"].items(),
          *durable["launches"].items(), *chaos["launches"].items(),
-         *md["launches"].items(), *perf["launches"].items(),
+         *md["launches"].items(), *dp["launches"].items(),
+         *perf["launches"].items(),
          *ops["launches"].items()]
     }
     never = [kname for kname in train["launches"]
@@ -7745,6 +7951,7 @@ def main() -> int:
                       "chaos": {k: chaos[k] for k in chaos
                                 if k != "launches"},
                       "md": {k: md[k] for k in md if k != "launches"},
+                      "dp": {k: dp[k] for k in dp if k != "launches"},
                       "perf": {k: perf[k] for k in perf
                                if k not in ("launches", "d128")},
                       "ops": {k: ops[k] for k in ops if k != "launches"}}),
@@ -7753,6 +7960,8 @@ def main() -> int:
         f"kernel-library builds (want {len(LIBRARIES)}, one per source); "
         f"the steady train steps made {train['steady_builds']} (budget 0) "
         f"| card: {smi}")
+    log(f"[total] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
+        f"of its 1200 s limit | card: {smi}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,8 +17,9 @@ protocol and leaves as one machine-readable row:
   benchmarks (``bench_torch.py``, ``bench_e2e_torch.py``,
   ``bench_allreduce_torch.py`` and the ``tools/`` benches).
 
-The card-side timing primitives (``time_train_step``,
-``time_chained``) live in :mod:`moolib_tpu_torch.utils.benchmark`; this
+The card-side primitives (``time_train_step``, ``time_chained`` and the
+device guards ``wait_for_device``, ``install_watchdog``) live in
+:mod:`moolib_tpu_torch.utils.benchmark`; this
 module re-exports them, as the reference's does (one import surface for
 benchmark authors), but resolves them only when first asked for:
 importing this module imports no torch.
@@ -45,17 +46,20 @@ __all__ = [
     "append_device_trend",
     "clock",
     "env_fingerprint",
+    "install_watchdog",
     "maybe_append_trend",
     "measure",
     "parse_result",
     "time_chained",
     "time_train_step",
     "trimmed_stats",
+    "wait_for_device",
 ]
 
 #: Names re-exported from :mod:`moolib_tpu_torch.utils.benchmark`, which
 #: imports torch: resolved on first access.
-_DEVICE_PROTOCOL = ("time_chained", "time_train_step")
+_DEVICE_PROTOCOL = ("install_watchdog", "time_chained", "time_train_step",
+                    "wait_for_device")
 
 
 def __getattr__(name: str):

@@ -13,8 +13,16 @@ wandb (optional) are the reference's.
 
 Where the reference is JAX-specific:
 
-- the data-parallel mesh is one device: the port's learner steps take no
-  ``mesh`` (ROADMAP.md queue A, item 11);
+- the reference shards every learn step over a ``dp`` mesh of the local
+  devices, ``dp = gcd(devices, learn_batch_size)``, under one controller.
+  Here it is one process a device (:mod:`~moolib_tpu_torch.parallel.
+  local_dp`): this process is rank 0 and the Accumulator's one peer,
+  ranks 1..dp-1 are learner followers it spawns. They get their slices of
+  each learn batch, run the grad step on the mesh with it, apply the
+  reduced gradients it broadcasts, take its state after a resume or a
+  ``set_state`` (which only marks the state stale: the loop thread sends
+  it before the next command, so no collective runs on an RPC thread),
+  and stop with it;
 - the model is built on ``device`` from ``cfg.seed`` with a
   :class:`torch.Generator`, which then samples the actions, and the optax
   chain is :class:`~moolib_tpu_torch.optim.ClippedRMSprop`;
@@ -202,49 +210,32 @@ def _make_model(cfg: VtraceConfig, device=None,
     raise ValueError(f"unknown model {cfg.model!r}")
 
 
-def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
-    """Run the experiment; returns the logged rows. ``device`` None means
-    the card, and raises without one: pass ``device="cpu"`` to run on the
-    CPU."""
-    device = resolve_device(device)
-
+def _learner(cfg: VtraceConfig, device, mesh=None, stepscope=None):
+    """The learner of ``cfg`` on ``device``: ``(generator, state,
+    grad_step, apply_step)``. One generator on the device draws the
+    weights, then the actions. With a ``mesh`` the grad step is data
+    parallel over its ``dp`` axis (every rank of a dp world builds it so).
+    """
     from ...learner import (
         ImpalaConfig,
         call_model,
-        load_train_state,
-        make_act_step,
         make_apply_step,
         make_grad_step,
         make_train_state,
-        train_state_to_host,
     )
-    from ...ops import Batcher, stage_batch
     from ...optim import ClippedRMSprop
-    from ...parallel import Accumulator, GlobalStatsAccumulator
-    from ...rpc import Rpc
-    from ...utils import Checkpointer
-    from ...utils.profiling import StepWindowProfiler
 
-    # --- model / learner ---------------------------------------------------
-    # One generator on the device: it draws the weights, then the actions.
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     net = _make_model(cfg, device, gen).train()
     optimizer = ClippedRMSprop(net.parameters(), cfg.learning_rate,
                                decay=0.99, eps=0.01, max_norm=cfg.grad_clip)
     state = make_train_state(net, optimizer)
-
     loss_cfg = ImpalaConfig(
         discounting=cfg.discounting,
         baseline_cost=cfg.baseline_cost,
         entropy_cost=cfg.entropy_cost,
         reward_clip=cfg.reward_clip,
     )
-    # Phase attribution for this loop: the steps are scoped through the
-    # learner factories (act / fwd_bwd / optimizer), the wait-shaped
-    # phases (env_wait / host_sync / grad_allreduce / checkpoint) are
-    # explicit below.
-    scope = StepScope("vtrace_learner")
-    act = make_act_step(net, stepscope=scope)
     learn_apply = call_model
     if getattr(net, "mlp", "dense") == "moe":
         # The MoE layers' aux (load-balance and z losses, drop fraction)
@@ -257,17 +248,118 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
     # the step, so the update loop never touches gradient values on the
     # host.
     grad_step = make_grad_step(
-        learn_apply, config=loss_cfg,
-        grad_scale=float(cfg.learn_batch_size), stepscope=scope,
+        learn_apply, config=loss_cfg, mesh=mesh,
+        grad_scale=float(cfg.learn_batch_size), stepscope=stepscope,
     )
+    return gen, state, grad_step, make_apply_step(stepscope=stepscope)
+
+
+def _dp_follower(device, mesh, cfg: VtraceConfig):
+    """A dp follower's learner (:class:`~moolib_tpu_torch.parallel.
+    local_dp.LocalDP` calls it by name in each spawned rank)."""
+    _, state, grad_step, apply_step = _learner(cfg, device, mesh)
+    return state, grad_step, apply_step
+
+
+def _learn_devices(device, devices) -> List[torch.device]:
+    """The learn step's devices, rank 0's first: ``devices`` as given,
+    else ``[device]`` when a device is named, else every visible card
+    (the current one first); raises without a card unless the CPU is
+    named."""
+    if devices is None:
+        if device is not None:
+            return [resolve_device(device)]
+        first = resolve_device(None)
+        return [first] + [torch.device("cuda", i)
+                          for i in range(torch.cuda.device_count())
+                          if i != first.index]
+    devices = [resolve_device(d) for d in devices]
+    if not devices:
+        raise ValueError("devices is empty")
+    if device is not None and resolve_device(device) != devices[0]:
+        raise ValueError(f"device {device} is not devices[0] "
+                         f"({devices[0]})")
+    return devices
+
+
+def _dp_world(cfg: VtraceConfig, devices):
+    """The data-parallel world of the learn step over ``devices`` (dp
+    above 1). The flash kernels are built here first, where the
+    transformer runs them, so that the followers only load them."""
+    from ...parallel.local_dp import LocalDP
+
+    first = devices[0]
+    if (cfg.model == "transformer" and first.type == "cuda"
+            and torch.cuda.get_device_capability(first) == (9, 0)):
+        from ...ops._kernels import build_all
+
+        build_all()
+    return LocalDP(devices, _dp_follower, args=(cfg,))
+
+
+def train(cfg: VtraceConfig, log_fn=print, device=None,
+          devices=None) -> List[dict]:
+    """Run the experiment; returns the logged rows. ``device`` None means
+    the card, and raises without one: pass ``device="cpu"`` to run on the
+    CPU.
+
+    ``devices`` are the local devices the learn step spreads over, one
+    process each (the reference's ``jax.devices()``): ``dp =
+    gcd(len(devices), learn_batch_size)`` of them, rank 0 (this process)
+    on the first. Default: ``[device]`` when a device is named, else every
+    visible card. ``["cpu", "cpu"]`` is a dp world of two CPU ranks;
+    ``["cuda:0", "cuda:0"]`` two ranks sharing one card."""
+    from ...parallel.local_dp import dp_size
+
+    devices = _learn_devices(device, devices)
+    dp = dp_size(devices, cfg.learn_batch_size)
+    world = _dp_world(cfg, devices[:dp]) if dp > 1 else None
+    try:
+        return _train(cfg, log_fn, devices[0], world)
+    finally:
+        if world is not None:
+            world.close()  # a no-op past _train's own STOP
+
+
+def _train(cfg: VtraceConfig, log_fn, device, world) -> List[dict]:
+    """:func:`train` on ``device``, rank 0 of ``world`` where there is
+    one."""
+    from ...learner import load_train_state, make_act_step, train_state_to_host
+    from ...ops import Batcher, stage_batch
+    from ...parallel import Accumulator, GlobalStatsAccumulator
+    from ...rpc import Rpc
+    from ...utils import Checkpointer
+    from ...utils.profiling import StepWindowProfiler
+
+    # --- model / learner ---------------------------------------------------
+    # Phase attribution for this loop: the steps are scoped through the
+    # learner factories (act / fwd_bwd / optimizer), the wait-shaped
+    # phases (env_wait / host_sync / grad_allreduce / checkpoint) are
+    # explicit below.
+    scope = StepScope("vtrace_learner")
+    gen, state, grad_step, apply_step = _learner(
+        cfg, device, None if world is None else world.mesh, scope)
+    net = state.model
+    act = make_act_step(net, stepscope=scope)
     # apply_step updates the parameters and the optimizer's state in
     # place. get_state runs on Accumulator RPC threads (requestState
     # service) against the same state, so reading it and the apply must
     # be mutually exclusive — state_lock below. Lock order is always
     # accumulator._lock -> state_lock; nothing under state_lock takes the
     # accumulator's lock back.
-    apply_step = make_apply_step(stepscope=scope)
     state_lock = threading.Lock()
+    # The followers start from weights of their own: they take this
+    # rank's state before their first command, and again after every
+    # resume or set_state (stale is set under state_lock).
+    stale = world is not None
+
+    def sync_followers():
+        """Under state_lock: the followers take this rank's state if it
+        changed since they last did."""
+        nonlocal state, stale
+        if stale:
+            state = world.replicate(state)
+            stale = False
 
     # --- control plane -----------------------------------------------------
     broker = None
@@ -285,9 +377,12 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
             return {"state": train_state_to_host(state)}
 
     def set_state(payload):
-        nonlocal state
+        # On an RPC thread: no collective here (it would interleave with
+        # the loop thread's commands); the loop thread sends the state.
+        nonlocal state, stale
         with state_lock:
             state = load_train_state(state, payload["state"])
+            stale = world is not None
 
     accumulator = Accumulator(
         rpc,
@@ -326,6 +421,7 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
         if saved is not None:
             with state_lock:
                 state = load_train_state(state, saved["state"])
+                stale = world is not None
             # The checkpoint holder must win leader election.
             accumulator.set_model_version(saved["model_version"])
             log_fn(f"resumed from {ckpt.path} at version "
@@ -430,6 +526,7 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
     last_sps_mark = (t_start, 0)
     futures = [pool.step(i, actions[i]) for i in range(cfg.num_actor_batches)]
 
+    finished = False
     try:
         while env_steps < cfg.total_steps and (
             cfg.max_seconds is None
@@ -493,8 +590,18 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
                 if accumulator.connected():
                     if accumulator.wants_gradients():
                         if not learn_batcher.empty():
-                            batch = stage_batch(learn_batcher.get(), device)
-                            grads, metrics = grad_step(state.model, batch)
+                            if world is None:
+                                batch = stage_batch(learn_batcher.get(),
+                                                    device)
+                                grads, metrics = grad_step(state.model, batch)
+                            else:
+                                with state_lock:
+                                    sync_followers()
+                                # Every rank's slice of the learn batch;
+                                # rank 0 keeps the dp-mean gradients.
+                                grads, metrics = world.grad(
+                                    grad_step, state.model,
+                                    learn_batcher.get())
                             # No host sync between the grad step and
                             # reduce_gradients' return: the metrics stay
                             # on their way to the host (drained at the
@@ -524,12 +631,20 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
                         # to run — so the [start, stop) window captures
                         # exactly those.
                         profiler.step(int(stats["updates"].result()))
-                        # Up pinned and non-blocking, before the apply.
-                        mean_grads = stage_batch(mean_grads, device)
+                        if world is None:
+                            # Up pinned and non-blocking, before the apply.
+                            mean_grads = stage_batch(mean_grads, device)
                         # Atomic with the state hand-off: a get_state on an
                         # RPC thread must never read a half-applied update.
                         with state_lock:
-                            state = apply_step(state, mean_grads)
+                            if world is None:
+                                state = apply_step(state, mean_grads)
+                            else:
+                                # Every rank applies the same mean, which
+                                # goes out from here.
+                                sync_followers()
+                                state = world.apply(apply_step, state,
+                                                    mean_grads)
                         accumulator.zero_gradients()
                         stats["updates"] += 1
 
@@ -579,6 +694,7 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
                         "sps {sps:8.0f}  updates {updates:g}".format(**row)
                     )
                     window.reset()
+        finished = True
     finally:
         scope.close()
         profiler.close()
@@ -590,7 +706,28 @@ def train(cfg: VtraceConfig, log_fn=print, device=None) -> List[dict]:
             broker.close()
         if wandb_run is not None:
             wandb_run.finish()
+        if world is not None:
+            if finished and stale:
+                with state_lock:
+                    sync_followers()
+            _stop_world(world, state, log_fn, finished)
     return logs
+
+
+def _stop_world(world, state, log_fn, finished: bool) -> None:
+    """``STOP``: the followers' reports, logged. At the end of a run that
+    finished, every follower's parameters must be this rank's bits."""
+    reports = world.close(state.model)
+    if not reports:
+        return  # a broken world: reaped, and its fault raised already
+    log_fn(f"dp world of {world.dp} ({', '.join(world.devices)}, "
+           f"{world.backend}): follower updates "
+           f"{[r['updates'] for r in reports]}, kernel launches "
+           f"{[r['launches'] for r in reports]}; the followers' parameter "
+           f"checksums differ from rank 0's by {world.checksum_diff}")
+    if finished and world.checksum_diff != 0:
+        raise RuntimeError(f"the dp ranks' parameters diverged (checksums "
+                           f"differ by {world.checksum_diff})")
 
 
 def _apply_overrides(cfg: VtraceConfig, overrides: List[str]) -> VtraceConfig:

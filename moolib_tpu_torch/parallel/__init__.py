@@ -1,7 +1,9 @@
 """The training services and device layouts of the port; the counterpart
 of :mod:`moolib_tpu.parallel`: the elastic gradient ``Accumulator``, the
 cluster-wide ``GlobalStatsAccumulator``, the (dp, tp, sp, pp, ep) mesh on
-``torch.distributed`` (``mesh``, ``distributed``, ``collectives``),
+``torch.distributed`` (``mesh``, ``distributed``, ``collectives``), the
+experiment's data-parallel learner over the local devices
+(``local_dp``: ``LocalDP``, one process a device),
 tensor parallelism (``tp``), pipelines (``pipeline``) and the
 mixture-of-experts FFN with its expert-sharded variant (``moe``).
 
@@ -12,6 +14,7 @@ import importlib
 _EXPORTS = {
     "Accumulator": "accumulator",
     "GlobalStatsAccumulator": "stats",
+    "LocalDP": "local_dp",
     **dict.fromkeys(("make_mesh", "data_parallel_spec", "replicated_spec",
                      "psum_gradients", "pmean_gradients", "dp_average_grads",
                      "shard_batch"), "mesh"),

@@ -816,6 +816,7 @@ class Accumulator:
                     self.rpc.get_name(), leader, version,
                     self._model_version, self._synced,
                 )
+                self._release_ready_locked()  # anything parked while unsynced
 
         try:
             fut = self.group.all_reduce(
@@ -840,12 +841,24 @@ class Accumulator:
             raise RpcError("no get_state callback configured")
         with self._lock:
             # _model_version bumps when a reduced result becomes available,
-            # BEFORE the user applies it; the params get_state() sees still
-            # lack every unapplied queued result. Serve the version that
-            # matches the state actually handed out.
-            version = self._model_version - len(self._results)
+            # BEFORE the user applies it, so the version that matches the
+            # params is _model_version - len(_results) -- but only while
+            # no queued result is being applied. The user applies the
+            # oldest result, then zero_gradients() pops it: in between,
+            # the params embody a result still counted as unapplied, and
+            # the reference serves that torn pair (the joiner is then one
+            # update ahead of its version for good). While a result is
+            # queued the pair is unknowable here: refuse, and the joiner's
+            # next update() asks again.
+            if self._results:
+                raise RpcError("state busy: a reduced result is queued for "
+                               "its apply; request again")
+            version = self._model_version
             state = _to_numpy_tree(self._get_state())
-        return {"state": state, "model_version": version}
+            # Every round before this cursor is inside the state: the
+            # joiner must not apply it again (see _maybe_request_state).
+            cursor = {"epoch": self._epoch, "release_gseq": self._release_gseq}
+        return {"state": state, "model_version": version, **cursor}
 
     def _maybe_request_state(self):
         if self._state_req_inflight or self._set_state is None:
@@ -872,6 +885,11 @@ class Accumulator:
                         log.debug("state request failed: %s", error)
                     return
                 version = result["model_version"]
+                # Results released before the sync are superseded by the
+                # state: the user must not apply one on top of it. (One
+                # being applied now lands before set_state, which the
+                # user orders after it; its zero_gradients pops nothing.)
+                self._results.clear()
             # Apply outside the lock: user callback may be slow (an upload).
             # The request gate stays closed until the apply has finished:
             # the reference reopens it here, so an update() during a slow
@@ -886,9 +904,24 @@ class Accumulator:
                         self._state_req_inflight = False
             with self._lock:
                 if self._epoch == epoch and token == self._state_req_token:
+                    # Rounds settle on each member at its own time: the
+                    # leader may have applied a round (it is inside the
+                    # state) that this peer has not settled yet, or the
+                    # other way round. Results park while unsynced; the
+                    # ones before the leader's cursor are dropped, the
+                    # rest released on top of the state. (A reference
+                    # leader sends no cursor.)
+                    cursor = result.get("release_gseq")
+                    if cursor is not None and result.get("epoch") == epoch:
+                        cursor = int(cursor)
+                        for g in [g for g in self._grad_outcomes
+                                  if g < cursor]:
+                            del self._grad_outcomes[g]
+                        self._release_gseq = max(self._release_gseq, cursor)
                     self._model_version = version
                     self._result_version = version
                     self._synced = True
+                    self._release_ready_locked()
                     log.info("%s: state synced at v%d",
                              self.rpc.get_name(), version)
 
@@ -913,6 +946,8 @@ class Accumulator:
         with self._lock:
             if not self.is_leader() or not self._synced:
                 return
+            if self._results:
+                return  # a result may be mid-apply: see _serve_state
             now = time.monotonic()
             if now - self._last_broadcast < self._broadcast_interval:
                 return
@@ -1272,7 +1307,9 @@ class Accumulator:
         Paused while a leader state push is being applied (_applying_push):
         a result released mid-apply could be applied by the training thread
         and then silently clobbered by the older pushed state."""
-        if self._applying_push:
+        if self._applying_push or not self._synced:
+            # Unsynced, a result may be one the state about to arrive
+            # already holds: park it until the sync says which.
             return
         while self._release_gseq in self._grad_outcomes:
             out = self._grad_outcomes.pop(self._release_gseq)
@@ -1343,6 +1380,8 @@ class Accumulator:
         def settle_locked(outcome):
             """Park this round's outcome, release any now-contiguous ones."""
             self._grads_inflight -= 1
+            if gseq < self._release_gseq:
+                return  # inside the state a sync brought (on_state)
             self._grad_outcomes[gseq] = outcome
             self._release_ready_locked()
 

@@ -441,9 +441,18 @@ def scenario_learner_restart(seed: int, rounds: int = 12,
             victim = accs[2]
             cks = {"p2": Checkpointer(ck_path, interval=0.0)}
             kill_at = max(2, rounds // 3)
+            # The kill waits for the victim's lanes to settle too, to
+            # every other peer: which members it dials depends on the
+            # run's reduction topology, and the shm lanes come up after
+            # the greetings, so a kill before then would log another
+            # count of connections killed for the same seed.
+            others = [a.rpc for a in accs[:2]] + [cluster.broker_rpc]
+            for o in others[:2]:
+                victim.rpc.connect(o.debug_info()["listen"][0])
             drive(accs, cks, lambda: all(
                 a.model_version >= kill_at for a in accs
-            ), 30, "pre-kill training")
+            ) and _lanes_settled(victim.rpc, others), 30,
+                "pre-kill training")
 
             # SIGKILL-equivalent: connections die, process gone, no
             # goodbye — the checkpoint on disk is all that survives.
@@ -462,9 +471,13 @@ def scenario_learner_restart(seed: int, rounds: int = 12,
                 and len(a.group.members) == 3 for a in accs
             ), 30, "restart rejoin")
 
+            # Every peer at one version with nothing left to apply: a
+            # version alone may count a result another peer has applied
+            # and this one has not yet received.
             drive(accs, cks, lambda: all(
                 a.model_version >= rounds for a in accs
-            ) and all(not a.has_gradients() for a in accs),
+            ) and len({a.model_version for a in accs}) == 1
+                and all(not a.has_gradients() for a in accs),
                 30, "post-restart training")
 
             # Loss continuity: every peer (including the restarted one)
@@ -733,6 +746,25 @@ def scenario_straggler_quorum(seed: int) -> Dict[str, int]:
         if net is not None:
             net.detach_all()
         cluster.close()
+
+
+def _lanes_settled(rpc: Rpc, peers) -> bool:
+    """Every lane ``rpc`` will hold to each of ``peers`` (Rpcs) is up and
+    no other: the socket lane, plus the same-host shm lane where both
+    sides offer one (its offer/accept round trip follows the greeting),
+    and no connection still waiting for its greeting. A conn kill of
+    ``rpc`` then counts the same connections in every run of a seed."""
+    if rpc._anon_conns:
+        return False
+    for other in peers:
+        p = rpc._peers.get(other.get_name())
+        live = ({t for t, c in list(p.conns.items()) if not c.is_closing()}
+                if p is not None else set())
+        shm = (rpc._shm_enabled and other._shm_enabled
+               and "shm" in rpc._transports and "shm" in other._transports)
+        if live != ({"tcp", "shm"} if shm else {"tcp"}):
+            return False
+    return True
 
 
 def _await_shm_lane(a: Rpc, b: Rpc, timeout: float = 10.0):

@@ -609,6 +609,39 @@ def test_train_state_hand_off_to_a_joiner_is_bitwise(cluster):
     assert got.optimizer.param_groups[0]["lr"] == 6e-4
 
 
+def test_a_leader_serves_no_state_between_an_apply_and_its_zero(cluster):
+    """The user applies a result, then zero_gradients() pops it. A state
+    request served in between would hand out the applied params under the
+    version before them (the reference serves that torn pair, and the
+    joiner stays one update ahead of its version for good). The leader
+    refuses while a result is queued; the joiner syncs once it is
+    zeroed, at the leader's version, on the applied params."""
+    w = {"lead": np.zeros(3)}
+    lead = _spawn_acc(cluster, "tornlead", vbs=1,
+                      get_state=lambda: {"w": w["lead"].copy()})
+    lead.set_model_version(5)
+    _pump([lead], lambda: lead.connected() and lead.wants_gradients())
+    lead.reduce_gradients({"w": np.ones(3)}, batch_size=1)
+    _pump([lead], lead.has_gradients)
+    mean, _ = lead.result_gradients()
+    w["lead"] = w["lead"] - np.asarray(mean["w"])  # applied, not zeroed
+    got = []
+    joiner = _spawn_acc(cluster, "tornjoin", vbs=1,
+                        set_state=lambda s: got.append(np.array(s["w"])))
+    _pump([lead, joiner], lambda: joiner.connected()
+          and joiner.get_leader() == "tornlead")
+    deadline = time.monotonic() + 1.0
+    while time.monotonic() < deadline:
+        for a in (lead, joiner):
+            a.update()
+        time.sleep(0.005)
+    assert got == [] and not joiner.get_gradient_stats()["synced"]
+    lead.zero_gradients()
+    _pump([lead, joiner], lambda: joiner.get_gradient_stats()["synced"])
+    np.testing.assert_array_equal(got[-1], w["lead"])
+    assert joiner.model_version == lead.model_version == 6
+
+
 def test_a_joiner_polled_faster_than_its_set_state_syncs_once(cluster):
     """The state-request gate stays closed until set_state has finished:
     a joiner whose update() runs every 2 ms and whose set_state takes

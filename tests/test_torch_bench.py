@@ -108,3 +108,101 @@ def test_bench_e2e_prints_one_line_of_the_references_keys(capsys):
     phases = child["vtrace_learner"]["phases"]
     assert {"env_wait", "act", "host_sync", "fwd_bwd"} <= set(phases)
     assert child["envpool_worker_deaths"] == 0
+
+
+def test_bench_on_a_dp_world_of_two_cpu_ranks_prints_one_line(capsys):
+    """bench.py's multi-chip branch: B a rank, split over a world of two
+    CPU ranks, the rate divided by them."""
+    line = bench_torch.main(batch=1, iters=1, devices=["cpu", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1 and json.loads(out[0]) == line
+    assert set(line) == KEYS | {"chips"} and line["chips"] == 2
+    assert line["metric"] == "impala_train_env_steps_per_sec_per_chip"
+    assert line["value"] > 0 and line["model_tflops_per_sec_per_chip"] > 0
+    assert line["device_kind"] == "cpu" and line["mfu"] is None
+
+
+_PROBE_CHILD = r"""
+import json, sys
+from moolib_tpu_torch.utils import benchmark
+if sys.argv[1] == "hang":
+    benchmark._PROBE_CODE = "import time; time.sleep(60)"
+    benchmark._PROBE_MIN_TIMEOUT = 1.0
+    benchmark.wait_for_device("m", probe_interval=2.0)
+    print("not reached")
+elif sys.argv[1] == "watchdog":
+    benchmark.install_watchdog("m", default_seconds=0.5)
+    import time; time.sleep(30)
+    print("not reached")
+else:
+    print(json.dumps(benchmark.wait_for_device("m")))
+"""
+
+
+def _probe_child(mode, **env):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    return subprocess.run(
+        [sys.executable, "-c", _PROBE_CHILD, mode],
+        cwd=str(Path(__file__).resolve().parent.parent), capture_output=True,
+        text=True, timeout=120, env={**os.environ, **env})
+
+
+def test_wait_for_device_returns_what_the_probe_child_counted():
+    proc = _probe_child("ok")
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["attempts"] == 1 and got["waited_s"] >= 0
+    want = torch.cuda.device_count()
+    assert got["n_devices"] == want
+    assert got["platform"] == ("cuda" if want else "cpu")
+
+
+def test_wait_for_device_gives_up_with_a_null_line_and_exit_3():
+    """A probe child that hangs is killed at its timeout; with the budget
+    spent (0: one probe) the run prints the null-value line and exits 3."""
+    proc = _probe_child("hang", MOOLIB_BENCH_BUDGET="0")
+    assert proc.returncode == 3, proc.stdout + proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert "not reached" not in lines
+    got = json.loads(lines[-1])
+    assert got["metric"] == "m" and got["value"] is None
+    assert got["attempts"] == 1
+    assert "timed out" in got["last_probe_error"]
+
+
+def test_watchdog_prints_its_json_line_and_exits_3():
+    proc = _probe_child("watchdog")
+    assert proc.returncode == 3, proc.stdout + proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["metric"] == "m" and got["value"] is None
+    assert "watchdog fired after 0.5s" in got["error"]
+
+
+def test_watchdog_is_off_at_zero_and_cancels(monkeypatch):
+    from moolib_tpu_torch.utils.benchmark import install_watchdog
+
+    monkeypatch.setenv("MOOLIB_BENCH_WATCHDOG", "0")
+    assert install_watchdog("m") is None
+    monkeypatch.setenv("MOOLIB_BENCH_WATCHDOG", "60")
+    timer = install_watchdog("m")
+    assert timer.daemon and timer.interval == 60.0
+    timer.cancel()
+    timer.join(5)
+    assert not timer.is_alive()
+
+
+def test_watchdog_without_a_variable_keeps_its_seconds(monkeypatch):
+    """``env_var=None`` (the dp world's start): no variable moves or
+    disables it."""
+    from moolib_tpu_torch.utils.benchmark import install_watchdog
+
+    monkeypatch.setenv("MOOLIB_BENCH_WATCHDOG", "0")
+    timer = install_watchdog("m", default_seconds=42.0, env_var=None)
+    assert timer.daemon and timer.interval == 42.0
+    timer.cancel()
+    timer.join(5)
+    assert not timer.is_alive()
