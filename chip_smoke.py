@@ -9,13 +9,16 @@ Phases, in order; any failure exits non-zero before the result line:
 2. Build: every hand-written kernel from the sources in the checkout, one
    nvcc per source, all started together; registers and spills of every
    instantiation, and the tensor-core and bulk-copy instructions in the
-   SASS (every wgmma instantiation must contain HGMMA).
+   SASS (every wgmma instantiation must contain HGMMA, every instantiation
+   of the fused one-tile backward HMMA).
 3. Forward kernel vs plain: the flash forward's wrapper on the card, held
    against its plain PyTorch version on the same inputs (the main paths'
-   shapes included, the context window with and without episode resets),
-   with the kernel's, the plain version's and a library call's times
-   (CUDA events and profiler device time), the card's least time for the
-   same work, and the wrapper's host time per call by part.
+   shapes included: the serving and the loop's act step, the train step,
+   the context window with and without episode resets), with the
+   kernel's, the plain version's and a library call's times (CUDA events
+   and profiler device time), the card's least time for the same work,
+   the launch floor (a one-element in-place add, traced alike) beside the
+   small-tile rows, and the wrapper's host time per call by part.
 4. Backward vs plain: the flash backward on o and lse from the forward
    kernel and a seeded dO, each case through the design its shape picks
    (the fused one-tile kernel at Tq, Tk <= 64, the dQ and dK/dV kernels
@@ -181,7 +184,8 @@ Phases, in order; any failure exits non-zero before the result line:
    processes, not 8): updates, finite losses, no env worker death, the
    LSTM state carried into the unrolls. (e) examples/a2c.py on CartPole
    at LEARNING_r04.json's settings (80,000 steps; bench_a2c_torch.py
-   --seeds 0 in a child process): return > 100 in at
+   --seeds 0 in a child process, run and gated right after phase 1, on
+   a quiet host): return > 100 in at
    least 10 of the last 20 windows and the last 10 windows' entropy in
    (0.05, 0.69); its curve; then the pixel A2C smoke (bf16 ImpalaNet).
    (f) examples/remote_actors.py: run_learner on the card (synthetic
@@ -413,6 +417,17 @@ once its actors have exited). It prints a [races] line for each run and
 a JSON line of the pass counts, and exits non-zero unless every run
 passed.
 
+    python3 chip_smoke.py --kernel-turns PARENT_DIR
+
+times the small-tile kernels (flash_fwd at the act shapes [128,4,1,32]
+and [32,4,1,32] and the train shape [32,4,21,32], flash_bwd_tile at the
+train shape, f32, resets every 200 steps) of the checkout at PARENT_DIR
+(for example a `git archive` of the parent commit) and of this one, each
+in a process of its own that builds its own tree's kernels, in the order
+parent, this, this, parent, beside the launch floor; it prints both
+trees' ptxas registers and spills for the two kernels, a [turns] line per
+turn and per row, and a JSON line of every reading.
+
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -452,6 +467,9 @@ SERVE_TOL = 1e-4
 # at a phase of its own.
 EPISODE_LENGTH = 200
 ACT_SHAPE = (BATCH * ACT_ENVS, 4, 1, 32)     # [B, H, T, D] of the act step
+# The experiment loop's act step: one actor batch of ACT_ENVS envs
+# (moolib_tpu/examples/vtrace/config.yaml:5).
+ACT_LOOP_SHAPE = (ACT_ENVS, 4, 1, 32)
 CONTEXT_SHAPE = (BATCH, 4, CONTEXT_T, 32)    # [B, H, T, D] of a context batch
 # The learn batch of moolib_tpu/examples/vtrace/experiment.py:61-63:
 # learn_batch_size 32 envs, unroll_length 20 (+1 bootstrap frame).
@@ -735,14 +753,17 @@ def phase_build():
             log(f"[build] {lib.source.name} {name} SASS: {c.get('HGMMA', 0)} "
                 f"HGMMA, {c.get('HMMA', 0)} HMMA, {c.get('UBLKCP', 0)} UBLKCP")
         counts.update(lib_counts)
-    # Every wgmma design's instantiation (3 head dims x 2 dtypes) must
-    # contain tensor-core instructions.
-    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_kernel",
-                   "flash_bwd_dkdv_kernel"):
+    # Every tensor-core design's instantiation (3 head dims x 2 dtypes)
+    # must contain its tensor-core instructions: wgmma (HGMMA), or
+    # mma.sync (HMMA) in the fused one-tile backward.
+    for kernel, ins in (("flash_fwd_wgmma_kernel", "HGMMA"),
+                        ("flash_bwd_dq_kernel", "HGMMA"),
+                        ("flash_bwd_dkdv_kernel", "HGMMA"),
+                        ("flash_bwd_tile_kernel", "HMMA")):
         found = [n for n in counts if n.startswith(kernel + "<")]
-        if len(found) != 6 or any(not counts[n].get("HGMMA") for n in found):
+        if len(found) != 6 or any(not counts[n].get(ins) for n in found):
             raise RuntimeError(f"{kernel}'s instantiations lack tensor-core "
-                               f"instructions: "
+                               f"instructions ({ins}): "
                                f"{ {n: counts[n] for n in found} }")
     return counts, guard.compiles
 
@@ -755,6 +776,16 @@ def _compare(o, lse, o_ref, lse_ref, o_tol_fn):
     o_err_t = (o.float() - o_ref.float()).abs()
     ok = bool((o_err_t <= o_tol_fn(o_ref.float().abs())).all())
     return float(o_err_t.max()), lse_err, ok
+
+
+def launch_floor_ms() -> float:
+    """Profiler device time of the least kernel any launch costs: a
+    one-element in-place add, traced as device_ms traces the kernels."""
+    x = torch.zeros(1, device="cuda")
+    ms = device_ms(lambda: x.add_(1.0), None)
+    if ms is None:
+        raise RuntimeError("no profiler device time for the launch floor")
+    return ms
 
 
 def wrapper_host_us(q, k, v, sq, sk, causal, iters: int = 200) -> dict:
@@ -831,7 +862,10 @@ def phase_kernel_vs_plain():
          "episodes"),
         ("causal D=128 f32 ragged", (2, 2, 300, 128), 300, torch.float32,
          True, "episodes"),
+        ("act loop (main path)", ACT_LOOP_SHAPE, 1, torch.float32, True,
+         "episodes"),
     ]
+    t_phase = time.perf_counter()
     results = {}
     for name, (B, H, Tq, D), Tk, dtype, causal, segs in cases:
         q = torch.randn((B, H, Tq, D), generator=gen, device="cuda").to(dtype)
@@ -869,7 +903,8 @@ def phase_kernel_vs_plain():
 
     timings = {}
     for name in ("context (main path)", "context (no resets)",
-                 "act (main path)", "train (main path)", "B*H=32 T=2048 f32",
+                 "act (main path)", "act loop (main path)",
+                 "train (main path)", "B*H=32 T=2048 f32",
                  "B*H=32 T=2048 bf16"):
         r = results[name]
         q, k, v, sq, sk, causal = (r["q"], r["k"], r["v"], r["seg_q"],
@@ -913,12 +948,21 @@ def phase_kernel_vs_plain():
             f" ms), bound {bound_ms:.4f} ms ({bound_by}), bound with no "
             f"resets {no_reset_ms:.4f} ms; device/bound "
             f"{dev_ms / bound_ms:.1f}x")
+    floor = launch_floor_ms()
+    timings["launch floor"] = floor
+    log(f"[kernel] launch floor: a one-element in-place add, profiler "
+        f"device time {floor:.4f} ms (traced as the rows above); the "
+        f"small-tile rows against it: "
+        + ", ".join(f"{n} {timings[n]['device_ms']:.4f} ms"
+                    for n in ("act (main path)", "act loop (main path)",
+                              "train (main path)")))
     r = results["train (main path)"]
     host = wrapper_host_us(r["q"], r["k"], r["v"], r["seg_q"], r["seg_k"],
                            r["causal"])
     timings["train (main path)"]["host_us"] = host
     log("[kernel] flash_fwd wrapper host time per call at the train shape "
         "(us): " + ", ".join(f"{n} {us:.2f}" for n, us in host.items()))
+    log(f"[kernel] phase took {time.perf_counter() - t_phase:.1f} s")
     return results, timings
 
 
@@ -937,6 +981,7 @@ def phase_backward_vs_plain():
         _flash_delta,
     )
 
+    t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(1)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
@@ -1072,6 +1117,7 @@ def phase_backward_vs_plain():
             f"events), plain backward (dq, dk, dv together) {plain_ms:.4f} "
             f"ms, sdpa backward {lib_dev_ms:.4f} ms device ({lib_ms:.4f} ms "
             f"events)")
+    log(f"[backward] phase took {time.perf_counter() - t_phase:.1f} s")
     return results, timings
 
 
@@ -4638,10 +4684,10 @@ def _zoo_a2c_bar() -> dict:
     """bench_a2c_torch.py's run at seed 0 in a child process, and this
     process's CPU seconds and threads meanwhile. The loop's timing enters
     its trajectory (when the Accumulator first connects, whether a reduce
-    lands an iteration late), and this process carries the threads the
-    earlier phases left: run in it, seed 0 missed the bar in three smoke
-    runs of three on an H100 machine, where run alone it met the bar in
-    four of four."""
+    lands an iteration late), so the host's load is part of the result:
+    on an H100 machine seed 0 met the bar in eight of eight runs on a
+    quiet host, and in three of eight runs made late in the smoke,
+    after the earlier phases' processes and threads."""
     here = os.path.dirname(os.path.abspath(__file__))
     cpu0, threads = sum(os.times()[:2]), threading.active_count()
     proc = subprocess.run(
@@ -4657,27 +4703,45 @@ def _zoo_a2c_bar() -> dict:
     return dict(res, parent_cpu_s=cpu, parent_threads=threads)
 
 
-def _zoo_a2c(smi) -> dict:
-    """(e) A2C on CartPole at LEARNING_r04.json's settings (80,000 steps,
-    log windows of 4,000), gated on its bar (bench_a2c_torch.py's run at
-    seed 0, in a child process); then the pixel A2C smoke."""
+def phase_a2c_bar(smi) -> dict:
+    """(e)'s learning bar, run right after phase 1 so that it meets the
+    host as quiet as a run of its own would: A2C on CartPole at
+    LEARNING_r04.json's settings (80,000 steps, log windows of 4,000),
+    bench_a2c_torch.py's run at seed 0 in a child process, gated on
+    return > 100 in 10 of the last 20 windows and on the last 10
+    windows' entropy."""
     import bench_a2c_torch as bar_bench
-    from moolib_tpu_torch.examples import a2c
-    from moolib_tpu_torch.ops._kernels import KERNELS
 
-    for kern in KERNELS:
-        kern.launches = 0
+    t0 = time.perf_counter()
     res = _zoo_a2c_bar()
     bar, need, _ = bar_bench.BAR
-    zlog(f"(e) a2c cartpole (bench_a2c_torch.py --seeds 0, a child; this "
-         f"process meanwhile {res['parent_cpu_s']:.1f} CPU s over "
-         f"{res['parent_threads']} threads), {bar_bench.STEPS} steps: wall "
+    zlog(f"(e) a2c cartpole (bench_a2c_torch.py --seeds 0, a child, "
+         f"before the builds; this process meanwhile "
+         f"{res['parent_cpu_s']:.1f} CPU s over {res['parent_threads']} "
+         f"threads), {bar_bench.STEPS} steps: wall "
          f"{res['wall_s']:.1f} s, {res['updates']:g} updates, dropped "
          f"unrolls {res['dropped_unrolls']:g}; bar: return > {bar:g} in "
          f"{res['hits']} of the last {res['windows']} windows (need "
          f"{need}); entropy of the last 10 windows {res['entropy']} (inside "
          f"{bar_bench.ENTROPY}); curve (env steps, return, entropy) "
-         f"{res['curve']}", smi)
+         f"{res['curve']}; took {time.perf_counter() - t0:.1f} s", smi)
+    if not res["met"]:
+        raise RuntimeError(f"a2c missed the learning bar: {res['hits']} of "
+                           f"{res['windows']} windows above {bar:g}")
+    if not res["entropy_ok"]:
+        raise RuntimeError(f"a2c entropy outside {bar_bench.ENTROPY}: "
+                           f"{res['entropy']}")
+    return res
+
+
+def _zoo_a2c(smi, bar: dict) -> dict:
+    """(e) the pixel A2C smoke, reported beside the CartPole bar that
+    phase_a2c_bar met."""
+    from moolib_tpu_torch.examples import a2c
+    from moolib_tpu_torch.ops._kernels import KERNELS
+
+    for kern in KERNELS:
+        kern.launches = 0
     pixel = a2c.train(a2c.A2CConfig(env="synthetic", num_actions=6,
                                     total_steps=600, unroll_length=5,
                                     batch_size=2, num_processes=2,
@@ -4687,19 +4751,13 @@ def _zoo_a2c(smi) -> dict:
     zlog(f"(e) a2c pixel smoke (synthetic, bf16 ImpalaNet on the card): "
          f"{pixel[-1]['updates']:g} updates, loss "
          f"{pixel[-1]['total_loss']:.4f}; flash launches {launches}", smi)
-    if not res["met"]:
-        raise RuntimeError(f"a2c missed the learning bar: {res['hits']} of "
-                           f"{res['windows']} windows above {bar:g}")
-    if not res["entropy_ok"]:
-        raise RuntimeError(f"a2c entropy outside {bar_bench.ENTROPY}: "
-                           f"{res['entropy']}")
     if pixel[-1]["updates"] < 1 or not np.isfinite(pixel[-1]["total_loss"]):
         raise RuntimeError(f"the pixel a2c smoke: {pixel}")
     if any(launches.values()):
         raise RuntimeError(f"the a2c path launched {launches}")
-    return dict(wall_s=res["wall_s"], updates=res["updates"],
-                hits=res["hits"], windows=res["windows"],
-                entropy=res["entropy"], curve=res["curve"],
+    return dict(wall_s=bar["wall_s"], updates=bar["updates"],
+                hits=bar["hits"], windows=bar["windows"],
+                entropy=bar["entropy"], curve=bar["curve"],
                 pixel_updates=pixel[-1]["updates"], launches=launches)
 
 
@@ -4790,9 +4848,9 @@ def _zoo_remote(env: str, num_actions: int, actors: int, must_stack: bool,
                 calls_per_forward=calls_per_batch)
 
 
-def phase_zoo(smi) -> dict:
+def phase_zoo(smi, a2c_bar: dict) -> dict:
     """Phase 12: the remaining model families and example entry points
-    (see the module docstring)."""
+    (see the module docstring); ``a2c_bar`` is phase_a2c_bar's result."""
     from moolib_tpu_torch.ops._kernels import KERNELS
 
     t0 = time.perf_counter()
@@ -4800,7 +4858,7 @@ def phase_zoo(smi) -> dict:
     train = _zoo_moe_train(smi)
     e2e = _zoo_moe_e2e(smi)
     nethack = _zoo_nethack(smi)
-    a2c = _zoo_a2c(smi)
+    a2c = _zoo_a2c(smi, a2c_bar)
     for kern in KERNELS:
         kern.launches = 0
     remote = {f"{env} x{actors}": _zoo_remote(env, n, actors, stack, smi)
@@ -7827,6 +7885,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     name, smi = phase_device()
+    a2c_bar = phase_a2c_bar(smi)
     _, library_builds = phase_build()
     fwd_results, fwd_timings = phase_kernel_vs_plain()
     bwd_results, bwd_timings = phase_backward_vs_plain()
@@ -7847,7 +7906,7 @@ def main() -> int:
     # flight recorder, which every bundle merges in.
     bundles = phase_bundles(tels)
     e2e = phase_e2e(impala["bench"]["line"]["value"])
-    zoo = phase_zoo(smi)
+    zoo = phase_zoo(smi, a2c_bar)
     durable = phase_statestore(smi)
     chaos = phase_chaos(smi)
     md = phase_md(smi)
@@ -7910,6 +7969,9 @@ def main() -> int:
         {"no_resets": fwd_timings["context (no resets)"],
          "act_shape": dict(shape=list(ACT_SHAPE),
                            **fwd_timings["act (main path)"]),
+         "act_loop_shape": dict(shape=list(ACT_LOOP_SHAPE),
+                                **fwd_timings["act loop (main path)"]),
+         "launch_floor_ms": fwd_timings["launch floor"],
          "train_shape": dict(shape=list(TRAIN_SHAPE),
                              **fwd_timings["train (main path)"]),
          "bf16_shape": dict(shape=[8, 4, 2048, 32],
@@ -8010,9 +8072,105 @@ def races(reps: int) -> int:
     return 0 if all(v == runs for v in passes.values()) else 1
 
 
+TURNS_FLAG = "--kernel-turns"
+TURNS_CHILD_FLAG = "--kernel-turns-child"
+# The small-tile kernels at the main paths' shapes: (row, kernel, shape,
+# the profiler's name filter).
+TURN_ROWS = (
+    ("flash_fwd act (serving)", "flash_fwd", ACT_SHAPE, "flash_fwd_"),
+    ("flash_fwd act (loop)", "flash_fwd", ACT_LOOP_SHAPE, "flash_fwd_"),
+    ("flash_fwd train", "flash_fwd", TRAIN_SHAPE, "flash_fwd_"),
+    ("flash_bwd_tile train", "flash_bwd_tile", TRAIN_SHAPE,
+     "flash_bwd_tile_kernel"),
+)
+TURN_KERNELS = ("flash_fwd_simt_kernel", "flash_bwd_tile_kernel")
+
+
+def kernel_turns_child() -> int:
+    """One turn of --kernel-turns: the package of the working directory
+    (this tree's or another's) built, its small-tile kernels timed at
+    TURN_ROWS' shapes and the launch floor; one JSON line."""
+    sys.path.insert(0, os.getcwd())
+    from moolib_tpu_torch.ops import _kernels
+
+    _kernels.build_all()
+    ptxas = [f"{name}: {line}" for lib in _kernels.LIBRARIES
+             for name, line in _ptxas_lines(lib.build_log)
+             if name.startswith(TURN_KERNELS)]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for row, kname, shape, filt in TURN_ROWS:
+        B, H, T, D = shape
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       for _ in range(4))
+        seg = episode_segments(gen, B, T)
+        o, lse = _kernels.flash_fwd(q, k, v, seg, seg, True)
+        if kname == "flash_fwd":
+            fn = lambda: _kernels.flash_fwd(  # noqa: E731
+                q, k, v, seg, seg, True)
+        else:
+            fn = lambda: _kernels.flash_bwd_tile(  # noqa: E731
+                q, k, v, seg, seg, o, lse, do, True)
+        rows[row] = device_ms(fn, filt, takes=3)
+        if rows[row] is None:
+            raise RuntimeError(f"no profiler device time for {row}")
+    rows["launch floor"] = launch_floor_ms()
+    print(json.dumps({"tree": os.getcwd(), "device_ms": rows,
+                      "ptxas": ptxas}), flush=True)
+    return 0
+
+
+def kernel_turns(parent: str) -> int:
+    """The --kernel-turns mode: the small-tile kernels of the tree at
+    ``parent`` and of this one, each in a process of its own, in the
+    order parent, this, this, parent (each process builds its own tree's
+    kernels; the second run of a tree reuses its build). Prints a [turns]
+    line per turn and row, both trees' ptxas lines for the two kernels,
+    and a JSON line of every reading; exits non-zero if a turn failed."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this "
+              "script needs an NVIDIA H100", file=sys.stderr)
+        return 2
+    _, smi = phase_device()
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(parent), "this": here}
+    turns = []
+    for which in ("parent", "this", "this", "parent"):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), TURNS_CHILD_FLAG],
+            cwd=trees[which], capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            log(f"[turns] {which} failed (exit {proc.returncode}):\n"
+                f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+            return 1
+        out = json.loads(lines[-1])
+        if len(turns) < 2:
+            for line in out["ptxas"]:
+                log(f"[turns] {which} ptxas {line}")
+        turns.append((which, out["device_ms"]))
+        log(f"[turns] {which} ({trees[which]}): "
+            + ", ".join(f"{row} {ms:.4f} ms" for row, ms in
+                        out["device_ms"].items())
+            + f" | card: {smi}")
+    for row in [r[0] for r in TURN_ROWS] + ["launch floor"]:
+        by = {w: [t[row] for which, t in turns if which == w]
+              for w in ("parent", "this")}
+        log(f"[turns] {row}: parent {by['parent']}, this {by['this']} ms; "
+            f"this/parent (means) "
+            f"{sum(by['this']) / sum(by['parent']):.3f} | card: {smi}")
+    log(json.dumps({"turns": [{"tree": w, "device_ms": t}
+                              for w, t in turns], "card": smi}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == [RACES_FLAG]:
         sys.exit(races(int(sys.argv[2])))
+    if sys.argv[1:2] == [TURNS_FLAG]:
+        sys.exit(kernel_turns(sys.argv[2]))
+    if sys.argv[1:] == [TURNS_CHILD_FLAG]:
+        sys.exit(kernel_turns_child())
     if sys.argv[1:] == [RPC_CHILD_FLAG]:
         sys.exit(rpc_child())
     if sys.argv[1:2] == [ACC_CHILD_FLAG]:

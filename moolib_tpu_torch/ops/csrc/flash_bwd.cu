@@ -23,13 +23,33 @@
 // Three kernels behind three entry points:
 //
 // flash_bwd_tile_kernel (flash_bwd_tile), for Tq and Tk of at most one
-// 64-row tile (the train step's T = 21), where a launch is latency-bound.
-// One launch computes delta, dQ, dK and dV: one CTA per (b, h) loads the
-// q, k, v, o and dO rows once into shared memory as f32, takes delta from
-// o and dO, computes s and dp for all Tq x Tk pairs at once (threads over
-// pairs), keeps P and dS in shared memory, and forms the three gradients as
-// small products over them (threads over four dimensions of an output row).
-// f32 on the CUDA cores; nothing past Tq or Tk is computed.
+// 64-row tile (the train step's T = 21), where a launch is held by its
+// latencies, not by its bytes; it replaces both Pallas backward kernels
+// there. One launch computes delta, dQ, dK and dV, one CTA (16 warps) per
+// (b, h):
+//  - One round trip to memory: q, dO, o, k and v rows by 16-byte cp.async
+//    into shared memory as stored (bf16 rows stay bf16, converted as they
+//    are read), lse and both segment ids by 4-byte ones, all in flight
+//    before one wait and one barrier.
+//  - The five products on the tensor cores, mma.sync m16n8k8 with TF32
+//    operands, a warp a 16 x 8 output tile, f32 inputs and P and dS kept
+//    to f32 accuracy by the 3xTF32 split of the wgmma kernels (bf16 rows
+//    are exact in TF32). The same design on the CUDA cores (a lane a
+//    pair, then a thread four outputs) ran 0.0048 ms at the train shape
+//    against 0.0045 here (PERF.md); either way the two phases take most
+//    of the launch, ~1.2-1.5 us each, more than their instruction counts
+//    explain (an open question).
+//  - S and dP: a warp computes the same tile of both, so P and dS come
+//    out of its accumulators elementwise, with the row's delta = dO . o
+//    from the row's four lanes (a quarter of D each, two shuffles). The
+//    products read P and dS by row (dQ) and by column (dK, dV): a
+//    transpose across warps, so they pass through shared memory, one
+//    barrier.
+//  - dQ = dS.K, dK = dS^T.Q, dV = P^T.dO: each tile sums over the
+//    causally visible range only (dQ: keys j <= i; dK, dV: rows i >= j),
+//    and a tile of S wholly above the diagonal is not multiplied.
+//  - One owner per output element and a fixed order of terms: no atomics,
+//    the same bits each run.
 //
 // flash_bwd_dq_kernel and flash_bwd_dkdv_kernel (flash_bwd_dq,
 // flash_bwd_dkdv; delta from the caller), for longer sequences. One CTA
@@ -72,8 +92,8 @@
 // every 200 steps few pairs are visible, and the bytes (q, k, v, dO, lse,
 // delta in; the gradients out) bound both kernels (~6-8 us); with no reset
 // in the window the 3xTF32 operations do (~40-50 us). The train step's
-// tile kernel moves ~2.7 MB (0.8 us) and is held by its latency: each CTA
-// loads, reduces and stores in a chain of dependent phases.
+// tile kernel moves ~2.7 MB (0.8 us) and is held by its fixed latencies:
+// the launch, one memory round trip, two barriers and the stores.
 //
 // Tile sizes (rows of the streamed side): as wide as shared memory and
 // registers allow. dQ: 64 for bf16 and for f32 at D = 32, 32 for f32 at
@@ -870,50 +890,86 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 constexpr int kTileMax = 64;        // Tq and Tk it is chosen for
-constexpr int kTileThreads = 512;  // a pair or 4 outputs each at T=21
+constexpr int kTileThreads = 512;  // 16 warps, a product tile each
 
-// Shared floats of one CTA: q (scaled), dO, o, k, v rows at a stride of
-// D + 4 (float4 reads of a row by neighbouring threads fall in different
-// banks), P and dS [tq, tk], lse, delta and the segment ids.
-__host__ __device__ constexpr int tile_floats(int d, int tq, int tk) {
-  return (3 * tq + 2 * tk) * (d + 4) + 2 * tq * tk + 3 * tq + tk;
-}
-
-// acc += w * x, four lanes.
-__device__ __forceinline__ void fma4(float4& acc, float w, float4 x) {
-  acc.x += w * x.x;
-  acc.y += w * x.y;
-  acc.z += w * x.z;
-  acc.w += w * x.w;
-}
-
-template <int D>
-__device__ __forceinline__ float dot_rows(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(a + c);
-    const float4 y = *reinterpret_cast<const float4*>(b + c);
-    acc += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
-  }
-  return acc;
-}
-
-// Rows [0, n) of a [n, D] matrix into shared rows of stride D + 4, times
-// `mul`.
+// Shared-memory layout of one CTA, in bytes: the q, dO, o, k and v rows
+// in the input type at a stride of D + 16 bytes, then P and dS [tq, pst]
+// in f32 (pst = tk rounded up to 8, plus 4: the fragment reads of a warp,
+// rows g and columns t, fall in 32 different banks), lse and the segment
+// ids.
 template <int D, typename T>
-__device__ __forceinline__ void rows_in(float* dst, const T* src, int n,
-                                        float mul) {
-  for (int idx = threadIdx.x; idx < n * D / 4; idx += kTileThreads) {
-    const int r = 4 * idx / D;
-    const int c = 4 * idx % D;
-    float x[4];
-    load4(src + static_cast<size_t>(r) * D + c, x);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) =
-        make_float4(x[0] * mul, x[1] * mul, x[2] * mul, x[3] * mul);
+struct TileLayout {
+  static constexpr int kStride = D + 16 / static_cast<int>(sizeof(T));
+  __host__ __device__ static int pst(int tk) { return (tk + 7) / 8 * 8 + 4; }
+  __host__ __device__ static int rows_bytes(int tq, int tk) {
+    return (3 * tq + 2 * tk) * kStride * static_cast<int>(sizeof(T));
+  }
+  __host__ __device__ static int bytes(int tq, int tk) {
+    return rows_bytes(tq, tk) + 4 * (2 * tq * pst(tk) + 2 * tq + tk);
+  }
+};
+
+// d += a . b for one m16n8k8 tile on the tensor cores, TF32 operands.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// f32 -> (hi, lo) TF32 words: hi cut to tf32, lo = x - hi.
+template <int N>
+__device__ __forceinline__ void split(const float (&x)[N], uint32_t (&hi)[N],
+                                      uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const float h = tf32_hi(x[e]);
+    hi[e] = __float_as_uint(h);
+    lo[e] = __float_as_uint(x[e] - h);
   }
 }
 
+// Element (r, c) of a [rows, cols] matrix in shared memory (row stride
+// `stride`) as f32; 0 past its rows or columns, which pads a product's
+// tiles with zeros.
+template <typename T>
+__device__ __forceinline__ float at(const T* m, int stride, int r, int c,
+                                    int rows, int cols) {
+  return r < rows && c < cols ? to_f32(m[r * stride + c]) : 0.f;
+}
+
+// One 16 x 8 tile of A . B at (m0, n0) over k in [k_begin, k_end) (k-steps
+// of 8; elements past the matrices read as 0), A and B given by element:
+// a_at(m, k), b_at(k, n). Lane (g, t) = (lane / 4, lane % 4) holds A's
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), B's (t, g), (t + 4, g)
+// and the result's (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+// 3xTF32: a.b = ah.bh + (ah.bl + al.bh) to f32 accuracy, the small terms
+// in a second accumulator so the two chains overlap.
+template <typename FA, typename FB>
+__device__ __forceinline__ void tile_product(float (&d)[4], FA a_at, FB b_at,
+                                             int m0, int n0, int k_begin,
+                                             int k_end, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  float small[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k0 = k_begin; k0 < k_end; k0 += 8) {
+    const float a[4] = {a_at(m0 + g, k0 + t), a_at(m0 + g + 8, k0 + t),
+                        a_at(m0 + g, k0 + t + 4),
+                        a_at(m0 + g + 8, k0 + t + 4)};
+    const float b[2] = {b_at(k0 + t, n0 + g), b_at(k0 + t + 4, n0 + g)};
+    uint32_t ah[4], al[4], bh[2], bl[2];
+    split(a, ah, al);
+    split(b, bh, bl);
+    mma_tf32(small, ah, bl);
+    mma_tf32(small, al, bh);
+    mma_tf32(d, ah, bh);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += small[e];
+}
+
+// One CTA per (b, h); the design is in the note at the top of the file.
 template <int D, typename T>
 __global__ void __launch_bounds__(kTileThreads)
 flash_bwd_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -924,106 +980,160 @@ flash_bwd_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ dout, T* __restrict__ dq,
                       T* __restrict__ dk, T* __restrict__ dv, int heads,
                       int tq, int tk, int causal) {
-  constexpr int S = D + 4;
+  using L = TileLayout<D, T>;
+  constexpr int S = L::kStride;
+  constexpr int kUnits = D * sizeof(T) / 16;  // 16-byte units of a row
+  constexpr int kWarps = kTileThreads / 32;
   extern __shared__ float4 tile_smem[];
-  float* q_s = reinterpret_cast<float*>(tile_smem);
-  float* do_s = q_s + tq * S;
-  float* o_s = do_s + tq * S;
-  float* k_s = o_s + tq * S;
-  float* v_s = k_s + tk * S;
-  float* p_s = v_s + tk * S;
-  float* ds_s = p_s + tq * tk;
-  float* lse_s = ds_s + tq * tk;
-  float* dl_s = lse_s + tq;
-  int* sq_s = reinterpret_cast<int*>(dl_s + tq);
+  T* q_s = reinterpret_cast<T*>(tile_smem);
+  T* do_s = q_s + tq * S;
+  T* o_s = do_s + tq * S;
+  T* k_s = o_s + tq * S;
+  T* v_s = k_s + tk * S;
+  const int pst = L::pst(tk);
+  float* p_s = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(tile_smem) + L::rows_bytes(tq, tk));
+  float* ds_s = p_s + tq * pst;
+  float* lse_s = ds_s + tq * pst;
+  int* sq_s = reinterpret_cast<int*>(lse_s + tq);
   int* sk_s = sq_s + tq;
 
   const int bh = blockIdx.x;
-  const int b = bh / heads;
+  const size_t b = bh / heads;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const size_t q_rows = static_cast<size_t>(bh) * tq;
   const size_t kv_rows = static_cast<size_t>(bh) * tk;
   const float scale = inv_sqrt_dim(D);
 
-  rows_in<D>(q_s, q + q_rows * D, tq, scale);
-  rows_in<D>(do_s, dout + q_rows * D, tq, 1.f);
-  rows_in<D>(o_s, o + q_rows * D, tq, 1.f);
-  rows_in<D>(k_s, k + kv_rows * D, tk, 1.f);
-  rows_in<D>(v_s, v + kv_rows * D, tk, 1.f);
+  for (int u = tid; u < tq * kUnits; u += kTileThreads) {
+    const int r = u / kUnits;
+    const int off = 16 * (u % kUnits);
+    const size_t src = (q_rows + r) * D;
+    copy_unit(q_s + r * S, q + src, off);
+    copy_unit(do_s + r * S, dout + src, off);
+    copy_unit(o_s + r * S, o + src, off);
+  }
+  for (int u = tid; u < tk * kUnits; u += kTileThreads) {
+    const int r = u / kUnits;
+    const int off = 16 * (u % kUnits);
+    const size_t src = (kv_rows + r) * D;
+    copy_unit(k_s + r * S, k + src, off);
+    copy_unit(v_s + r * S, v + src, off);
+  }
   for (int i = tid; i < tq; i += kTileThreads) {
-    lse_s[i] = lse[q_rows + i];
-    sq_s[i] = seg_q[static_cast<size_t>(b) * tq + i];
+    cp_async4(lse_s + i, lse + q_rows + i);
+    cp_async4(sq_s + i, seg_q + b * tq + i);
   }
   for (int j = tid; j < tk; j += kTileThreads) {
-    sk_s[j] = seg_k[static_cast<size_t>(b) * tk + j];
+    cp_async4(sk_s + j, seg_k + b * tk + j);
   }
+  cp_async_wait_all();
   __syncthreads();
 
-  // delta[i] = dO[i] . o[i] (o as the forward returned it), a warp a row.
-  for (int i = warp; i < tq; i += kTileThreads / 32) {
-    float acc = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      acc += do_s[i * S + c] * o_s[i * S + c];
+  // S = Q.K^T and dP = dO.V^T, a warp a 16 x 8 tile of both; P and dS
+  // from the accumulators into shared memory.
+  const int n_nt = (tk + 7) / 8;
+  for (int tile = warp; tile < (tq + 15) / 16 * n_nt; tile += kWarps) {
+    const int m0 = 16 * (tile / n_nt);
+    const int n0 = 8 * (tile % n_nt);
+    // delta of rows m0 + g and m0 + g + 8: each lane of the row's four
+    // takes a quarter of D, two shuffles add them.
+    float delta[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = m0 + g + 8 * h;
+      float part = 0.f;
+      if (i < tq) {
+#pragma unroll
+        for (int u = 0; u < D / 16; ++u) {
+          const int c = t * D / 4 + 4 * u;
+          float x[4], y[4];
+          load4(do_s + i * S + c, x);
+          load4(o_s + i * S + c, y);
+          part += x[0] * y[0] + x[1] * y[1] + x[2] * y[2] + x[3] * y[3];
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      delta[h] = part + __shfl_xor_sync(0xffffffffu, part, 2);
+    }
+    // A tile wholly above the diagonal holds no visible pair.
+    const bool any = causal == 0 || n0 <= m0 + 15;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    float dp[4] = {0.f, 0.f, 0.f, 0.f};
+    if (any) {
+      tile_product(
+          s, [&](int i, int c) { return at(q_s, S, i, c, tq, D); },
+          [&](int c, int j) { return at(k_s, S, j, c, tk, D); }, m0, n0, 0,
+          D, lane);
+      tile_product(
+          dp, [&](int i, int c) { return at(do_s, S, i, c, tq, D); },
+          [&](int c, int j) { return at(v_s, S, j, c, tk, D); }, m0, n0, 0,
+          D, lane);
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    }
-    if (lane == 0) dl_s[i] = acc;
-  }
-  __syncthreads();
-
-  // p and dS for every pair, a thread a pair.
-  for (int idx = tid; idx < tq * tk; idx += kTileThreads) {
-    const int i = idx / tk;
-    const int j = idx % tk;
-    const bool visible = sq_s[i] == sk_s[j] && (causal == 0 || i >= j) &&
-                         isfinite(lse_s[i]);
-    float p = 0.f, ds = 0.f;
-    if (visible) {
-      p = expf(dot_rows<D>(q_s + i * S, k_s + j * S) - lse_s[i]);
-      ds = p * (dot_rows<D>(do_s + i * S, v_s + j * S) - dl_s[i]);
-    }
-    p_s[idx] = p;
-    ds_s[idx] = ds;
-  }
-  __syncthreads();
-
-  // The three products over P and dS, a thread four dimensions of one
-  // output row: dQ rows first, then dK and dV rows, in one pass.
-  constexpr int C4 = D / 4;
-  const int n_dq = tq * C4;
-  for (int idx = tid; idx < n_dq + tk * C4; idx += kTileThreads) {
-    if (idx < n_dq) {
-      const int i = idx / C4;
-      const int c = 4 * (idx % C4);
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int j = 0; j < tk; ++j) {
-        fma4(acc, ds_s[i * tk + j],
-             *reinterpret_cast<const float4*>(k_s + j * S + c));
+    for (int e = 0; e < 4; ++e) {
+      const int i = m0 + g + 8 * (e >> 1);
+      const int j = n0 + 2 * t + (e & 1);
+      if (i >= tq || j >= tk) continue;
+      float p = 0.f, ds = 0.f;
+      if (any && (causal == 0 || i >= j) && isfinite(lse_s[i]) &&
+          sq_s[i] == sk_s[j]) {
+        p = exp2f((s[e] * scale - lse_s[i]) * kLog2e);
+        ds = p * (dp[e] - delta[e >> 1]);
       }
-      T* dst = dq + (q_rows + i) * D + c;
-      store2(dst, acc.x * scale, acc.y * scale);
-      store2(dst + 2, acc.z * scale, acc.w * scale);
+      p_s[i * pst + j] = p;
+      ds_s[i * pst + j] = ds;
+    }
+  }
+  __syncthreads();
+
+  // dQ = dS.K, dK = dS^T.Q and dV = P^T.dO, a warp a 16 x 8 tile of one;
+  // each sum over the causally visible range only (dQ: keys j <= i;
+  // dK, dV: query rows i >= j).
+  constexpr int kNt = D / 8;
+  const int n_q = (tq + 15) / 16 * kNt;
+  const int n_k = (tk + 15) / 16 * kNt;
+  for (int tile = warp; tile < n_q + 2 * n_k; tile += kWarps) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    T* out;
+    int m0, n0, rows;
+    float mul;
+    if (tile < n_q) {
+      m0 = 16 * (tile / kNt);
+      n0 = 8 * (tile % kNt);
+      tile_product(
+          acc, [&](int i, int j) { return at(ds_s, pst, i, j, tq, tk); },
+          [&](int j, int c) { return at(k_s, S, j, c, tk, D); }, m0, n0, 0,
+          causal ? min(tk, m0 + 16) : tk, lane);
+      out = dq + q_rows * D;
+      rows = tq;
+      mul = scale;
     } else {
-      const int j = (idx - n_dq) / C4;
-      const int c = 4 * ((idx - n_dq) % C4);
-      float4 acc_k = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 acc_v = acc_k;
-      for (int i = 0; i < tq; ++i) {
-        fma4(acc_k, ds_s[i * tk + j],
-             *reinterpret_cast<const float4*>(q_s + i * S + c));
-        fma4(acc_v, p_s[i * tk + j],
-             *reinterpret_cast<const float4*>(do_s + i * S + c));
+      const bool is_v = tile >= n_q + n_k;
+      const int u = tile - n_q - (is_v ? n_k : 0);
+      m0 = 16 * (u / kNt);
+      n0 = 8 * (u % kNt);
+      // A = P^T or dS^T, [tk, tq]: the stored [tq, tk] matrix transposed.
+      const float* a_mat = is_v ? p_s : ds_s;
+      const T* b_rows = is_v ? do_s : q_s;
+      tile_product(
+          acc, [&](int j, int i) { return at(a_mat, pst, i, j, tq, tk); },
+          [&](int i, int c) { return at(b_rows, S, i, c, tq, D); }, m0, n0,
+          causal ? m0 : 0, tq, lane);
+      out = (is_v ? dv : dk) + kv_rows * D;
+      rows = tk;
+      mul = is_v ? 1.f : scale;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + g + 8 * h;
+      if (r < rows) {
+        store2(out + r * D + n0 + 2 * t, acc[2 * h] * mul,
+               acc[2 * h + 1] * mul);
       }
-      T* dst_k = dk + (kv_rows + j) * D + c;
-      T* dst_v = dv + (kv_rows + j) * D + c;
-      store2(dst_k, acc_k.x, acc_k.y);
-      store2(dst_k + 2, acc_k.z, acc_k.w);
-      store2(dst_v, acc_v.x, acc_v.y);
-      store2(dst_v + 2, acc_v.z, acc_v.w);
     }
   }
 }
@@ -1097,9 +1207,9 @@ struct Tile {
     if (a.tq > kTileMax || a.tk > kTileMax) return cudaErrorInvalidValue;
     static const cudaError_t configured =
         allow_smem(flash_bwd_tile_kernel<D, T>,
-                   4 * tile_floats(D, kTileMax, kTileMax));
+                   TileLayout<D, T>::bytes(kTileMax, kTileMax));
     if (configured != cudaSuccess) return configured;
-    const int smem = 4 * tile_floats(D, a.tq, a.tk);
+    const int smem = TileLayout<D, T>::bytes(a.tq, a.tk);
     flash_bwd_tile_kernel<D, T><<<a.bh, kTileThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.seg_q, a.seg_k,

@@ -51,22 +51,42 @@
 //    are in flight while the current one is split, transposed and
 //    multiplied. Keys past Tk are zero-filled in the operand tiles and
 //    their scores set to -inf after the product.
-// flash_fwd_simt_kernel, for Tq and Tk of at most one tile (the act step
-// at T=1, the train step at T=21), where a launch is latency-bound: one
-// query row per lane pair in f32 on the CUDA cores, as first written.
+// flash_fwd_simt_kernel, for Tq and Tk of at most one 64-row tile (the act
+// step at T = 1, [32 or 128, 4, 1, 32]; the train step at T = 21,
+// [32, 4, 21, 32]), on the CUDA cores; `_flash_kernel` at these lengths:
+//  - Lanes hold real rows: eight lanes a query row (four dims each at
+//    D = 32), and short rows share a CTA (four (b, h) of one warp at
+//    Tq = 1); longer ones get a CTA a (b, h), 8 * Tq lanes.
+//  - One round trip to memory: q and seg_q into registers and the K, V
+//    rows and seg_k into shared memory by cp.async (as stored, no
+//    conversion) all issued before one wait and one barrier; only keys
+//    some row of the CTA may see are copied.
+//  - Only keys that exist and are causally visible are scored, four at a
+//    time (one branch a block of four, whose dot products and shuffles
+//    overlap), into at most 64 scores in registers: the softmax takes one
+//    pass over them (max, then p and P.V), with no online rescale.
+//  - No tensor cores: a lane's whole product is at most 64 keys x 4 dims
+//    each way at D = 32 (~0.1 us of serial FMAs at T = 21), where 3xTF32
+//    mma.sync would need three products a tile and a split of every
+//    operand for the same result; the launch and the memory round trip
+//    are the cost.
 //
-// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): at the context
-// shape [4,4,2048,32] f32 the kernel must move q, k, v and o once, 16.8 MB,
-// 5.0 us at 3.35 TB/s. The arithmetic is 4*D FLOPs per visible pair; with
-// the repo's resets every 200 steps 4.1e8 FLOPs, 2.5 us as 3xTF32 at 495
-// TFLOP/s (6.1 us on the CUDA cores at 67), so the bound is bytes; with no
-// reset in the window 4.3e9 FLOPs, 26 us as 3xTF32: operations. The
-// kernel runs at several times either bound (PERF.md): per 64-key tile a
-// CTA waits on the tensor cores (three products each way for f32) and
-// spends as long again on the CUDA cores splitting K and V and taking the
-// softmax, and at the model's short head dim (32) those phases are not yet
-// overlapped across tiles; a CTA that sees few tiles is held by its fixed
-// cost (segment scan, first load).
+// What bounds them on the H100 (NVIDIA H100 80GB HBM3, 700 W): at the
+// context shape [4,4,2048,32] f32 the kernel must move q, k, v and o once,
+// 16.8 MB, 5.0 us at 3.35 TB/s. The arithmetic is 4*D FLOPs per visible
+// pair; with the repo's resets every 200 steps 4.1e8 FLOPs, 2.5 us as
+// 3xTF32 at 495 TFLOP/s (6.1 us on the CUDA cores at 67), so the bound is
+// bytes; with no reset in the window 4.3e9 FLOPs, 26 us as 3xTF32:
+// operations. The wgmma kernel runs at several times either bound
+// (PERF.md): per 64-key tile a CTA waits on the tensor cores (three
+// products each way for f32) and spends as long again on the CUDA cores
+// splitting K and V and taking the softmax, and at the model's short head
+// dim (32) those phases are not yet overlapped across tiles; a CTA that
+// sees few tiles is held by its fixed cost (segment scan, first load). The
+// small-tile shapes move 0.26 MB (act, 0.08 us) and 1.4 MB (train,
+// 0.4 us): their bound is bytes, but a launch that small is held by fixed
+// latencies (the launch, one memory round trip, a barrier), which its
+// design cuts to one of each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,144 +101,155 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;      // the mask floor of the TPU kernel
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// SIMT variant: at most one tile of queries and keys.
+// Small-tile design: at most one tile of queries and keys, CUDA cores.
 // ---------------------------------------------------------------------------
 
-constexpr int kSimtMaxT = 64;              // Tq and Tk it is chosen for
-constexpr int kSimtBlockQ = 64;            // query rows per CTA
-constexpr int kSimtBlockK = 32;            // keys per shared-memory tile
-constexpr int kSimtThreads = 2 * kSimtBlockQ;  // two lanes per query row
+constexpr int kSimtMaxT = 64;          // Tq and Tk it is chosen for
+constexpr int kRowLanes = 8;           // lanes per query row
+constexpr int kKeyBlock = 4;           // keys scored between two branches
+constexpr int kSimtMaxThreads = kRowLanes * kSimtMaxT;
+// Dynamic shared memory a CTA may take: one (b, h) needs at most 64 K and
+// V rows of 128 f32 (64 KB) and their segment ids.
+constexpr int kSimtSmemCap = 96 * 1024;
 
-// Each query row belongs to a pair of adjacent lanes; each lane of the pair
-// owns half of the D dimensions (interleaved 4-float chunks, so the pair's
-// float4 reads of a shared key row fall in different banks) and the pair
-// completes each dot product with one warp shuffle.
+// A CTA owns `per_cta` consecutive (b, h) and kRowLanes lanes for each of
+// their query rows; lane g of a row owns the 4-element chunks 8c + g of a
+// D-row (dims 32c + 4g .. + 3), so the 8 lanes of one row read a key row's
+// 128 bytes in one conflict-free phase and complete each dot product with
+// three shuffles. Every load is issued at once: the lane's chunks of its q
+// row and its seg_q into registers, the CTA's K and V rows (only the keys
+// some row may see) and seg_k into shared memory by cp.async in the input
+// type; one wait and one barrier. Each row then scores only the keys that
+// exist and are causally visible, takes a single-pass softmax over them
+// (at most 64 scores in registers: no online rescale) and accumulates P.V.
 template <int D, typename T>
-__global__ void __launch_bounds__(kSimtThreads)
+__global__ void __launch_bounds__(kSimtMaxThreads)
 flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ seg_q,
                       const int* __restrict__ seg_k, T* __restrict__ o,
-                      float* __restrict__ lse, int heads, int tq, int tk,
-                      int causal) {
-  static_assert(D % 8 == 0, "D must be a multiple of 8");
-  constexpr int kHalf = D / 2;     // dimensions owned by one lane
-  constexpr int kChunks = D / 8;   // float4 chunks owned by one lane
+                      float* __restrict__ lse, int bh_total, int heads,
+                      int tq, int tk, int causal, int per_cta) {
+  static_assert(D % (4 * kRowLanes) == 0, "D must be a multiple of 32");
+  constexpr int kC = D / (4 * kRowLanes);    // chunks a lane owns
+  constexpr int kUnits = D * sizeof(T) / 16;  // 16-byte units of a row
+  extern __shared__ __align__(16) unsigned char simt_smem[];
+  const int kn = causal ? min(tk, tq) : tk;  // keys some row may see
+  T* k_s = reinterpret_cast<T*>(simt_smem);
+  T* v_s = k_s + per_cta * kn * D;
+  int* segk_s = reinterpret_cast<int*>(v_s + per_cta * kn * D);
 
-  __shared__ __align__(16) float k_s[kSimtBlockK][D];
-  __shared__ __align__(16) float v_s[kSimtBlockK][D];
-  __shared__ int segk_s[kSimtBlockK];
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int q0 = blockIdx.y * kSimtBlockQ;
+  const int bh0 = blockIdx.x * per_cta;
+  const int n_heads = min(per_cta, bh_total - bh0);
   const int tid = threadIdx.x;
-  const int row = q0 + tid / 2;
-  const int half = tid & 1;
-  const bool row_ok = row < tq;
+  const int row_id = tid / kRowLanes;
+  const int g = tid % kRowLanes;
+  const int h = row_id / tq;
+  const int i = row_id % tq;
+  const bool row_ok = h < n_heads;
+  const int hs = row_ok ? h : 0;  // lanes without a row read head 0
+  const size_t bh = static_cast<size_t>(bh0 + hs);
 
-  // Lane `half` owns dims 8*c + 4*half + e, c < kChunks, e < 4.
-  float qr[kHalf];
-  float acc[kHalf];
-  const float sqrt_d = sqrtf(static_cast<float>(D));
-  const size_t q_base = (static_cast<size_t>(bh) * tq + (row_ok ? row : 0)) * D;
+  float qr[4 * kC] = {};
+  int sq = 0;
+  if (row_ok) {
+    const T* qrow = q + (bh * tq + i) * D;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+    for (int c = 0; c < kC; ++c) {
+      float x[4];
+      load4(qrow + 4 * (8 * c + g), x);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 8 * c + 4 * half + e;
-      qr[4 * c + e] = row_ok ? to_f32(q[q_base + d]) / sqrt_d : 0.f;
-      acc[4 * c + e] = 0.f;
+      for (int e = 0; e < 4; ++e) qr[4 * c + e] = x[e];
     }
+    sq = seg_q[(bh / heads) * tq + i];
   }
-  const int sq = row_ok ? seg_q[static_cast<size_t>(b) * tq + row] : 0;
+  const int head_units = kn * kUnits;
+  for (int u = tid; u < n_heads * head_units; u += blockDim.x) {
+    const int hh = u / head_units;
+    const int off = 16 * (u % head_units);
+    const size_t src = static_cast<size_t>(bh0 + hh) * tk * D;
+    copy_unit(k_s + hh * kn * D, k + src, off);
+    copy_unit(v_s + hh * kn * D, v + src, off);
+  }
+  for (int u = tid; u < n_heads * kn; u += blockDim.x) {
+    const int b = (bh0 + u / kn) / heads;
+    cp_async4(segk_s + u, seg_k + static_cast<size_t>(b) * tk + u % kn);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // Keys this row scores, and the most any row of the warp does (the
+  // loops run to the warp's bound, so the shuffles see every lane).
+  const int j_row = row_ok ? (causal ? min(i + 1, tk) : tk) : 0;
+  const int j_warp = __reduce_max_sync(0xffffffffu, j_row);
+  const T* kh = k_s + hs * kn * D;
+  const T* vh = v_s + hs * kn * D;
+  const int* skh = segk_s + hs * kn;
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+
+  // Keys go in blocks of kKeyBlock: one branch a block, and the block's
+  // dot products and shuffles overlap. A key past the staged ones (in the
+  // warp's last block) reads the last staged row and scores -inf.
+  float s[kSimtMaxT];
   float m = -INFINITY;
-  float l = 0.f;
-
-  // Causal: keys past the tile's last row are masked for every row here.
-  const int k_end = causal ? min(tk, min(q0 + kSimtBlockQ, tq)) : tk;
-  const size_t kv_base = static_cast<size_t>(bh) * tk * D;
-
-  for (int k0 = 0; k0 < k_end; k0 += kSimtBlockK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < kSimtBlockK * D; idx += kSimtThreads) {
-      const int r = idx / D;
-      const int c = idx % D;
-      const int kr = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (kr < tk) {
-        const size_t g = kv_base + static_cast<size_t>(kr) * D + c;
-        kv = to_f32(k[g]);
-        vv = to_f32(v[g]);
-      }
-      k_s[r][c] = kv;
-      v_s[r][c] = vv;
-    }
-    if (tid < kSimtBlockK) {
-      const int kr = k0 + tid;
-      segk_s[tid] = kr < tk ? seg_k[static_cast<size_t>(b) * tk + kr] : 0;
-    }
-    __syncthreads();
-
-    float s[kSimtBlockK];
-    float tile_max = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kSimtBlockK; ++j) {
+  for (int j0 = 0; j0 < kSimtMaxT; j0 += kKeyBlock) {
+    if (j0 >= j_warp) break;  // straight to the loop's end
+#pragma unroll
+    for (int j = j0; j < j0 + kKeyBlock; ++j) {
+      const int jr = min(j, kn - 1);
       float part = 0.f;
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 kk =
-            *reinterpret_cast<const float4*>(&k_s[j][8 * c + 4 * half]);
-        part += qr[4 * c] * kk.x + qr[4 * c + 1] * kk.y +
-                qr[4 * c + 2] * kk.z + qr[4 * c + 3] * kk.w;
+      for (int c = 0; c < kC; ++c) {
+        float x[4];
+        load4(kh + jr * D + 4 * (8 * c + g), x);
+        part += qr[4 * c] * x[0] + qr[4 * c + 1] * x[1] +
+                qr[4 * c + 2] * x[2] + qr[4 * c + 3] * x[3];
       }
-      float sj = part + __shfl_xor_sync(0xffffffffu, part, 1);
-      const int kpos = k0 + j;
-      const bool visible =
-          segk_s[j] == sq && (causal == 0 || row >= kpos);
-      sj = kpos >= tk ? -INFINITY : (visible ? sj : kNegInf);
-      s[j] = sj;
-      tile_max = fmaxf(tile_max, sj);
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      part += __shfl_xor_sync(0xffffffffu, part, 4);
+      // Past this row's keys: no key (-inf); masked: the floor.
+      s[j] = j >= j_row ? -INFINITY
+                        : (skh[jr] == sq ? part * scale : kNegInf);
+      m = fmaxf(m, s[j]);
     }
-
-    const float m_new = fmaxf(m, tile_max);
-    const float shift = m_new > kNegInf / 2 ? m_new : 0.f;
-    const float scale_old = m > kNegInf / 2 ? expf(m - shift) : 0.f;
-    m = m_new;
-    l *= scale_old;
+  }
+  // A row whose max is at the floor is fully masked: p = 0 everywhere.
+  const float shift = m > kNegInf / 2 ? m : 0.f;
+  float l = 0.f;
+  float acc[4 * kC];
 #pragma unroll
-    for (int d = 0; d < kHalf; ++d) acc[d] *= scale_old;
+  for (int d = 0; d < 4 * kC; ++d) acc[d] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kSimtBlockK; ++j) {
-      const float p = expf(s[j] - shift);
+  for (int j0 = 0; j0 < kSimtMaxT; j0 += kKeyBlock) {
+    if (j0 >= j_warp) break;
+#pragma unroll
+    for (int j = j0; j < j0 + kKeyBlock; ++j) {
+      const float p = exp2f((s[j] - shift) * kLog2e);
       l += p;
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(&v_s[j][8 * c + 4 * half]);
-        acc[4 * c] += p * vv.x;
-        acc[4 * c + 1] += p * vv.y;
-        acc[4 * c + 2] += p * vv.z;
-        acc[4 * c + 3] += p * vv.w;
+      for (int c = 0; c < kC; ++c) {
+        float x[4];
+        load4(vh + min(j, kn - 1) * D + 4 * (8 * c + g), x);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * c + e] += p * x[e];
       }
     }
   }
 
   if (!row_ok) return;
   const float safe_l = l > 0.f ? l : 1.f;
+  T* orow = o + (bh * tq + i) * D;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      store(&o[q_base + 8 * c + 4 * half + e], acc[4 * c + e] / safe_l);
-    }
+  for (int c = 0; c < kC; ++c) {
+    const float x[4] = {acc[4 * c] / safe_l, acc[4 * c + 1] / safe_l,
+                        acc[4 * c + 2] / safe_l, acc[4 * c + 3] / safe_l};
+    store_out4(orow + 4 * (8 * c + g), x);
   }
-  if (half == 0) {
-    const float shift = m > kNegInf / 2 ? m : 0.f;
-    lse[static_cast<size_t>(bh) * tq + row] =
-        l > 0.f ? shift + logf(safe_l) : INFINITY;
-  }
+  if (g == 0) lse[bh * tq + i] = l > 0.f ? shift + logf(safe_l) : INFINITY;
 }
 
 // ---------------------------------------------------------------------------
@@ -286,7 +317,6 @@ __device__ __forceinline__ void ss_steps(float (&d)[N / 2], uint32_t a,
 
 // List flag of a tile in which every pair is visible (no mask needed).
 constexpr int kFullTile = 1 << 30;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -672,9 +702,25 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
   if (tq <= kSimtMaxT && tk <= kSimtMaxT) {
-    const dim3 grid(bh, (tq + kSimtBlockQ - 1) / kSimtBlockQ);
-    flash_fwd_simt_kernel<D, T><<<grid, kSimtThreads, 0, stream>>>(
-        qt, kt, vt, seg_q, seg_k, ot, lse, heads, tq, tk, causal);
+    if (bh == 0 || tq == 0) return cudaSuccess;  // no row to compute
+    static const cudaError_t configured = cudaFuncSetAttribute(
+        flash_fwd_simt_kernel<D, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSimtSmemCap);
+    if (configured != cudaSuccess) return configured;
+    // Short rows share a CTA: up to a warp's rows (four (b, h) at Tq = 1),
+    // as shared memory allows; longer ones get a CTA a (b, h).
+    const int kn = causal ? min(tk, tq) : tk;
+    const int head_bytes = kn * (2 * D * static_cast<int>(sizeof(T)) + 4);
+    int per_cta = tq <= 4 ? 4 / tq : 1;
+    if (head_bytes > 0) {
+      per_cta = max(1, min(per_cta, kSimtSmemCap / head_bytes));
+    }
+    const int threads = (per_cta * tq * kRowLanes + 31) / 32 * 32;
+    const int grid = (bh + per_cta - 1) / per_cta;
+    flash_fwd_simt_kernel<D, T><<<grid, threads, per_cta * head_bytes,
+                                  stream>>>(qt, kt, vt, seg_q, seg_k, ot,
+                                            lse, bh, heads, tq, tk, causal,
+                                            per_cta);
     return cudaGetLastError();
   }
   // Above 48 KB a block's shared memory must be asked for (once).

@@ -1,8 +1,9 @@
 // Shared-memory operand tiles and the pieces around them that the flash
 // kernels (flash_fwd.cu, flash_bwd.cu) share on Hopper (sm_90a): element
 // conversions, the 128-byte swizzled K-major tile layout and its wgmma
-// descriptors, mbarriers and bulk copies on the TMA engine, the 3xTF32
-// split, and wgmma products whose A operand comes from registers.
+// descriptors, mbarriers and bulk copies on the TMA engine, cp.async
+// copies, the 3xTF32 split, and wgmma products whose A operand comes from
+// registers.
 
 #pragma once
 
@@ -101,6 +102,32 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// Asynchronous copies of 16 (bypassing L1) or 4 bytes from device memory
+// into shared memory; every copy a thread issued has landed after its
+// cp_async_wait_all (a barrier then makes them visible to the CTA).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+// The 16 bytes at byte `off` of a row, `src` in device memory to `dst` in
+// shared memory.
+template <typename T>
+__device__ __forceinline__ void copy_unit(T* dst, const T* src, int off) {
+  cp_async16(reinterpret_cast<unsigned char*>(dst) + off,
+             reinterpret_cast<const unsigned char*>(src) + off);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Generic-proxy writes to shared memory become visible to wgmma and TMA.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -136,6 +163,16 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Four consecutive outputs (16- or 8-byte aligned) in one store.
+__device__ __forceinline__ void store_out4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store_out4(__nv_bfloat16* p,
+                                           const float (&x)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
 }
 
 // Four consecutive operand elements at `dst` (within one 16-byte unit):

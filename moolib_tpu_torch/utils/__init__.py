@@ -12,7 +12,7 @@ _EXPORTS = {
     **dict.fromkeys(("get_logger", "set_log_level", "set_logging"),
                     "logging"),
     "RollingQuantile": "quantile",
-    "StepWindowProfiler": "profiling",
+    **dict.fromkeys(("StepWindowProfiler", "profile_trace"), "profiling"),
     **dict.fromkeys(("HostStaged", "stage_host_async"), "staging"),
     **dict.fromkeys(("StatMax", "StatMean", "StatSum", "Stats"), "stats"),
     **dict.fromkeys(("Ewma", "Timer"), "timer"),

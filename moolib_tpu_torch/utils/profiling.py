@@ -1,6 +1,6 @@
-"""Profiler capture of a training loop's step window: the counterpart of
-:mod:`moolib_tpu.utils.profiling`'s ``StepWindowProfiler`` on
-:mod:`torch.profiler`.
+"""Profiler capture on :mod:`torch.profiler`: the counterpart of
+:mod:`moolib_tpu.utils.profiling`. ``profile_trace`` captures a with-block,
+``StepWindowProfiler`` a training loop's step window.
 
 A capture window records the host's operators and, on the card, its
 CUDA kernels and memory copies, and is written as a Chrome trace
@@ -13,11 +13,12 @@ so a telemetry dump shows where the capture sat beside the RPC spans.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
-from typing import Optional
+from typing import Iterator, Optional
 
-__all__ = ["StepWindowProfiler"]
+__all__ = ["profile_trace", "StepWindowProfiler"]
 
 TRACE_FILE = "trace.json"
 
@@ -60,6 +61,21 @@ def _start(logdir: str):
 def _stop(prof, logdir: str) -> None:
     prof.__exit__(None, None, None)
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str) -> Iterator[None]:
+    """Capture a torch.profiler trace into ``logdir`` (``TRACE_FILE``, a
+    Chrome trace) for the duration of the with-block: the host's
+    operators always, the card's kernels and copies when the process has
+    a card."""
+    wall0 = time.time()
+    prof = _start(logdir)
+    try:
+        yield
+    finally:
+        _stop(prof, logdir)
+        _record_window(logdir, wall0)
 
 
 class StepWindowProfiler:

@@ -54,6 +54,12 @@ def _segments(layout, gen, B, Tq, Tk, causal, device):
         return seg_q, episodes(Tk, 40) + 1000  # every row fully masked
     elif layout == "tq_ne_tk":
         return episodes(Tq, 70), episodes(Tk, 70)
+    elif layout == "short":
+        # Resets every 5 steps, so segments cut a one-tile window; q and
+        # kv ids drawn apart when Tq != Tk (some rows see no key).
+        seg_q = episodes(Tq, 5)
+        if Tq != Tk:
+            return seg_q, episodes(Tk, 5)
     else:
         raise ValueError(layout)
     return seg_q, seg_q
@@ -69,8 +75,42 @@ LAYOUTS = [  # (layout, Tq, Tk)
     ("tq_ne_tk", 200, 333),
 ]
 
+# At most one tile (the small-tile forward and the fused backward):
+# (layout, Tq, Tk, B, H), the lengths at and beside the warp and tile
+# edges, Tq != Tk both ways, fully masked rows ("random" non-causal and
+# "disjoint"), and B*H of 1, 3 and 129 (not multiples of the forward's
+# packing of four (b, h) a CTA at Tq = 1, nor of two at Tq = 2).
+SMALL_LAYOUTS = [
+    *[("short", t, t, 2, 3) for t in (1, 2, 21, 32, 33, 63, 64)],
+    ("short", 1, 21, 2, 3),
+    ("short", 21, 1, 2, 3),
+    ("short", 2, 63, 2, 3),
+    ("short", 33, 64, 2, 3),
+    ("short", 64, 32, 2, 3),
+    ("random", 63, 63, 2, 3),
+    ("disjoint", 1, 1, 2, 3),
+    ("disjoint", 21, 33, 2, 3),
+    ("short", 1, 1, 1, 1),
+    ("short", 1, 1, 1, 3),
+    ("short", 1, 1, 43, 3),
+    ("short", 2, 2, 43, 3),
+    ("short", 21, 21, 1, 1),
+    ("short", 21, 21, 43, 3),
+]
 
-@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda x: f"{x[0]}-{x[1]}")
+
+def _small_id(x):
+    return f"{x[0]}-{x[1]}-{x[2]}-bh{x[3] * x[4]}"
+
+
+def _shape(layout):
+    """(name, Tq, Tk, B, H) of a layout; B, H = 2, 3 unless it says."""
+    return layout if len(layout) > 3 else (*layout, 2, 3)
+
+
+@pytest.mark.parametrize(
+    "layout", LAYOUTS + SMALL_LAYOUTS,
+    ids=lambda x: f"{x[0]}-{x[1]}" if len(x) == 3 else _small_id(x))
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
@@ -79,10 +119,10 @@ def test_flash_kernel_matches_plain(card, D, dtype, causal, layout):
     non-monotone ids, boundaries at and beside a tile edge, kv ids that
     no query shares, Tq != Tk), at ragged lengths (100, 300, 2047 leave
     ragged query and key tiles); in the "random" layout non-causal kv
-    segments leave some rows fully masked."""
-    name, Tq, Tk = layout
+    segments leave some rows fully masked. SMALL_LAYOUTS run the
+    small-tile design at its edges."""
+    name, Tq, Tk, B, H = _shape(layout)
     gen = torch.Generator(device=card).manual_seed(D + Tq)
-    B, H = 2, 3
     q = torch.randn((B, H, Tq, D), generator=gen, device=card).to(dtype)
     k, v = (torch.randn((B, H, Tk, D), generator=gen, device=card).to(dtype)
             for _ in range(2))
@@ -103,10 +143,11 @@ def test_flash_kernel_matches_plain(card, D, dtype, causal, layout):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [21, 2048])
+@pytest.mark.parametrize("T", [1, 21, 2048])
 def test_flash_kernel_is_repeatable(card, dtype, T):
     """No atomics and a fixed order of tiles: two launches give the same
-    bits (T=21 runs the SIMT design, T=2048 the wgmma one)."""
+    bits (T=1 and T=21 run the small-tile design, T=2048 the wgmma
+    one)."""
     gen = torch.Generator(device=card).manual_seed(T)
     q, k, v = (torch.randn((2, 4, T, 32), generator=gen, device=card)
                .to(dtype) for _ in range(3))
@@ -201,13 +242,36 @@ BACKWARD_LAYOUTS = LAYOUTS + [
     ("alternating", 50, 50),
     ("disjoint", 40, 40),
     ("tq_ne_tk", 21, 60),
-]
+] + SMALL_LAYOUTS
+
+
+def _term_scales(q, k, v, seg_q, seg_k, o, lse, do, causal):
+    """Each gradient's largest sum of the magnitudes of its terms, in f64:
+    dq_i = sum_j p_ij (dp_ij - delta_i) k_j / sqrt(D) sums terms of size
+    p_ij (|dp_ij| + |delta_i|) |k_j| / sqrt(D), dk_j the same over i with
+    q_i, dv_j = sum_i p_ij dO_i. A change of summation order moves a sum
+    by a multiple of eps times this, whatever the sum is: where a row
+    sees one key, o = v, so dp = delta and its dq and dk terms cancel to
+    zero up to that rounding."""
+    B, H, Tq, D = q.shape
+    q, k, v, o, do = (t.double() for t in (q, k, v, o, do))
+    scale = 1.0 / D ** 0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    lse = lse.double().reshape(B, H, Tq, 1)
+    visible = tattn._visible(seg_q, seg_k, Tq, k.shape[2], causal)
+    p = torch.where(visible & torch.isfinite(lse), torch.exp(s - lse), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    delta = (do * o).sum(-1, keepdim=True)
+    w = p * (dp.abs() + delta.abs())
+    dq = torch.einsum("bhqk,bhkd->bhqd", w, k.abs()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", w, q.abs()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.abs())
+    return [float(g.max()) for g in (dq, dk, dv)]
 
 
 def _backward_case(card, D, dtype, causal, layout, seed):
-    name, Tq, Tk = layout
+    name, Tq, Tk, B, H = _shape(layout)
     gen = torch.Generator(device=card).manual_seed(seed)
-    B, H = 2, 3
     q, do = (torch.randn((B, H, Tq, D), generator=gen, device=card)
              .to(dtype) for _ in range(2))
     k, v = (torch.randn((B, H, Tk, D), generator=gen, device=card).to(dtype)
@@ -217,8 +281,9 @@ def _backward_case(card, D, dtype, causal, layout, seed):
     return q, k, v, seg_q, seg_k, o, lse, do
 
 
-@pytest.mark.parametrize("layout", BACKWARD_LAYOUTS,
-                         ids=lambda x: f"{x[0]}-{x[1]}-{x[2]}")
+@pytest.mark.parametrize(
+    "layout", BACKWARD_LAYOUTS,
+    ids=lambda x: f"{x[0]}-{x[1]}-{x[2]}" if len(x) == 3 else _small_id(x))
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
@@ -229,7 +294,11 @@ def test_flash_backward_kernels_match_plain(card, D, dtype, causal, layout):
     tiles on both sides; fully masked rows in "random" non-causal and
     "disjoint"). Tolerance: f32, summation order (1e-4 of each
     gradient's largest entry); bf16 gradients, one rounding of the f32
-    result on top (2**-7 relative); dq exactly 0 on fully masked rows."""
+    result on top (2**-7 relative); dq exactly 0 on fully masked rows.
+    SMALL_LAYOUTS have rows that see one key, whose dq and dk are exact
+    cancellations: there the f32 tolerance is 1e-4 of the larger of the
+    gradient's largest entry and its largest sum of term magnitudes
+    (_term_scales), the size summation order works on."""
     args = _backward_case(card, D, dtype, causal, layout, D + layout[1])
     q, k, v, seg_q, seg_k, o, lse, do = args
     design = _kernels.flash_bwd_design(q.shape[2], k.shape[2])
@@ -242,9 +311,11 @@ def test_flash_backward_kernels_match_plain(card, D, dtype, causal, layout):
         kerns)
     want = tattn._flash_backward_plain(*args, causal)
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
-    for g, ref in zip(got, want):
+    terms = (_term_scales(*args, causal) if len(layout) > 3
+             else [0.0] * 3)
+    for g, ref, term in zip(got, want, terms):
         assert g.dtype == dtype
-        scale = float(ref.float().abs().max())
+        scale = max(float(ref.float().abs().max()), term)
         torch.testing.assert_close(g.float(), ref.float(),
                                    atol=1e-4 * scale, rtol=rtol)
     masked = torch.isinf(lse).reshape(q.shape[:3])
@@ -254,11 +325,11 @@ def test_flash_backward_kernels_match_plain(card, D, dtype, causal, layout):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [21, 2048])
+@pytest.mark.parametrize("T", [1, 21, 2048])
 def test_flash_backward_is_repeatable(card, dtype, T):
     """Every output row has one owner (no atomics) and tiles run in a
-    fixed order: two backward passes give the same bits (T = 21 runs the
-    fused kernel, T = 2048 the wgmma kernels)."""
+    fixed order: two backward passes give the same bits (T = 1 and
+    T = 21 run the fused kernel, T = 2048 the wgmma kernels)."""
     args = _backward_case(card, 32, dtype, True, ("resets", T, T), T)
     first = tattn._flash_backward(*args, True)
     second = tattn._flash_backward(*args, True)
