@@ -1,0 +1,1 @@
+"""Found by name; see cellbench/lookup.py."""
