@@ -38,6 +38,7 @@ so: every rank applies the same reduced gradients.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
@@ -260,13 +261,31 @@ def _scoped(fn: Callable, stepscope, phase: str) -> Callable:
     return wrapped
 
 
+def _span(stepscope, name: str):
+    """``stepscope``'s profiler range ``name`` (no ledger entry), or no
+    range without a ``stepscope``."""
+    return _NO_SPAN if stepscope is None else stepscope.span(name)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
 def _make_grads(apply_fn: Callable, config: ImpalaConfig,
                 loss_fn: Callable, mesh=None, axis_name: str = "dp",
-                batch_axes: Optional[dict] = None) -> Callable:
+                batch_axes: Optional[dict] = None,
+                stepscope=None) -> Callable:
     """(model, batch) -> (grads by parameter name, metrics with
     ``grad_norm``, the norm before any clipping or scaling). With a
     ``mesh``: the loss of this rank's slice of ``batch``, then the
-    global-mean gradients and the dp-mean metrics."""
+    global-mean gradients and the dp-mean metrics. With a ``stepscope``
+    the loss, the forward inside it and the backward (with the reduce
+    and the norm) are its profiler spans ``loss``, ``forward`` and
+    ``backward``."""
+    forward = apply_fn
+    if stepscope is not None:
+        def forward(*args, **kwargs):
+            with stepscope.span("forward"):
+                return apply_fn(*args, **kwargs)
 
     def grads_of(model, batch):
         if mesh is not None:
@@ -274,17 +293,19 @@ def _make_grads(apply_fn: Callable, config: ImpalaConfig,
                                 axis_name=axis_name)
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
-        with f32_convolutions():
-            total, metrics = loss_fn(model, apply_fn, batch, config)
-            grads = torch.autograd.grad(total, [p for _, p in named],
-                                        allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for (n, p), g in zip(named, grads)}
-        metrics = dict(metrics)
-        if mesh is not None:
-            grads = dp_average_grads(grads, mesh, axis_name)
-            metrics = pmean_gradients(metrics, mesh, axis_name)
-        metrics["grad_norm"] = global_norm(grads.values())
+        with f32_convolutions(), _span(stepscope, "loss"):
+            total, metrics = loss_fn(model, forward, batch, config)
+        with _span(stepscope, "backward"):
+            with f32_convolutions():
+                grads = torch.autograd.grad(total, [p for _, p in named],
+                                            allow_unused=True)
+            grads = {n: torch.zeros_like(p) if g is None else g
+                     for (n, p), g in zip(named, grads)}
+            metrics = dict(metrics)
+            if mesh is not None:
+                grads = dp_average_grads(grads, mesh, axis_name)
+                metrics = pmean_gradients(metrics, mesh, axis_name)
+            metrics["grad_norm"] = global_norm(grads.values())
         return grads, metrics
 
     return grads_of
@@ -326,14 +347,18 @@ def make_impala_train_step(
     docstring); ``batch_axes`` maps top-level batch keys to the axis
     carrying the batch dimension (default axis 1, time-major
     [T, B, ...], except ``core_state``'s [B, ...] leaves on axis 0).
-    With a ``stepscope`` each call is its ``fwd_bwd`` phase."""
+    With a ``stepscope`` each call is its ``fwd_bwd`` phase, inside
+    which the profiler sees the spans ``loss`` (around ``forward``),
+    ``backward`` and ``optimizer``."""
     grads_of = _make_grads(apply_fn, config, loss_fn, mesh, axis_name,
-                           batch_axes)
+                           batch_axes, stepscope)
     apply = make_apply_step()
 
     def step(state: TrainState, batch: dict) -> Tuple[TrainState, dict]:
         grads, metrics = grads_of(state.model, batch)
-        return apply(state, grads), metrics
+        with _span(stepscope, "optimizer"):
+            state = apply(state, grads)
+        return state, metrics
 
     return _scoped(step, stepscope, "fwd_bwd")
 
@@ -358,9 +383,11 @@ def make_grad_step(
     ``grad_norm`` is the norm before scaling, as in the reference. With a
     ``mesh`` the gradients are the dp-mean over ``axis_name`` (the
     module's docstring), which the Accumulator then reduces across
-    cohorts. With a ``stepscope`` each call is its ``fwd_bwd`` phase."""
+    cohorts. With a ``stepscope`` each call is its ``fwd_bwd`` phase,
+    inside which the profiler sees the spans ``loss`` (around
+    ``forward``) and ``backward``."""
     grads_of = _make_grads(apply_fn, config, loss_fn, mesh, axis_name,
-                           batch_axes)
+                           batch_axes, stepscope)
 
     def step(model, batch):
         grads, metrics = grads_of(model, batch)

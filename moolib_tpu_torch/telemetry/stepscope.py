@@ -44,6 +44,13 @@ use the thread-safe low-level API instead::
 
     scope.observe_step(wall_s, {"queue_wait": w, "infer": s}, ts_us=t0)
 
+While ``torch.profiler`` records on the calling thread, every ``phase``
+(inside a step or not) also opens a profiler range named
+``stepscope.<phase>``, and :meth:`StepScope.span` opens such a range
+with no ledger entry, so a device trace can put each kernel under the
+phase whose host code launched it. With the profiler off a range costs
+one gate check, and the package never imports torch for it.
+
 Cost discipline: the context managers are gated on a single attribute
 snapshot taken at ``step()`` entry (so a mid-step ``Telemetry.on`` flip
 can never unbalance the phase stack); disabled mode is one attribute
@@ -55,7 +62,9 @@ event additionally stamps the composition onto the incident timeline.
 
 from __future__ import annotations
 
+import contextlib
 import re
+import sys
 import threading
 import time
 from collections import deque
@@ -107,6 +116,59 @@ FRACTION_GAUGES: Dict[str, str] = {
     "env": "stepscope_env_wait_fraction",
 }
 
+#: Prefix of the profiler ranges that phases and spans open.
+RANGE_PREFIX = "stepscope."
+
+#: ``torch._C._autograd._profiler_enabled``, found once torch is imported.
+_profiler_enabled = None
+
+
+def _profiling() -> bool:
+    """Whether torch's profiler records on this thread: never while torch
+    is not imported, so nothing here imports it."""
+    global _profiler_enabled
+    if _profiler_enabled is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return False
+        _profiler_enabled = torch._C._autograd._profiler_enabled
+    return _profiler_enabled()
+
+
+def _open_range(name: str):
+    """The handle of a newly opened profiler range ``name``, or None when
+    the profiler is not recording."""
+    if not _profiling():
+        return None
+    from torch.autograd.profiler import record_function
+
+    handle = record_function(name)
+    handle.__enter__()
+    return handle
+
+
+class _Span:
+    """A profiler range with no ledger entry (:meth:`StepScope.span`)."""
+
+    __slots__ = ("_name", "_handle")
+
+    def __init__(self, name: str):
+        self._name = name
+        self._handle = None
+
+    def __enter__(self) -> "_Span":
+        self._handle = _open_range(self._name)
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        if self._handle is not None:
+            self._handle.__exit__(None, None, None)
+            self._handle = None
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+
 #: Default trend tolerance for the fraction rows. Fractions are noisy at
 #: smoke scale (tens of steps on a shared CPU runner), so the band is
 #: wide — the detector's MAD floor tightens it automatically once the
@@ -149,16 +211,24 @@ class _StepCM:
 class _PhaseCM:
     """Reusable ``with scope.phase(name):`` context manager. Nesting is
     self-time: a child's duration is subtracted from its parent's
-    attribution, so the ledger never double-counts nested regions."""
+    attribution, so the ledger never double-counts nested regions.
 
-    __slots__ = ("_s", "name")
+    Each entry also pushes its profiler range's handle (None while the
+    profiler is off) onto the scope's range stack and each exit pops and
+    closes it: the object holds no per-entry state, so it stays
+    reentrant, and a range that opened closes even if the profiler
+    stopped meanwhile."""
+
+    __slots__ = ("_s", "name", "_range")
 
     def __init__(self, scope: "StepScope", name: str):
         self._s = scope
         self.name = name
+        self._range = RANGE_PREFIX + name
 
     def __enter__(self) -> "_PhaseCM":
         s = self._s
+        s._ranges.append(_open_range(self._range))
         if not s._active:
             return self
         # [name, t0, child_seconds]
@@ -167,6 +237,9 @@ class _PhaseCM:
 
     def __exit__(self, *exc: Any) -> bool:
         s = self._s
+        handle = s._ranges.pop()
+        if handle is not None:
+            handle.__exit__(None, None, None)
         if not s._active or not s._stack:
             return False
         frame = s._stack.pop()
@@ -185,7 +258,7 @@ class StepScope:
     :meth:`observe_step` for overlapping/off-thread producers, derived
     critical-path fractions as windowed registry gauges.
 
-    Threading contract: ``_active`` / ``_stack`` /
+    Threading contract: ``_active`` / ``_stack`` / ``_ranges`` /
     ``_ledger`` / ``_step_t0`` / ``_step_ts_us`` belong to the loop's
     owner thread and are NEVER touched under ``_lock``; the cumulative
     and windowed aggregates live only under ``_lock``. Registry metric
@@ -208,6 +281,8 @@ class StepScope:
         # Owner-thread step state (see class docstring).
         self._active = False
         self._stack: List[List[Any]] = []
+        # The open phases' profiler range handles (None: profiler off).
+        self._ranges: List[Any] = []
         self._ledger: Dict[str, float] = {}
         self._step_t0 = 0.0
         self._step_ts_us = 0
@@ -254,12 +329,21 @@ class StepScope:
 
     def phase(self, name: str) -> _PhaseCM:
         """Context manager attributing a region of the current step to
-        ``name``. No-op outside a ``step()`` (or when telemetry was off
-        at step entry)."""
+        ``name``. No-op for the ledger outside a ``step()`` (or when
+        telemetry was off at step entry); while the profiler records, it
+        opens the range ``stepscope.<name>`` in either case."""
         cm = self._phase_cm.get(name)
         if cm is None:
             cm = self._phase_cm.setdefault(name, _PhaseCM(self, name))
         return cm
+
+    def span(self, name: str):
+        """Context manager for the profiler range ``stepscope.<name>``
+        with no ledger entry: it marks where a region of a phase launches
+        its device work (the learner's ``forward``, ``loss`` and
+        ``backward`` inside ``fwd_bwd``). A no-op when the profiler is not
+        recording as it is called."""
+        return _Span(RANGE_PREFIX + name) if _profiling() else _NO_SPAN
 
     def note(self, name: str, seconds: float) -> None:
         """Attribute ``seconds`` of externally measured time (a callback

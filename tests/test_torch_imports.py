@@ -157,6 +157,10 @@ import json, sys
 import moolib_tpu_torch
 from moolib_tpu_torch.envpool import pool
 from moolib_tpu_torch.examples import envs
+from moolib_tpu_torch.telemetry import StepScope, Telemetry
+scope = StepScope("worker", telemetry=Telemetry("worker"))
+with scope.step(), scope.phase("env_wait"), scope.span("step"):
+    pass
 print(json.dumps(sorted(m for m in ("torch", "jax", "moolib_tpu")
                         if m in sys.modules)))
 """
@@ -165,7 +169,8 @@ print(json.dumps(sorted(m for m in ("torch", "jax", "moolib_tpu")
 def test_an_env_worker_imports_no_torch():
     """What an EnvPool worker imports (the package, the pool module and
     the examples' envs) pulls in neither torch nor JAX: the package's
-    imports are lazy."""
+    imports are lazy, and a StepScope's phases and spans (which open
+    profiler ranges only while torch's profiler records) import none."""
     proc = subprocess.run(
         [sys.executable, "-c", _LIGHT_CHILD], cwd=str(REPO_ROOT),
         capture_output=True, text=True, timeout=120,

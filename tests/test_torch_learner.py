@@ -405,29 +405,60 @@ def _assert_ledger_closes(scope, steps, phases):
         "value"] == 0.0
 
 
+def _program_ranges(prof):
+    """{name: [(start_ns, end_ns)]} of the ``stepscope.*`` host ranges a
+    profile holds."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("stepscope."):
+            out.setdefault(e.name()[len("stepscope."):], []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    return out
+
+
+def _assert_ranges_nest(prof, steps, nests):
+    """Each step opened each range once, and each ``(inner, outer)``
+    range lies inside one of ``outer``'s."""
+    ranges = _program_ranges(prof)
+    names = {n for pair in nests for n in pair}
+    assert {n: len(ranges.get(n, [])) for n in names} == \
+        dict.fromkeys(names, steps), ranges
+    for inner, outer in nests:
+        for i0, i1 in ranges[inner]:
+            assert any(o0 <= i0 and i1 <= o1 for o0, o1 in ranges[outer]), \
+                (inner, outer)
+
+
 def test_scoped_train_step_is_bit_identical_and_its_ledger_closes():
     """stepscope= only times the step: parameters and metrics are the
-    unscoped step's bits; the ledger holds fwd_bwd and the caller's
-    host_sync and closes (phases + other == wall, no overrun)."""
+    unscoped step's bits, under the profiler too; the ledger holds
+    fwd_bwd and the caller's host_sync and closes (phases + other ==
+    wall, no overrun); the profiler sees forward inside loss inside
+    fwd_bwd, and backward and optimizer inside fwd_bwd."""
     scope = StepScope("learner", telemetry=Telemetry("t"))
     plain_state, scoped_state = _twins()
     plain = tlearner.make_impala_train_step()
     scoped = tlearner.make_impala_train_step(stepscope=scope)
-    for seed in range(2):
-        batch = _tbatch(_batch(20 + seed, pixels=False))
-        plain_state, pm = plain(plain_state, batch)
-        with scope.step():
-            scoped_state, sm = scoped(scoped_state, batch)
-            with scope.phase("host_sync"):
-                loss = float(sm["total_loss"])  # hotlint: sync -- the test compares each step's loss
-        assert loss == float(pm["total_loss"])  # hotlint: sync -- the test compares each step's loss
-        for name in pm:
-            assert torch.equal(pm[name], sm[name]), name
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for seed in range(2):
+            batch = _tbatch(_batch(20 + seed, pixels=False))
+            plain_state, pm = plain(plain_state, batch)
+            with scope.step():
+                scoped_state, sm = scoped(scoped_state, batch)
+                with scope.phase("host_sync"):
+                    loss = float(sm["total_loss"])  # hotlint: sync -- the test compares each step's loss
+            assert loss == float(pm["total_loss"])  # hotlint: sync -- the test compares each step's loss
+            for name in pm:
+                assert torch.equal(pm[name], sm[name]), name
     assert scoped_state.step == plain_state.step == 2
     for (n, a), b in zip(plain_state.model.state_dict().items(),
                          scoped_state.model.state_dict().values()):
         assert torch.equal(a, b), n
     _assert_ledger_closes(scope, 2, ("fwd_bwd", "host_sync"))
+    _assert_ranges_nest(prof, 2, [("forward", "loss"), ("loss", "fwd_bwd"),
+                                  ("backward", "fwd_bwd"),
+                                  ("optimizer", "fwd_bwd")])
     # Outside scope.step() a scoped step records nothing.
     scoped(scoped_state, _tbatch(_batch(30, pixels=False)))
     assert scope.summary()["steps"] == 2
@@ -435,24 +466,31 @@ def test_scoped_train_step_is_bit_identical_and_its_ledger_closes():
 
 def test_scoped_grad_apply_and_act_steps_are_bit_identical():
     """The elastic split with fwd_bwd and optimizer phases, and the act
-    step with its act phase, give the unscoped steps' bits."""
+    step with its act phase, give the unscoped steps' bits, under the
+    profiler too; the profiler sees forward inside loss inside fwd_bwd,
+    backward inside fwd_bwd, and the optimizer phase."""
     scope = StepScope("split", telemetry=Telemetry("t"))
     plain_state, scoped_state = _twins(1)
     batch = _tbatch(_batch(8, pixels=False))
     grads, gm = tlearner.make_grad_step(grad_scale=2.0)(plain_state.model,
                                                         batch)
     plain_state = tlearner.make_apply_step()(plain_state, grads)
-    with scope.step():
-        sgrads, sgm = tlearner.make_grad_step(
-            grad_scale=2.0, stepscope=scope)(scoped_state.model, batch)
-        scoped_state = tlearner.make_apply_step(stepscope=scope)(
-            scoped_state, sgrads)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with scope.step():
+            sgrads, sgm = tlearner.make_grad_step(
+                grad_scale=2.0, stepscope=scope)(scoped_state.model, batch)
+            scoped_state = tlearner.make_apply_step(stepscope=scope)(
+                scoped_state, sgrads)
     for name in gm:
         assert torch.equal(gm[name], sgm[name]), name
     for (n, a), b in zip(plain_state.model.state_dict().items(),
                          scoped_state.model.state_dict().values()):
         assert torch.equal(a, b), n
     _assert_ledger_closes(scope, 1, ("fwd_bwd", "optimizer"))
+    _assert_ranges_nest(prof, 1, [("forward", "loss"), ("loss", "fwd_bwd"),
+                                  ("backward", "fwd_bwd")])
+    assert len(_program_ranges(prof)["optimizer"]) == 1
 
     act_scope = StepScope("actor", telemetry=Telemetry("t"))
     obs = torch.from_numpy(np.random.default_rng(9).standard_normal(

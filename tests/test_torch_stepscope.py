@@ -12,6 +12,7 @@ equality between the packages (the same float operations in the same
 order); within a package the cases use the reference tests' own checks.
 """
 
+import contextlib
 import json
 import threading
 import time
@@ -341,3 +342,116 @@ def test_malicious_phase_names_bounded_by_cardinality_guard(pkg, clock):
                     if sid.startswith("stepscope_phase_seconds_total")]
     assert len(phase_series) <= 9
     assert any('phase="other"' in sid for sid in phase_series)
+
+
+# -- the port's profiler ranges (the reference opens none) -------------------
+
+
+def _program_ranges(prof):
+    """(name, start_ns, end_ns) of the ``stepscope.*`` host ranges a
+    profile holds, in order of their start."""
+    return sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.name().startswith("stepscope.")),
+                  key=lambda r: r[1])
+
+
+def _profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _drive(scope, clock, span):
+    """A span outside a step, then one step: nested phases and spans,
+    and the cached ``fwd_bwd`` phase entered again inside itself."""
+    with span("outside"):
+        clock.advance(0.5)
+    with scope.step():
+        with scope.phase("fwd_bwd"):
+            clock.advance(1.0)
+            with span("loss"):
+                with span("forward"):
+                    clock.advance(2.0)
+            with scope.phase("fwd_bwd"):
+                clock.advance(0.25)
+        with scope.phase("optimizer"):
+            clock.advance(0.5)
+
+
+def _inside(inner, outer):
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_ranges_leave_the_ledger_as_the_reference_keeps_it(clock, profiled):
+    """The port's ledger under the profiler or not equals the
+    reference's, which has no ranges: spans add no key, and their time
+    stays with the enclosing phase."""
+    ref = _scope(REF)
+    _drive(ref, clock, lambda name: contextlib.nullcontext())
+    port = _scope(PORT)
+    with _profile() if profiled else contextlib.nullcontext():
+        _drive(port, clock, port.span)
+    assert port.summary()["phases"] == {"fwd_bwd": 3.25, "optimizer": 0.5}
+    assert json.dumps(port.summary()) == json.dumps(ref.summary())
+    assert json.dumps(port._tel.snapshot()) == json.dumps(ref._tel.snapshot())
+    assert port._ranges == [] and port._stack == []
+
+
+@pytest.mark.parametrize("in_step", [False, True])
+def test_phase_and_span_open_nested_ranges_under_the_profiler(clock,
+                                                              in_step):
+    scope = _scope(PORT)
+    with _profile() as prof:
+        with scope.step() if in_step else contextlib.nullcontext():
+            with scope.phase("fwd_bwd"):
+                with scope.span("loss"), scope.span("forward"):
+                    clock.advance(1.0)
+                with scope.phase("fwd_bwd"):
+                    pass
+                with scope.span("backward"):
+                    pass
+    got = _program_ranges(prof)
+    assert [n for n, *_ in got] == [
+        "stepscope.fwd_bwd", "stepscope.loss", "stepscope.forward",
+        "stepscope.fwd_bwd", "stepscope.backward"]
+    outer, loss, forward, again, backward = got
+    assert _inside(forward, loss) and _inside(loss, outer)
+    assert _inside(again, outer) and _inside(backward, outer)
+    assert loss[2] <= again[1] <= again[2] <= backward[1]
+    assert scope.summary()["steps"] == int(in_step)
+
+
+def test_a_span_outside_a_step_is_a_no_op_for_the_ledger(clock):
+    scope = _scope(PORT)
+    with _profile():
+        with scope.span("outside"):
+            clock.advance(1.0)
+        assert scope._stack == [] and scope._ledger == {}
+        with scope.step():
+            with scope.span("inside"):
+                assert scope._stack == []
+                clock.advance(1.0)
+    assert scope.summary()["steps"] == 1
+    assert scope.summary()["phases"] == {"other": 1.0}
+
+
+def test_the_gate_is_read_when_a_range_opens(clock):
+    """With the profiler off nothing opens (a span is one shared no-op);
+    a phase opened before the profiler starts emits nothing, and one
+    open when it stops still closes."""
+    scope = _scope(PORT)
+    assert scope.span("a") is scope.span("b")
+    with scope.phase("before"):
+        assert scope._ranges == [None]
+        with _profile() as prof:
+            with scope.span("on"):
+                pass
+            late = scope.phase("late")
+            late.__enter__()
+            assert scope._ranges[-1] is not None
+    late.__exit__(None, None, None)
+    assert scope._ranges == []
+    assert [n for n, *_ in _program_ranges(prof)] == ["stepscope.on",
+                                                      "stepscope.late"]
