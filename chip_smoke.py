@@ -24,6 +24,12 @@ Phases, in order; any failure exits non-zero before the result line:
    (the fused one-tile kernel at Tq, Tk <= 64, the dQ and dK/dV kernels
    past it), over the forward's segment layouts; times as in phase 3,
    with SDPA's backward as the library call.
+4b. Max-pool vs plain: the max-pool kernels (ops/csrc/max_pool.cu) at
+   the learner's three pool inputs (bf16, 84x84x16, 42x42x32, 21x21x32)
+   over B=256 learn batches' 5,376 frames, forward and backward, held
+   bit for bit against the plain version on the card (the library's pool
+   over a -inf padded copy); the kernels' profiler device time beside
+   their byte bound and the plain version's (library) time.
 5. Serve: the full-width TransformerNet behind two Replicas (the act
    step at T=1 and a 2048-step context window), a few requests each,
    replies held against the same forward with plain dense attention
@@ -90,7 +96,8 @@ Phases, in order; any failure exits non-zero before the result line:
    class, the forward's, V-trace's and the optimizer's spans); the LSTM
    variant's act step for 32 envs, its state threaded over 4 steps,
    against the CPU; then bench_torch.py at B=256 (its JSON line) and one
-   of its steps profiled. No flash kernel runs on this path. The f32
+   of its steps profiled. No flash kernel runs on this path; both
+   max-pool kernels must launch. The f32
    and bf16 train steps get phase 6's ledgers and cost, and the act
    step its own (act, then host_sync reading the actions and logits
    back).
@@ -491,6 +498,12 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _flash_launches(launches: dict) -> dict:
+    """The flash kernels' launches of a {kernel name: count} that
+    launched any."""
+    return {k: n for k, n in launches.items() if k.startswith("flash_") and n}
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
     for _ in range(warmup):
@@ -681,9 +694,15 @@ def _ptxas_lines(log: str):
     for line in log.splitlines():
         m = re.search(r"(flash_[a-z_]+_kernel)ILi(\d+)E(f|13__nv_bfloat16)",
                       line)
-        if m and ("Compiling entry" in line or "Function properties" in line):
+        pool = re.search(r"(max_pool_same_[a-z]+_kernel)I(f|13__nv_bfloat16)"
+                         r"Li(\d+)E", line)
+        entry = "Compiling entry" in line or "Function properties" in line
+        if m and entry:
             dtype = "f32" if m.group(3) == "f" else "bf16"
             name = f"{m.group(1)}<D={m.group(2)},{dtype}>"
+        elif pool and entry:
+            dtype = "f32" if pool.group(2) == "f" else "bf16"
+            name = f"{pool.group(1)}<{dtype},P={pool.group(3)}>"
         elif any(w in line for w in ("registers", "spill", "warning",
                                      "Performance Loss")):
             yield name, line.strip()
@@ -739,8 +758,8 @@ def phase_build():
         for name, line in lines:
             log(f"[build] {lib.source.name} {name}: {line}")
         entries = set(re.findall(
-            r"Compiling entry function '\S*?(flash_\w+_kernelILi\d+E\w+?)E",
-            lib.build_log))
+            r"Compiling entry function '\S*?(flash_\w+_kernelILi\d+E\w+?|"
+            r"max_pool_same_\w+?_kernelI\w+?Li\d+E)E", lib.build_log))
         with_regs = {name for name, line in lines if "registers" in line}
         if not entries or len(with_regs) < len(entries):
             raise RuntimeError(f"{lib.source.name}: ptxas register lines "
@@ -1121,6 +1140,76 @@ def phase_backward_vs_plain():
     return results, timings
 
 
+# The learner's three pool inputs [C, H] (bf16) over B=256 learn batches'
+# frames, [T+1=21] x 256.
+POOL_SHAPES = ((16, 84), (32, 42), (32, 21))
+POOL_FRAMES = (UNROLL + 1) * 256
+
+
+def phase_max_pool():
+    """Phase 4b (see the module docstring): {"CxHxW": timings}."""
+    from moolib_tpu_torch.models.common import same_pads
+    from moolib_tpu_torch.models.impala import (_max_pool_same,
+                                                _max_pool_same_plain)
+    from moolib_tpu_torch.ops import _kernels
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for C, H in POOL_SHAPES:
+        N, Ho = POOL_FRAMES, -(-H // 2)
+        x = torch.randn((N, H, H, C), generator=gen, device="cuda").to(
+            torch.bfloat16).permute(0, 3, 1, 2).requires_grad_()
+        gy = torch.randn((N, Ho, Ho, C), generator=gen, device="cuda").to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        y = _max_pool_same(x)
+        (gx,) = torch.autograd.grad(y, x, gy)
+        y_ref = _max_pool_same_plain(x)
+        (gx_ref,) = torch.autograd.grad(y_ref, x, gy)
+        y, y_ref = y.detach(), y_ref.detach()
+        err = max(float((y.float() - y_ref.float()).abs().max()),
+                  float((gx.float() - gx_ref.float()).abs().max()))
+        if not (torch.equal(y, y_ref) and torch.equal(gx, gx_ref)):
+            raise RuntimeError(f"max-pool {C}x{H}x{H}: the kernels differ "
+                               f"from the plain version (max {err:.3e})")
+        pads = same_pads(H, 3, 2)
+        xd = x.detach()
+        in_bytes, out_bytes = N * C * H * H * 2, N * C * Ho * Ho * 2
+        fwd_bound = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        bwd_bound = (out_bytes + 2 * in_bytes) / HBM_BYTES_PER_S * 1e3
+        fwd = device_ms(lambda: _kernels.max_pool_same_fwd(xd, pads, pads),
+                        "max_pool_same_fwd", iters=10, floor_ms=fwd_bound)
+        bwd = device_ms(
+            lambda: _kernels.max_pool_same_bwd(xd, gy, pads, pads),
+            "max_pool_same_bwd", iters=10, floor_ms=bwd_bound)
+
+        def plain_fwd_bwd():
+            torch.autograd.grad(_max_pool_same_plain(x), x, gy)
+
+        # The training forward (x needs its gradient: the library's pool
+        # writes its indices).
+        plain_fwd = cuda_ms(lambda: _max_pool_same_plain(x), 5)
+        plain_all = cuda_ms(plain_fwd_bwd, 5)
+        if fwd is None or bwd is None:
+            raise RuntimeError(f"no profiler device time for the max-pool "
+                               f"kernels at {C}x{H}x{H}: {fwd}, {bwd}")
+        key = f"{C}x{H}x{H}"
+        out[key] = dict(
+            shape=[N, C, H, H], fwd_device_ms=fwd, bwd_device_ms=bwd,
+            fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound,
+            plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_all - plain_fwd,
+            max_abs_err=err)
+        log(f"[pool] {key} bf16 x{N}: bit for bit with plain | forward "
+            f"{fwd:.4f} ms (bound {fwd_bound:.4f}, {fwd_bound / fwd:.1%}), "
+            f"backward {bwd:.4f} ms (bound {bwd_bound:.4f}, "
+            f"{bwd_bound / bwd:.1%}) | plain (library) forward "
+            f"{plain_fwd:.4f} ms, backward {plain_all - plain_fwd:.4f} ms")
+        del x, gy, y, gx, y_ref, gx_ref, xd
+    torch.cuda.empty_cache()
+    log(f"[pool] phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_context_backward():
     """The long-T backward on its path: autograd through
     attention(backend="auto") at the context shape with the repo's resets,
@@ -1158,7 +1247,8 @@ def phase_context_backward():
     if max(errs.values()) > 1e-4:
         raise RuntimeError(f"context backward differs from dense: {errs}")
     want_launches = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1,
-                     "flash_bwd_tile": 0}
+                     "flash_bwd_tile": 0, "max_pool_same_fwd": 0,
+                     "max_pool_same_bwd": 0}
     if launches != want_launches:
         raise RuntimeError(f"context backward launches {launches}, want "
                            f"{want_launches}")
@@ -3618,9 +3708,11 @@ def _impala_run(run: "_AccRun") -> dict:
         out = _acc_readings("impala f32, 2 learners", reps["impala-0"], 0,
                             seconds, before)
         launches = [{k.name: k.launches for k in KERNELS}, run.ctl("kernels")]
-        if any(any(c.values()) for c in launches):
+        if any(_flash_launches(c) for c in launches) or not all(
+                c["max_pool_same_fwd"] and c["max_pool_same_bwd"]
+                for c in launches):
             raise RuntimeError(f"the impala learners launched a flash "
-                               f"kernel: {launches}")
+                               f"kernel or no max-pool kernel: {launches}")
     finally:
         run.close_learners()
     return out
@@ -4753,7 +4845,7 @@ def _zoo_a2c(smi, bar: dict) -> dict:
          f"{pixel[-1]['total_loss']:.4f}; flash launches {launches}", smi)
     if pixel[-1]["updates"] < 1 or not np.isfinite(pixel[-1]["total_loss"]):
         raise RuntimeError(f"the pixel a2c smoke: {pixel}")
-    if any(launches.values()):
+    if _flash_launches(launches) or not launches["max_pool_same_fwd"]:
         raise RuntimeError(f"the a2c path launched {launches}")
     return dict(wall_s=bar["wall_s"], updates=bar["updates"],
                 hits=bar["hits"], windows=bar["windows"],
@@ -4864,7 +4956,7 @@ def phase_zoo(smi, a2c_bar: dict) -> dict:
     remote = {f"{env} x{actors}": _zoo_remote(env, n, actors, stack, smi)
               for env, n, actors, stack in REMOTE_RUNS}
     remote_launches = {k.name: k.launches for k in KERNELS}
-    if any(remote_launches.values()):
+    if _flash_launches(remote_launches):
         raise RuntimeError(f"the remote actors path launched "
                            f"{remote_launches}")
     zlog(f"phase took {time.perf_counter() - t0:.1f} s", smi)
@@ -5957,6 +6049,19 @@ def _parity_kernels(smi) -> dict:
             ParityWatch(runs=PARITY_RUNS, enabled=True,
                         label=f"{kname} {where}").check(calls[kname])
             items.append(f"{kname} {list(shape)} {str(dtype)[6:]} ({where})")
+    C, H = POOL_SHAPES[0]
+    x = torch.randn((LEARN_B * (UNROLL + 1), H, H, C), generator=gen,
+                    device="cuda").to(torch.bfloat16).permute(0, 3, 1, 2)
+    pads = ((0, 1), (0, 1))
+    gy = _kernels.max_pool_same_fwd(x, *pads)
+    for kname, call in (
+            ("max_pool_same_fwd",
+             lambda: _kernels.max_pool_same_fwd(x, *pads)),
+            ("max_pool_same_bwd",
+             lambda: _kernels.max_pool_same_bwd(x, gy, *pads))):
+        ParityWatch(runs=PARITY_RUNS, enabled=True,
+                    label=f"{kname} learn").check(call)
+        items.append(f"{kname} {list(x.shape)} bfloat16 (learn)")
     launches = {kern.name: kern.launches for kern in _kernels.KERNELS}
     plog(f"kernels bitwise over {PARITY_RUNS} runs: {'; '.join(items)}",
          smi)
@@ -7190,7 +7295,7 @@ def _perf_suite(store: str, smi: str) -> dict:
     if e2e["steady_d2h"] != 0 or e2e["compile_delta"] != 0:
         raise RuntimeError(f"e2e_learner_step_s: {e2e}")
     launches = summary["kernel_launches"] or {k: 0 for k in _kernel_counts()}
-    if any(launches.values()):
+    if _flash_launches(launches):
         raise RuntimeError(f"the suite launched a flash kernel: {launches}")
 
     def gate(path):
@@ -7889,6 +7994,7 @@ def main() -> int:
     _, library_builds = phase_build()
     fwd_results, fwd_timings = phase_kernel_vs_plain()
     bwd_results, bwd_timings = phase_backward_vs_plain()
+    pool_timings = phase_max_pool()
     tels = {kind: _telemetry(kind) for kind in ("serve", "train", "impala")}
     serve_launches, served = phase_serve(tels["serve"])
     rpc = phase_rpc(served)
@@ -7898,9 +8004,11 @@ def main() -> int:
         kern.launches = 0
     impala = phase_impala(tels["impala"])
     impala_launches = {kern.name: kern.launches for kern in KERNELS}
-    if any(impala_launches.values()):
-        raise RuntimeError(f"the impala path launched a flash kernel: "
-                           f"{impala_launches}")
+    if _flash_launches(impala_launches) or not (
+            impala_launches["max_pool_same_fwd"]
+            and impala_launches["max_pool_same_bwd"]):
+        raise RuntimeError(f"the impala path launched a flash kernel or no "
+                           f"max-pool kernel: {impala_launches}")
     acc = phase_acc()
     # Before the e2e phase: the loops it runs record into the global
     # flight recorder, which every bundle merges in.
@@ -7998,6 +8106,22 @@ def main() -> int:
         bwd_timings["train (main path)"]["flash_bwd_tile"],
         max(b["errs"][g][0] for g in ("dq", "dk", "dv")), TRAIN_SHAPE, {},
     ))
+    for kname, way in (("max_pool_same_fwd", "fwd"),
+                       ("max_pool_same_bwd", "bwd")):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "moolib_tpu_torch/ops/csrc/max_pool.cu",
+            "replaces": "none (flax nn.max_pool, moolib_tpu/models/"
+                        "impala.py:81, an XLA op)",
+            "launches": sum(c[kname] for c in launches_by_path.values()),
+            "launches_by_path": {p: c[kname]
+                                 for p, c in launches_by_path.items()},
+            "shapes": {key: {k: v for k, v in t.items()
+                             if k in ("shape", "max_abs_err")
+                             or k.startswith((way, f"plain_{way}"))}
+                       for key, t in pool_timings.items()},
+            "parity": "pass",
+        })
     print(json.dumps({"kernels": kernels,
                       "train": {k: train[k] for k in
                                 ("step_ms", "step_host_ms", "breakdown",

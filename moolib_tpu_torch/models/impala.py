@@ -30,7 +30,8 @@ PyTorch's defaults:
 The convolutions run inside :func:`~moolib_tpu_torch.models.common.
 f32_convolutions` (full f32 on the card when ``compute_dtype`` is f32).
 The trunk runs channels-last: the NHWC frames become NCHW by a permuted
-view, which cuDNN takes as its NHWC layout.
+view, which cuDNN takes as its NHWC layout. On the card the max-pool is
+the port's own kernel pair (``ops/csrc/max_pool.cu``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import _kernels
 from ..parallel import collectives
 from ..parallel import tp as tp_ops
 from ..utils.device import resolve_device
@@ -84,11 +86,50 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype):
 
 
 def _max_pool_same(x: torch.Tensor) -> torch.Tensor:
-    """3x3 stride-2 max-pool with flax's "SAME" padding, NCHW."""
+    """3x3 stride-2 max-pool with flax's "SAME" padding, NCHW: the plain
+    version for a CPU tensor, the hand-written kernels
+    (``ops/csrc/max_pool.cu``) for a CUDA tensor (f32 or bf16; the output
+    channels-last)."""
+    if x.device.type == "cpu":
+        return _max_pool_same_plain(x)
+    if x.is_cuda:
+        return _MaxPoolSame.apply(x)
+    raise ValueError(f"_max_pool_same has no kernel for {x.device}")
+
+
+def _max_pool_same_plain(x: torch.Tensor) -> torch.Tensor:
+    """The pool in plain PyTorch: the input padded with -inf, then
+    ``max_pool2d``. Its rule, which the kernels keep: in each window,
+    walked in row-major order, an element takes the window when it is
+    above the running max or NaN, so the first maximum wins a tie, a NaN
+    wins, and a window holding nothing above -inf keeps its first
+    position (where that is a pad, its gradient is dropped)."""
     ph = same_pads(x.shape[-2], 3, 2)
     pw = same_pads(x.shape[-1], 3, 2)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
     return F.max_pool2d(x, 3, 2)
+
+
+class _MaxPoolSame(torch.autograd.Function):
+    """The pool on the card: the kernels pad inside their index
+    arithmetic, and the backward finds each window's argmax again from
+    the saved input, so only the input is saved (no indices, no padded
+    copy)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        pads = same_pads(x.shape[-2], 3, 2), same_pads(x.shape[-1], 3, 2)
+        # A no-op for a conv's output, which is channels-last already.
+        x = x.contiguous(memory_format=torch.channels_last)
+        ctx.save_for_backward(x)
+        ctx.pads = pads
+        return _kernels.max_pool_same_fwd(x, *pads)
+
+    @staticmethod
+    def backward(ctx, gy):
+        (x,) = ctx.saved_tensors
+        gy = gy.contiguous(memory_format=torch.channels_last)
+        return _kernels.max_pool_same_bwd(x, gy, *ctx.pads)
 
 
 class ResidualBlock(nn.Module):

@@ -39,6 +39,8 @@ __all__ = [
     "FLASH_BWD_TILE",
     "FLASH_FWD",
     "KERNELS",
+    "MAX_POOL_BWD",
+    "MAX_POOL_FWD",
     "TILE_MAX",
     "build_all",
     "build_count",
@@ -48,6 +50,8 @@ __all__ = [
     "flash_bwd_tile",
     "flash_fwd",
     "flash_fwd_design",
+    "max_pool_same_bwd",
+    "max_pool_same_fwd",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -197,7 +201,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 _FLASH_FWD_LIB = CudaLibrary("flash_fwd", "flash_fwd.cu")
 _FLASH_BWD_LIB = CudaLibrary("flash_bwd", "flash_bwd.cu")
-LIBRARIES = (_FLASH_FWD_LIB, _FLASH_BWD_LIB)
+_MAX_POOL_LIB = CudaLibrary("max_pool", "max_pool.cu")
+LIBRARIES = (_FLASH_FWD_LIB, _FLASH_BWD_LIB, _MAX_POOL_LIB)
 
 #: Flash-attention forward; replaces moolib_tpu/ops/attention.py
 #: ``_flash_kernel``.
@@ -221,12 +226,22 @@ FLASH_BWD_TILE = CudaKernel(
     "flash_bwd_tile", _FLASH_BWD_LIB,
     [_P] * 11 + [_I] * 7 + [_P],
 )
-KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKDV, FLASH_BWD_TILE)
+#: ImpalaNet's 3x3 stride-2 "SAME" max-pool over channels-last tensors,
+#: padding inside the kernel; replaces no TPU kernel (the reference pools
+#: with flax's ``nn.max_pool``, an XLA op).
+MAX_POOL_FWD = CudaKernel("max_pool_same_fwd", _MAX_POOL_LIB,
+                          [_P, _P] + [_I] * 9 + [_P])
+#: Its backward, the window's argmax found again from the input.
+MAX_POOL_BWD = CudaKernel("max_pool_same_bwd", _MAX_POOL_LIB,
+                          [_P, _P, _P] + [_I] * 9 + [_P])
+KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKDV, FLASH_BWD_TILE,
+           MAX_POOL_FWD, MAX_POOL_BWD)
 #: The longest Tq and Tk the fused backward kernel takes.
 TILE_MAX = 64
 
 _FLASH_D = (32, 64, 128)
-_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The dtype codes every kernel's C entry point takes.
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def build_all() -> None:
@@ -252,7 +267,7 @@ def _check_attention(name: str, q, k, v, seg_q, seg_k, *more):
     tensors = (q, k, v, seg_q, seg_k, *more)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{name} needs every input on one CUDA device")
-    if q.dtype not in _FLASH_DTYPES or not q.dtype == k.dtype == v.dtype:
+    if q.dtype not in _DTYPES or not q.dtype == k.dtype == v.dtype:
         raise ValueError(
             f"{name} takes q/k/v of one dtype, float32 or bfloat16; got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
@@ -298,7 +313,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _on_device(q.device, FLASH_FWD, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                seg_q.data_ptr(), seg_k.data_ptr(), o.data_ptr(),
                lse.data_ptr(), B * H, H, Tq, Tk, D, int(bool(causal)),
-               _FLASH_DTYPES[q.dtype])
+               _DTYPES[q.dtype])
     return o, lse
 
 
@@ -371,7 +386,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _on_device(q.device, FLASH_BWD_DQ, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), seg_q.data_ptr(), seg_k.data_ptr(),
                lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dq.data_ptr(),
-               B * H, H, Tq, Tk, D, int(bool(causal)), _FLASH_DTYPES[q.dtype])
+               B * H, H, Tq, Tk, D, int(bool(causal)), _DTYPES[q.dtype])
     return dq
 
 
@@ -389,7 +404,7 @@ def flash_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                v.data_ptr(), seg_q.data_ptr(), seg_k.data_ptr(),
                lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dk.data_ptr(),
                dv.data_ptr(), B * H, H, Tq, Tk, D, int(bool(causal)),
-               _FLASH_DTYPES[q.dtype])
+               _DTYPES[q.dtype])
     return dk, dv
 
 
@@ -413,5 +428,66 @@ def flash_bwd_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                v.data_ptr(), seg_q.data_ptr(), seg_k.data_ptr(), o.data_ptr(),
                lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                dv.data_ptr(), B * H, H, Tq, Tk, D, int(bool(causal)),
-               _FLASH_DTYPES[q.dtype])
+               _DTYPES[q.dtype])
     return dq, dk, dv
+
+
+def _check_pool(name: str, x: torch.Tensor, pads_h: Tuple[int, int],
+                pads_w: Tuple[int, int]) -> Tuple[int, int]:
+    """The checks both max-pool kernels make of the input and the pads;
+    returns the output's (Ho, Wo)."""
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{name} takes float32 or bfloat16; got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"{name} wants x [N,C,H,W]; got {tuple(x.shape)}")
+    if not x.is_cuda:
+        raise ValueError(f"{name} needs a CUDA tensor; got {x.device}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{name} needs a channels-last contiguous x")
+    if not all(0 <= p < 3 for p in (*pads_h, *pads_w)):
+        # A window must hold at least one pixel of the input.
+        raise ValueError(f"{name} takes pads of 0 to 2; got {pads_h}, "
+                         f"{pads_w}")
+    H, W = x.shape[2:]
+    return (H + sum(pads_h) - 3) // 2 + 1, (W + sum(pads_w) - 3) // 2 + 1
+
+
+def max_pool_same_fwd(x: torch.Tensor, pads_h: Tuple[int, int],
+                      pads_w: Tuple[int, int]) -> torch.Tensor:
+    """Launch the 3x3 stride-2 max-pool forward: x [N,C,H,W]
+    channels-last contiguous (f32 or bf16), padded (top, bottom) by
+    ``pads_h`` and (left, right) by ``pads_w`` with -inf -> [N,C,Ho,Wo]
+    channels-last, in x's dtype."""
+    Ho, Wo = _check_pool("max_pool_same_fwd", x, pads_h, pads_w)
+    N, C, H, W = x.shape
+    y = torch.empty((N, C, Ho, Wo), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    if y.numel():
+        _on_device(x.device, MAX_POOL_FWD, x.data_ptr(), y.data_ptr(), N, H,
+                   W, C, Ho, Wo, pads_h[0], pads_w[0], _DTYPES[x.dtype])
+    return y
+
+
+def max_pool_same_bwd(x: torch.Tensor, gy: torch.Tensor,
+                      pads_h: Tuple[int, int],
+                      pads_w: Tuple[int, int]) -> torch.Tensor:
+    """Launch the max-pool backward: the forward's x and pads and the
+    output's gradient gy (like the output, channels-last contiguous) ->
+    x's gradient, like x."""
+    Ho, Wo = _check_pool("max_pool_same_bwd", x, pads_h, pads_w)
+    N, C, H, W = x.shape
+    if (tuple(gy.shape) != (N, C, Ho, Wo) or gy.dtype != x.dtype
+            or gy.device != x.device):
+        raise ValueError(
+            f"max_pool_same_bwd wants gy {(N, C, Ho, Wo)} {x.dtype} on "
+            f"{x.device}; got {tuple(gy.shape)} {gy.dtype} on {gy.device}"
+        )
+    if not gy.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("max_pool_same_bwd needs a channels-last "
+                         "contiguous gy")
+    gx = torch.empty_like(x, memory_format=torch.channels_last)
+    if gx.numel():
+        _on_device(x.device, MAX_POOL_BWD, x.data_ptr(), gy.data_ptr(),
+                   gx.data_ptr(), N, H, W, C, Ho, Wo, pads_h[0], pads_w[0],
+                   _DTYPES[x.dtype])
+    return gx

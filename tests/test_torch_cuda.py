@@ -12,7 +12,8 @@ import torch.nn.functional as F
 
 from moolib_tpu_torch import ImpalaNet, TransformerNet, make_grad_step
 from moolib_tpu_torch.models.common import same_pads
-from moolib_tpu_torch.models.impala import _conv, _max_pool_same
+from moolib_tpu_torch.models.impala import (_conv, _max_pool_same,
+                                            _max_pool_same_plain)
 from moolib_tpu_torch.ops import _kernels
 from moolib_tpu_torch.ops import attention as tattn
 
@@ -224,8 +225,9 @@ def test_auto_backward_launches_every_kernel_once(card, T):
     out = tattn.attention(q, k, v, backend="auto", causal=True,
                           segment_ids=seg)
     got = torch.autograd.grad((out * w).sum(), (q, k, v))
-    # flash_fwd, flash_bwd_dq, flash_bwd_dkdv, flash_bwd_tile
-    want_launches = [1, 0, 0, 1] if T <= 64 else [1, 1, 1, 0]
+    # flash_fwd, flash_bwd_dq, flash_bwd_dkdv, flash_bwd_tile, and the
+    # max-pool's two
+    want_launches = [1, 0, 0, 1, 0, 0] if T <= 64 else [1, 1, 1, 0, 0, 0]
     assert [kern.launches - n for kern, n in
             zip(_kernels.KERNELS, before)] == want_launches
     ref = tattn.dense_attention(q, k, v, causal=True, segment_ids=seg)
@@ -466,6 +468,188 @@ def test_train_step_replays_bitwise_on_the_card(card):
         return {"state": train_state_to_host(state), "metrics": metrics}
 
     ParityWatch(runs=3, enabled=True, label="train step").check(update)
+
+
+# -- the max-pool kernels ------------------------------------------------------
+
+# (N, C, H, W): the learner's three pools (a few dozen frames), the
+# space_to_depth(2) net's first pool, C that is no multiple of a 16-byte
+# vector (one element at a time), rows too wide for one tile's shared
+# memory (tiled by channels; by columns), frames that share a tile, and
+# a 1x1 input.
+POOL_SHAPES = [(48, 16, 84, 84), (48, 32, 42, 42), (48, 32, 21, 21),
+               (48, 16, 42, 42), (5, 12, 13, 11), (3, 6, 24, 24),
+               (2, 2048, 9, 9), (2, 8, 3, 2000), (600, 8, 5, 6),
+               (4, 8, 1, 1)]
+
+
+def _pool_input(gen, shape, dtype, kind, device):
+    """A channels-last [N, C, H, W] input: "normal" draws (bf16 rounding
+    leaves some ties), or "ties" (integers in -2..2, ties in nearly every
+    window)."""
+    N, C, H, W = shape
+    if kind == "ties":
+        x = torch.randint(-2, 3, (N, H, W, C), generator=gen, device=device)
+    else:
+        x = torch.randn((N, H, W, C), generator=gen, device=device)
+    return x.to(dtype).permute(0, 3, 1, 2)
+
+
+def _pool_both(x, gy, pool):
+    xg = x.detach().clone().requires_grad_()
+    y = pool(xg)
+    y.backward(gy)
+    return y.detach(), xg.grad
+
+
+@pytest.mark.parametrize("shape", POOL_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+def test_max_pool_kernels_match_plain_bit_for_bit(card, shape, dtype, kind):
+    """The kernels against the plain version on the card (the library's
+    channels-last pool over a -inf padded copy), which keeps the same
+    rule (first maximum of a tie) and sums a pixel's gradients in f32 in
+    the same order: the output and the input's gradient bit for bit, both
+    channels-last, and one launch each way."""
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    x = _pool_input(gen, shape, dtype, kind, card)
+    N, C, H, W = shape
+    gy = _pool_input(gen, (N, C, -(-H // 2), -(-W // 2)), dtype, kind, card)
+    before = (_kernels.MAX_POOL_FWD.launches, _kernels.MAX_POOL_BWD.launches)
+    y, gx = _pool_both(x, gy, _max_pool_same)
+    assert (_kernels.MAX_POOL_FWD.launches - before[0],
+            _kernels.MAX_POOL_BWD.launches - before[1]) == (1, 1)
+    want_y, want_gx = _pool_both(x, gy, _max_pool_same_plain)
+    assert y.dtype == gx.dtype == dtype
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert gx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, want_y)
+    assert torch.equal(gx, want_gx)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_max_pool_kernels_keep_the_plain_rule_on_nan_and_minus_inf(card,
+                                                                   dtype):
+    """NaNs (the last of a window wins), windows of -inf (the first
+    position keeps the window; a pad's gradient is dropped) and signed
+    zeros: the kernels against the plain version on the CPU, whose rule
+    the CPU tests pin (the library's channels-last pool on the card sends
+    a window of -inf elsewhere), run in f32 on the same values and
+    rounded to the dtype once, as the kernels sum (the CPU's bf16
+    backward rounds each sum). An input that is not channels-last and
+    sits off a 16-byte boundary takes the one-element path."""
+    gen = torch.Generator().manual_seed(5)
+    N, C, H, W = 3, 16, 21, 20
+    x = torch.randn((N, C, H, W), generator=gen)
+    x[torch.rand(x.shape, generator=gen) < 0.1] = float("nan")
+    x[0, :, :6] = float("-inf")
+    x[1, :, 3:9, 2:7] = -0.0
+    x[1, :, 5:8, 4:9] = 0.0
+    gy = torch.randn((N, C, 11, 10), generator=gen)
+    x, gy = x.to(dtype), gy.to(dtype)
+    want_y, want_gx = _pool_both(x.float(), gy.float(), _max_pool_same_plain)
+    want_y, want_gx = want_y.to(dtype), want_gx.to(dtype)
+    for layout in ("channels_last", "nchw_offset"):
+        xc = x.to(card).contiguous(memory_format=torch.channels_last)
+        if layout == "nchw_offset":
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=card)
+            xc = buf[1:].view(x.shape).copy_(x)
+        y, gx = _pool_both(xc, gy.to(card), _max_pool_same)
+        y = y.cpu()
+        nan = want_y.isnan()
+        assert torch.equal(y.isnan(), nan)
+        # -0.0 and 0.0 tie; NaNs may carry either sign.
+        assert torch.equal(y[~nan], want_y[~nan])
+        assert torch.equal(y[~nan].signbit(), want_y[~nan].signbit())
+        assert torch.equal(gx.cpu().isnan(), want_gx.isnan())
+        torch.testing.assert_close(gx.cpu(), want_gx, rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+def test_max_pool_kernels_replay_bitwise(card):
+    """The backward gathers with no atomics: three runs on the same
+    inputs give the same bits."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = _pool_input(gen, (64, 16, 84, 84), torch.bfloat16, "normal", card)
+    gy = _pool_input(gen, (64, 16, 42, 42), torch.bfloat16, "normal", card)
+    runs = [_pool_both(x, gy, _max_pool_same) for _ in range(3)]
+    for y, gx in runs[1:]:
+        assert torch.equal(y, runs[0][0]) and torch.equal(gx, runs[0][1])
+
+
+def test_impala_train_step_pools_through_the_kernels_only(card):
+    """One bf16 ImpalaNet grad step at the learner's frame size launches
+    each pool kernel three times (one a ConvSequence), and the trace
+    holds no library max-pool and no pad, on the host or on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    T, B, A = 2, 4, 6
+    net = ImpalaNet(A, compute_dtype=torch.bfloat16, device=card,
+                    generator=gen)
+    batch = {
+        "obs": torch.randint(0, 256, (T + 1, B, 84, 84, 4), generator=gen,
+                             device=card, dtype=torch.uint8),
+        "done": torch.zeros((T + 1, B), dtype=torch.bool, device=card),
+        "rewards": torch.randn((T + 1, B), generator=gen, device=card),
+        "actions": torch.randint(0, A, (T, B), generator=gen, device=card),
+        "behavior_logits": torch.randn((T, B, A), generator=gen,
+                                       device=card),
+        "core_state": (),
+    }
+    step = make_grad_step()
+    before = (_kernels.MAX_POOL_FWD.launches, _kernels.MAX_POOL_BWD.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(net, batch)
+        torch.cuda.synchronize()
+    assert (_kernels.MAX_POOL_FWD.launches - before[0],
+            _kernels.MAX_POOL_BWD.launches - before[1]) == (3, 3)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("max_pool_same_fwd_kernel" in n for n in names) == 3, names
+    assert sum("max_pool_same_bwd_kernel" in n for n in names) == 3, names
+    library = {e.name for e in prof.events()
+               if e.name.startswith(("aten::max_pool", "aten::constant_pad",
+                                     "aten::pad"))}
+    library |= {n for n in names if "max_pool" in n and "same" not in n}
+    assert not library, library
+
+
+def test_impala_train_step_replays_bitwise_on_the_card(card):
+    """A seeded bf16 ImpalaNet train step, three runs from one state
+    under ParityWatch: parameters, Adam's state and the metrics bit for
+    bit through the pool kernels and cuDNN's deterministic algorithms."""
+    import copy
+
+    from moolib_tpu_torch import ClippedAdam, make_impala_train_step
+    from moolib_tpu_torch.learner import make_train_state, train_state_to_host
+    from moolib_tpu_torch.testing import ParityWatch
+
+    gen = torch.Generator(device=card).manual_seed(4)
+    T, B, A = 4, 8, 6
+    net0 = ImpalaNet(A, compute_dtype=torch.bfloat16, device=card,
+                     generator=gen)
+    batch = {
+        "obs": torch.randint(0, 256, (T + 1, B, 84, 84, 4), generator=gen,
+                             device=card, dtype=torch.uint8),
+        "done": torch.zeros((T + 1, B), dtype=torch.bool, device=card),
+        "rewards": torch.randn((T + 1, B), generator=gen, device=card),
+        "actions": torch.randint(0, A, (T, B), generator=gen, device=card),
+        "behavior_logits": torch.randn((T, B, A), generator=gen,
+                                       device=card),
+        "core_state": (),
+    }
+    step = make_impala_train_step()
+
+    def update():
+        net = copy.deepcopy(net0)
+        opt = ClippedAdam(net.parameters(), 6e-4, max_norm=40.0)
+        state, metrics = step(make_train_state(net, opt), batch)
+        return {"state": train_state_to_host(state), "metrics": metrics}
+
+    ParityWatch(runs=3, enabled=True, label="impala train step").check(update)
 
 
 def _tie_margin(net, obs) -> float:

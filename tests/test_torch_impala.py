@@ -22,6 +22,7 @@ Tolerances:
 """
 
 import functools
+import re
 
 import flax.linen as fnn
 import jax
@@ -41,6 +42,7 @@ from moolib_tpu_torch.models import (
     space_to_depth,
     widen_impala_params,
 )
+from moolib_tpu_torch.models.common import same_pads
 from moolib_tpu_torch.models.impala import _max_pool_same
 
 T1, B, A = 3, 2, 6
@@ -181,10 +183,10 @@ def test_widen_matches_reference_and_computes_the_baseline():
     np.testing.assert_allclose(bw.numpy(), bb.numpy(), rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("size", [84, 42, 21])
+@pytest.mark.parametrize("size", [84, 42, 21, 11])
 def test_max_pool_same_padding_matches_reference(size):
-    """flax pads (0, 1) at 84 and 42 and (1, 1) at 21; max_pool2d's own
-    padding=1 pads (1, 1) and picks other windows."""
+    """flax pads (0, 1) at 84 and 42 and (1, 1) at 21 and 11; max_pool2d's
+    own padding=1 pads (1, 1) and picks other windows at even sizes."""
     x = np.random.default_rng(size).standard_normal(
         (2, size, size, 3)).astype(np.float32)
     want = np.asarray(fnn.max_pool(jnp.asarray(x), (3, 3), strides=(2, 2),
@@ -194,7 +196,160 @@ def test_max_pool_same_padding_matches_reference(size):
     np.testing.assert_array_equal(got, want)
     naive = F.max_pool2d(nchw, 3, 2, padding=1).permute(0, 2, 3, 1).numpy()
     assert naive.shape == want.shape
-    assert np.array_equal(naive, want) == (size == 21)
+    assert np.array_equal(naive, want) == (size % 2 == 1)
+
+
+@pytest.mark.parametrize("size", [84, 42, 21, 11])
+def test_max_pool_same_gradient_matches_reference(size):
+    """The plain pool's backward against flax's (under disable_jit: the
+    jitted CPU gradients differ where windows nearly tie), on inputs with
+    no tie at all (a permutation) and integer cotangents, so that every
+    sum is exact and the two agree bit for bit."""
+    rng = np.random.default_rng(size)
+    x = rng.permutation(2 * size * size * 3).reshape(2, size, size, 3)
+    x = (x / 7.0).astype(np.float32)
+    ho = -(-size // 2)
+    ct = rng.integers(-8, 9, (2, ho, ho, 3)).astype(np.float32)
+
+    def pool(v):
+        return fnn.max_pool(v, (3, 3), strides=(2, 2), padding="SAME")
+
+    with jax.disable_jit():
+        _, vjp = jax.vjp(pool, jnp.asarray(x))
+        (want,) = vjp(jnp.asarray(ct))
+    nchw = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    _max_pool_same(nchw).backward(torch.from_numpy(ct).permute(0, 3, 1, 2))
+    np.testing.assert_array_equal(nchw.grad.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(want))
+
+
+def _pool_by_rule(x, cotangent):
+    """The pool's rule written out, one window at a time, on a [H, W]
+    array padded as flax's "SAME" pads: walk the 3x3 window in row-major
+    order from its first position with the running max at -inf; an
+    element takes the window when it is above the max or NaN; the
+    window's gradient goes to the position that took it last (dropped
+    when that is a pad). Returns (output, the input's gradient)."""
+    H, W = x.shape
+    (pt, pb), (pl, pr) = same_pads(H, 3, 2), same_pads(W, 3, 2)
+    padded = np.pad(x, ((pt, pb), (pl, pr)), constant_values=-np.inf)
+    Ho, Wo = (H + pt + pb - 3) // 2 + 1, (W + pl + pr - 3) // 2 + 1
+    out = np.empty((Ho, Wo), x.dtype)
+    grad = np.zeros((H + pt + pb, W + pl + pr), np.float64)
+    for oh in range(Ho):
+        for ow in range(Wo):
+            best, at = -np.inf, (2 * oh, 2 * ow)
+            for dy in range(3):
+                for dx in range(3):
+                    v = padded[2 * oh + dy, 2 * ow + dx]
+                    if v > best or np.isnan(v):
+                        best, at = v, (2 * oh + dy, 2 * ow + dx)
+            out[oh, ow] = best
+            grad[at] += cotangent[oh, ow]
+    return out, grad[pt:pt + H, pl:pl + W]
+
+
+def _rule_cases():
+    rng = np.random.default_rng(3)
+    ties = rng.integers(0, 3, (9, 8)).astype(np.float32)
+    nan = rng.standard_normal((7, 7)).astype(np.float32)
+    nan[rng.random(nan.shape) < 0.2] = np.nan
+    nan[0, 0] = nan[1, 0] = np.nan  # two NaNs in one window: the later wins
+    low = np.full((7, 6), -np.inf, np.float32)  # every window holds only -inf
+    low[4, 3] = 1.0
+    return {"ties": ties, "nan": nan, "-inf": low,
+            "zeros": np.array([[-0.0, 0.0, 0.0], [0.0, -0.0, 0.0]],
+                              np.float32)}
+
+
+@pytest.mark.parametrize("case", ["ties", "nan", "-inf", "zeros"])
+def test_max_pool_same_plain_keeps_the_rule_the_kernels_keep(case):
+    """Ties go to the first maximum in row-major order (-0.0 and 0.0 tie),
+    a NaN wins (the last one of its window), and a window of -inf keeps
+    its first position, whose gradient is dropped where it is a pad: the
+    plain version against the rule written out, values and gradients."""
+    x = _rule_cases()[case]
+    H, W = x.shape
+    Ho, Wo = -(-H // 2), -(-W // 2)
+    ct = (np.arange(Ho * Wo).reshape(Ho, Wo) + 1).astype(np.float32)
+    want, want_grad = _pool_by_rule(x, ct)
+    nchw = torch.from_numpy(x)[None, None].requires_grad_()
+    got = _max_pool_same(nchw)
+    got.backward(torch.from_numpy(ct)[None, None])
+    np.testing.assert_array_equal(got.detach()[0, 0].numpy(), want)
+    np.testing.assert_array_equal(np.signbit(got.detach()[0, 0].numpy()),
+                                  np.signbit(want))
+    np.testing.assert_array_equal(nchw.grad[0, 0].numpy(),
+                                  want_grad.astype(np.float32))
+
+
+def test_max_pool_same_takes_the_plain_version_for_a_cpu_tensor(monkeypatch):
+    """A CPU tensor of any dtype takes the plain version and launches no
+    kernel; a device with no kernel raises, as do the kernels' wrappers
+    for a dtype or a device they do not take, before any build."""
+    from moolib_tpu_torch.models import impala
+    from moolib_tpu_torch.ops import _kernels
+
+    def refuse(*args):
+        raise AssertionError("a kernel wrapper was called for a CPU tensor")
+
+    monkeypatch.setattr(_kernels, "max_pool_same_fwd", refuse)
+    monkeypatch.setattr(_kernels, "max_pool_same_bwd", refuse)
+    builds = _kernels.build_count()
+    x = torch.randn((2, 5, 9, 9), generator=torch.Generator().manual_seed(0))
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        xd = x.detach().to(dtype).requires_grad_()
+        y = impala._max_pool_same(xd)
+        want = impala._max_pool_same_plain(xd.detach())
+        assert torch.equal(y.detach(), want) and y.dtype == dtype
+        y.sum().backward()
+        assert xd.grad.shape == xd.shape
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        impala._max_pool_same(torch.empty((1, 1, 4, 4), device="meta"))
+    monkeypatch.undo()
+    pads = ((0, 1), (0, 1))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        _kernels.max_pool_same_fwd(x.half(), *pads)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        _kernels.max_pool_same_bwd(x.double(), x.double(), *pads)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _kernels.max_pool_same_fwd(x, *pads)
+    with pytest.raises(ValueError, match=r"\[N,C,H,W\]"):
+        _kernels.max_pool_same_fwd(x[0], *pads)
+    assert _kernels.build_count() == builds
+
+
+def test_max_pool_kernels_are_registered_and_importing_builds_nothing():
+    """The pool's library and its two kernels are in LIBRARIES and
+    KERNELS (so build_all, the launch counts and the compile count see
+    them), named so that a device trace classes them as the max-pool,
+    and importing the kernels' module in a fresh interpreter builds no
+    library."""
+    import subprocess
+    import sys
+
+    from moolib_tpu_torch.ops import _kernels
+
+    lib = _kernels.MAX_POOL_FWD.library
+    assert lib is _kernels.MAX_POOL_BWD.library and lib in _kernels.LIBRARIES
+    assert lib.source.name == "max_pool.cu" and lib.source.exists()
+    assert {_kernels.MAX_POOL_FWD, _kernels.MAX_POOL_BWD} <= set(
+        _kernels.KERNELS)
+    kernel_names = re.findall(r"__global__ void __launch_bounds__\([^)]*\)"
+                              r"\s+(\w+)\(", lib.source.read_text())
+    assert kernel_names == ["max_pool_same_fwd_kernel",
+                            "max_pool_same_bwd_kernel"]
+    for name in kernel_names:
+        assert not re.search(r"conv|fprop|wgrad|dgrad|gemm|cutlass|flash_|"
+                             r"fft|cf32", name)
+    probe = ("import moolib_tpu_torch.models.impala\n"
+             "from moolib_tpu_torch.ops import _kernels\n"
+             "print(_kernels.build_count(), "
+             "[lib.builds for lib in _kernels.LIBRARIES])")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["0", "[0,", "0,", "0]"]
 
 
 def test_lstm_core_reset_everywhere_gives_zero_state_outputs():

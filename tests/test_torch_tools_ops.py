@@ -116,7 +116,8 @@ def test_launch_local_runs_two_cpu_peers_to_their_end(tmp_path):
     for d in done:
         assert d["updates"] > 0
         assert set(d["kernel_launches"]) == {
-            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "flash_bwd_tile"}
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "flash_bwd_tile",
+            "max_pool_same_fwd", "max_pool_same_bwd"}
     groups = set()
     for i in range(2):
         rows = plot.read_tsv(str(tmp_path / f"peer{i}" / "logs.tsv"))
@@ -530,4 +531,4 @@ def test_gen_api_docs_committed_tree_is_current():
     """)], 180)
     assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
     assert "docs up to date" in proc.stdout
-    assert "builds 0 [0, 0]" in proc.stdout
+    assert "builds 0 [0, 0, 0]" in proc.stdout
